@@ -1,0 +1,126 @@
+"""Policy network (torch counterpart of ``exposure_tpu/models/networks.py``).
+
+Inputs keep the JAX package's NHWC layout; the modules permute to NCHW for
+the convolutions.  Three details carry the flax semantics over:
+
+- ``SAME`` padding of a 4x4 stride-2 convolution is ``padding=1`` at even
+  input sizes (64 -> 32 -> 16 -> 8 -> 4); odd sizes are refused.
+- flax flattens the final feature map in NHWC order, so the map is
+  permuted back to NHWC before ``flatten``.
+- dropout stays on at serving, as in the reference.  It is applied
+  explicitly from a caller's ``torch.Generator`` (``nn.Dropout`` would
+  follow ``train()``/``eval()`` instead); with keep probability 1 it is
+  the identity, as flax ``Dropout(rate=0)`` is.
+"""
+
+import torch
+import torch.nn as nn
+
+from exposure_tpu_torch.utils.ops import lrelu
+
+MIN_FEATURE_MAP_SIZE = 4   # the convs stop at a 4x4 map
+
+
+def dropout(x, keep_prob, generator):
+    """Inverted dropout that is on whatever the module mode."""
+    if keep_prob >= 1.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) < keep_prob
+    return x * keep / keep_prob
+
+
+class FeatureExtractor(nn.Module):
+    """Strided-conv feature pyramid -> flat feature vector with dropout."""
+
+    def __init__(self, in_channels, output_dim, base_channels=32,
+                 dropout_keep_prob=0.5, input_size=64):
+        super().__init__()
+        min_size = MIN_FEATURE_MAP_SIZE
+        if output_dim % (min_size ** 2):
+            raise ValueError('output_dim must be a multiple of %d'
+                             % min_size ** 2)
+        self.output_dim = output_dim
+        self.dropout_keep_prob = dropout_keep_prob
+        self.input_size = input_size
+        widths = [base_channels]
+        size = input_size // 2
+        channels = base_channels
+        while size > min_size:
+            if size == min_size * 2:
+                channels = output_dim // (min_size ** 2)
+            else:
+                channels *= 2
+            widths.append(channels)
+            size //= 2
+        ins = [in_channels] + widths[:-1]
+        self.convs = nn.ModuleList(
+            nn.Conv2d(c_in, c_out, 4, stride=2, padding=1)
+            for c_in, c_out in zip(ins, widths))
+
+    def forward(self, x, generator=None):
+        """[B, S, S, C] NHWC -> [B, output_dim]."""
+        if x.shape[1] != self.input_size or x.shape[2] != self.input_size:
+            raise ValueError('expected %dx%d input, got %s'
+                             % (self.input_size, self.input_size,
+                                tuple(x.shape)))
+        x = (x - 0.5).permute(0, 3, 1, 2)
+        for conv in self.convs:
+            if x.shape[-1] % 2 or x.shape[-2] % 2:
+                raise ValueError('SAME padding equals padding=1 only at '
+                                 'even sizes, got %s' % (tuple(x.shape),))
+            x = lrelu(conv(x))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], self.output_dim)
+        return dropout(x, self.dropout_keep_prob, generator)
+
+
+class PolicyNet(nn.Module):
+    """Per-filter raw parameter heads and selector logits.
+
+    ``filter_output_dims`` holds n_params + n_mask_params per filter (the
+    mask part is present even when masking is off)."""
+
+    def __init__(self, in_channels, filter_output_dims,
+                 feature_extractor_dims=4096, base_channels=32, fc1_size=128,
+                 dropout_keep_prob=0.5, input_size=64):
+        super().__init__()
+        self.filter_output_dims = tuple(filter_output_dims)
+
+        def extractor():
+            return FeatureExtractor(in_channels, feature_extractor_dims,
+                                    base_channels, dropout_keep_prob,
+                                    input_size)
+
+        self.shared_extractor = extractor()
+        self.filter_fc1 = nn.ModuleList(
+            nn.Linear(feature_extractor_dims, fc1_size)
+            for _ in self.filter_output_dims)
+        self.filter_fc2 = nn.ModuleList(
+            nn.Linear(fc1_size, d) for d in self.filter_output_dims)
+        self.selector_extractor = extractor()
+        self.selector_fc1 = nn.Linear(feature_extractor_dims, fc1_size)
+        self.selector_fc2 = nn.Linear(fc1_size, len(self.filter_output_dims))
+
+    def forward(self, enriched, generator=None):
+        """[B, S, S, C] -> (list of [B, out_j] raw heads, [B, K] logits)."""
+        shared = self.shared_extractor(enriched, generator)
+        raw_params = [fc2(lrelu(fc1(shared)))
+                      for fc1, fc2 in zip(self.filter_fc1, self.filter_fc2)]
+        sel = self.selector_extractor(enriched, generator)
+        logits = self.selector_fc2(lrelu(self.selector_fc1(sel)))
+        return raw_params, logits
+
+
+def build_policy(cfg, filters):
+    """The ``PolicyNet`` a config and its filter bank call for."""
+    return PolicyNet(
+        in_channels=3 + (cfg.num_state_dim if cfg.img_include_states else 0),
+        filter_output_dims=[
+            f.get_num_filter_parameters() + f.get_num_mask_parameters()
+            for f in filters],
+        feature_extractor_dims=cfg.feature_extractor_dims,
+        base_channels=cfg.base_channels,
+        fc1_size=cfg.fc1_size,
+        dropout_keep_prob=cfg.dropout_keep_prob,
+        input_size=cfg.source_img_size)
+

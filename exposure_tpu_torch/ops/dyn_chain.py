@@ -1,0 +1,408 @@
+"""Dynamic filter-chain replay: the port of the TPU kernel
+``_dyn_chain_kernel`` / ``pallas_apply_filter_chain_dynamic``
+(``exposure_tpu/ops/pallas_chain.py``).
+
+``apply_filter_chain_dynamic`` applies a K-step chain with per-image ids,
+running only each image's selected branch.  On a CUDA tensor it launches
+the hand-written kernel ``csrc/dyn_chain.cu`` (one launch for the whole
+batch) or raises; on a CPU tensor it runs the plain PyTorch version
+``apply_filter_chain_dynamic_reference`` in this module, which groups the
+images of each step by id and applies the same branch math.
+
+The branch math below mirrors the kernel's device functions: the exact set
+(``_exposure`` ... ``_saturation``), the fast set that the serving path
+uses (``_gamma_fast``, ``_saturation_fast``, ``_contrast_fast``, the
+max-form curves) and the two mask blends.  Each branch takes planar
+``r, g, b`` of shape [n, H, W] and ``p``, a sequence of per-image scalars
+shaped [n, 1, 1].
+"""
+
+import ctypes
+import math
+
+import torch
+
+from exposure_tpu_torch.ops import fastmath as fm
+
+# Branch codes shared with csrc/dyn_chain.cu (enum Branch).
+BRANCH_CODES = {
+    'ExposureFilter': 0,
+    'GammaFilter': 1,
+    'ImprovedWhiteBalanceFilter': 2,
+    'SaturationPlusFilter': 3,
+    'ToneFilter': 4,
+    'ContrastFilter': 5,
+    'WNBFilter': 6,
+    'ColorFilter': 7,
+    'LevelFilter': 8,
+    'VignetFilter': 9,
+}
+_MAX_FILTERS = 32          # kMaxFilters in the kernel
+_MAX_BATCH = 65535         # grid.y limit
+_MAX_STATIC_SMEM = 48 * 1024
+
+
+def _lum(r, g, b):
+    return 0.27 * r + 0.67 * g + 0.06 * b
+
+
+def _exposure(r, g, b, p):
+    m = torch.exp(p[0] * math.log(2.0))
+    return r * m, g * m, b * m
+
+
+def _gamma(r, g, b, p):
+    gm = p[0]
+    return tuple(torch.pow(torch.clamp(c, min=0.001), gm) for c in (r, g, b))
+
+
+def _gamma_fast(r, g, b, p):
+    """exp2(g log2 x): the same function as pow on the clamped input."""
+    gm = p[0]
+    return tuple(torch.exp2(gm * torch.log2(torch.clamp(c, min=0.001)))
+                 for c in (r, g, b))
+
+
+def _white_balance(r, g, b, p):
+    return r * p[0], g * p[1], b * p[2]
+
+
+def _curve_apply(x, p, offset, steps):
+    psum = 1e-30
+    for i in range(steps):
+        psum = psum + p[offset + i]
+    total = x * 0
+    for i in range(steps):
+        total = total + torch.clamp(x - i / steps, 0.0, 1.0 / steps) * \
+            p[offset + i]
+    return total * (steps / psum)
+
+
+def _curve_fast_apply(x, p, offset, steps):
+    psum = 1e-30
+    for i in range(steps):
+        psum = psum + p[offset + i]
+    knots = [p[offset + i] for i in range(steps)]
+    return fm.curve_relu(x, knots, steps / psum)
+
+
+def _tone(curve, steps):
+    def fn(r, g, b, p):
+        return (curve(r, p, 0, steps), curve(g, p, 0, steps),
+                curve(b, p, 0, steps))
+    return fn
+
+
+def _color(curve, steps):
+    def fn(r, g, b, p):
+        return (curve(r, p, 0, steps), curve(g, p, steps, steps),
+                curve(b, p, 2 * steps, steps))
+    return fn
+
+
+def _contrast_with(half_cos):
+    def fn(r, g, b, p):
+        lum = torch.clamp(_lum(r, g, b), 0.0, 1.0)
+        scale = half_cos(lum) / (lum + 1e-6)
+        t = p[0]
+        return (r + (r * scale - r) * t, g + (g * scale - g) * t,
+                b + (b * scale - b) * t)
+    return fn
+
+
+def _exact_half_cos_pi(lum):
+    return -torch.cos(math.pi * lum) * 0.5 + 0.5
+
+
+def _bw(r, g, b, p):
+    lum = _lum(r, g, b)
+    t = p[0]
+    return r + (lum - r) * t, g + (lum - g) * t, b + (lum - b) * t
+
+
+def _level(r, g, b, p):
+    lo = p[0]
+    hi = p[1] + 1.0
+    inv = 1.0 / (hi - lo + 1e-6)
+    return tuple(torch.clamp((c - lo) * inv, 0.0, 1.0) for c in (r, g, b))
+
+
+def _saturation_with(gray_band):
+    """S+ as a channel-wise HSV round trip with one divide.  With value v
+    and boost weight k, s2 * v = (1 - k) * rng + k * v and the gray
+    (hue 0) path gives (v, vg, vg) with vg = (1 - k) * (v - rng).
+    ``gray_band`` 0 is the exact test ``rng <= 0``; the fast set pins
+    chroma below 2e-4 of v to the gray path, because upstream fast-math
+    differences would otherwise move manufactured exact-gray pixels across
+    the hue discontinuity."""
+
+    def fn(r, g, b, p):
+        r1 = torch.clamp(r, max=1.0)
+        g1 = torch.clamp(g, max=1.0)
+        b1 = torch.clamp(b, max=1.0)
+        v = torch.maximum(torch.maximum(r1, g1), b1)
+        mn = torch.minimum(torch.minimum(r1, g1), b1)
+        rng = v - mn
+        k = (0.5 - torch.abs(0.5 - v)) * 0.8
+        one_m_k = 1.0 - k
+        vpos = v > 0
+        safe_v = torch.where(vpos, v, torch.ones_like(v))
+        rng_pos = torch.where(vpos, rng, torch.zeros_like(rng))
+        gray = rng <= gray_band * safe_v if gray_band else rng <= 0
+        ratio = (one_m_k * rng_pos + k * safe_v) / \
+            torch.where(gray, torch.ones_like(rng), rng)
+        vg = one_m_k * (v - rng_pos)
+        t = p[0]
+
+        def enhance(c, gray_val):
+            full = torch.where(gray, gray_val, v - (v - c) * ratio)
+            return c * (1.0 - t) + full * t
+
+        return enhance(r1, v), enhance(g1, vg), enhance(b1, vg)
+
+    return fn
+
+
+def _impl(fast, steps):
+    curve = _curve_fast_apply if fast else _curve_apply
+    return {
+        'ExposureFilter': _exposure,
+        'GammaFilter': _gamma_fast if fast else _gamma,
+        'ImprovedWhiteBalanceFilter': _white_balance,
+        'SaturationPlusFilter': _saturation_with(2e-4 if fast else 0.0),
+        'ToneFilter': _tone(curve, steps),
+        'ContrastFilter': _contrast_with(
+            fm.fast_half_cos_pi if fast else _exact_half_cos_pi),
+        'WNBFilter': _bw,
+        'ColorFilter': _color(curve, steps),
+        'LevelFilter': _level,
+    }
+
+
+def _with_mask(fn, mask_offset, cfg):
+    """Blend a branch in by the 6-parameter spatial mask; the mask
+    parameters sit at ``mask_offset`` in the row."""
+    fir = 5.0  # filter_input_range
+
+    def run(r, g, b, p, gx, gy):
+        r2, g2, b2 = fn(r, g, b, p)
+        # tanh_range(-5, 5, initial=0)(x) == tanh(x) * 5
+        mp = [torch.tanh(p[mask_offset + j]) * fir for j in range(6)]
+        inp = (gx * mp[0] + gy * mp[1] + mp[2] * (_lum(r, g, b) - 0.5) +
+               mp[3] * 2)
+        inp = inp * (cfg.maximum_sharpness * mp[4] / fir)
+        mask = torch.sigmoid(inp)
+        mask = mask * (mp[5] / fir * 0.5 + 0.5) * \
+            (1 - cfg.minimum_strength) + cfg.minimum_strength
+        return (r + (r2 - r) * mask, g + (g2 - g) * mask,
+                b + (b2 - b) * mask)
+
+    return run
+
+
+def _vignet_masked(cfg, mask_offset):
+    """Elliptical 5-parameter mask blending toward black."""
+    fir = 5.0
+
+    def run(r, g, b, p, gx, gy):
+        mp = [torch.tanh(p[mask_offset + j]) * fir for j in range(5)]
+        inp = (gx * mp[0]) ** 2 + (gy * mp[1]) ** 2 + mp[2] - fir
+        inp = inp * (cfg.maximum_sharpness * mp[3] / fir)
+        mask = torch.sigmoid(inp) * (mp[4] / fir * 0.5 + 0.5)
+        inv = 1.0 - mask
+        return r * inv, g * inv, b * inv
+
+    return run
+
+
+def planar_branches(filters, mask_offset=None, fast_math=False):
+    """One branch per filter, each ``(r, g, b, p, gx, gy) -> (r, g, b)``;
+    the identity is not listed (an id past the end skips the step)."""
+    impl = _impl(fast_math, filters[0].cfg.curve_steps)
+    branches = []
+    for f in filters:
+        name = type(f).__name__
+        if name not in BRANCH_CODES:
+            raise NotImplementedError(
+                'the chain kernel does not support %s' % name)
+        if f.use_masking():
+            if mask_offset is None:
+                raise ValueError('masked filters need mask_params')
+            if name == 'VignetFilter':
+                branches.append(_vignet_masked(f.cfg, mask_offset))
+            else:
+                branches.append(_with_mask(impl[name], mask_offset, f.cfg))
+        else:
+            if name == 'VignetFilter':
+                raise NotImplementedError(
+                    'VignetFilter without masking zeroes the image; use '
+                    'the branchless chain')
+            branches.append(
+                lambda r, g, b, p, gx, gy, fn=impl[name]: fn(r, g, b, p))
+    return branches
+
+
+def _pack(filter_ids, packed_params, filters, active_steps, mask_params):
+    """[K, B] ids and [K, B, P] params -> the kernel's [B, K] int32 ids
+    (inactive steps folded to the identity id) and [B, K, P'] f32 rows
+    (mask parameters appended when masking is on)."""
+    masking = any(f.use_masking() for f in filters)
+    ids = filter_ids
+    if active_steps is not None:
+        ids = torch.where(active_steps > 0, ids,
+                          torch.full_like(ids, len(filters)))
+    params = packed_params
+    if masking:
+        if mask_params is None:
+            raise ValueError('masking filters require mask_params')
+        params = torch.cat([params, mask_params], dim=-1)
+    return (ids.transpose(0, 1).to(torch.int32).contiguous(),
+            params.transpose(0, 1).to(torch.float32).contiguous(), masking)
+
+
+def _check_inputs(img, filter_ids, packed_params, active_steps,
+                  mask_params):
+    if img.dim() != 4 or img.shape[-1] != 3:
+        raise ValueError('img must be [B, H, W, 3], got %s'
+                         % (tuple(img.shape),))
+    if img.dtype not in (torch.uint8, torch.float32):
+        raise TypeError('img must be uint8 or float32, got %s' % img.dtype)
+    k, b = filter_ids.shape
+    if b != img.shape[0]:
+        raise ValueError('filter_ids [K, B] disagrees with the batch: '
+                         '%s vs %d' % (tuple(filter_ids.shape), img.shape[0]))
+    if filter_ids.dtype.is_floating_point:
+        raise TypeError('filter_ids must be integer, got %s'
+                        % filter_ids.dtype)
+    if packed_params.dim() != 3 or tuple(packed_params.shape[:2]) != (k, b):
+        raise ValueError('packed_params must be [K, B, P], got %s'
+                         % (tuple(packed_params.shape),))
+    for name, t in (('active_steps', active_steps),
+                    ('mask_params', mask_params)):
+        if t is not None and tuple(t.shape[:2]) != (k, b):
+            raise ValueError('%s must lead with [K, B] = %s, got %s'
+                             % (name, (k, b), tuple(t.shape)))
+    for name, t in (('filter_ids', filter_ids),
+                    ('packed_params', packed_params),
+                    ('active_steps', active_steps),
+                    ('mask_params', mask_params)):
+        if t is not None and t.device != img.device:
+            raise ValueError('%s is on %s, img on %s'
+                             % (name, t.device, img.device))
+
+
+def _mask_grid(h, w, device):
+    shorter = float(min(h, w))
+    rows = torch.arange(h, dtype=torch.float32, device=device)
+    cols = torch.arange(w, dtype=torch.float32, device=device)
+    gx = (rows + (shorter - h) / 2.0) / shorter - 0.5
+    gy = (cols + (shorter - w) / 2.0) / shorter - 0.5
+    return gx[None, :, None], gy[None, None, :]
+
+
+def apply_filter_chain_dynamic_reference(img, filter_ids, packed_params,
+                                         filters, active_steps=None,
+                                         mask_params=None, fast_math=False):
+    """Plain PyTorch version of the kernel, on any device: for each step,
+    group the images by filter id and run that branch on the group."""
+    _check_inputs(img, filter_ids, packed_params, active_steps, mask_params)
+    ids, params, masking = _pack(filter_ids, packed_params, filters,
+                                 active_steps, mask_params)
+    max_p = packed_params.shape[-1]
+    branches = planar_branches(filters, max_p if masking else None,
+                               fast_math)
+    quantized = img.dtype == torch.uint8
+    x = img.to(torch.float32)
+    if quantized:
+        x = x * (1.0 / 255.0)
+    r, g, b = (x[..., c].contiguous() for c in range(3))
+    gx, gy = _mask_grid(img.shape[1], img.shape[2], img.device) \
+        if masking else (None, None)
+    for k in range(ids.shape[1]):
+        for fid, branch in enumerate(branches):
+            sel = torch.nonzero(ids[:, k] == fid).squeeze(1)
+            if sel.numel() == 0:
+                continue
+            p = params[sel, k][:, :, None, None].unbind(1)
+            out = branch(r[sel], g[sel], b[sel], p, gx, gy)
+            r[sel], g[sel], b[sel] = out
+    y = torch.stack([r, g, b], dim=-1)
+    if quantized:
+        return torch.round(torch.clamp(y, 0.0, 1.0) * 255.0).to(torch.uint8)
+    return y
+
+
+def apply_filter_chain_dynamic(img, filter_ids, packed_params, filters,
+                               active_steps=None, mask_params=None,
+                               fast_math=False):
+    """Replay a K-step trajectory with per-image dynamic ids.
+
+    Args:
+      img: [B, H, W, 3] uint8 or float32 (linear [0, 1] domain).
+      filter_ids: [K, B] integer ids into ``filters``; ``len(filters)``
+        (or any id outside the bank) is the identity.
+      packed_params: [K, B, P] float32 regressed parameters.
+      filters: the instantiated bank (``ops.filters.build_filters``).
+      active_steps: optional [K, B] 0/1 mask; inactive steps are identity.
+      mask_params: [K, B, M] raw mask parameters, required when masking.
+      fast_math: the fast branch set (polynomial cos, exp2/log2 gamma,
+        max-form curves, widened S+ gray band).
+
+    Returns:
+      [B, H, W, 3] of the input's dtype.  A CPU tensor runs the plain
+      PyTorch version; a CUDA tensor launches the kernel or raises.
+    """
+    if img.device.type == 'cpu':
+        return apply_filter_chain_dynamic_reference(
+            img, filter_ids, packed_params, filters,
+            active_steps=active_steps, mask_params=mask_params,
+            fast_math=fast_math)
+    if img.device.type != 'cuda':
+        raise ValueError('no chain kernel for device %s' % img.device)
+    _check_inputs(img, filter_ids, packed_params, active_steps, mask_params)
+    if not img.is_contiguous():
+        raise ValueError('img must be contiguous')
+    if packed_params.dtype != torch.float32 or (
+            mask_params is not None and mask_params.dtype != torch.float32):
+        raise TypeError('params must be float32')
+    ids, params, masking = _pack(filter_ids, packed_params, filters,
+                                 active_steps, mask_params)
+    # validates the bank (unsupported filters raise here, as on the CPU)
+    planar_branches(filters, packed_params.shape[-1] if masking else None)
+    batch, h, w, _ = img.shape
+    num_steps, width = ids.shape[1], params.shape[-1]
+    if len(filters) > _MAX_FILTERS:
+        raise ValueError('at most %d filters' % _MAX_FILTERS)
+    if batch > _MAX_BATCH:
+        raise ValueError('at most %d images per launch' % _MAX_BATCH)
+    if masking and width - packed_params.shape[-1] < 6:
+        raise ValueError('the kernel reads 6 mask parameters per step')
+    if num_steps * (width + 1) * 4 > _MAX_STATIC_SMEM:
+        raise ValueError('K x P too large for the kernel: %d x %d'
+                         % (num_steps, width))
+    cfg = filters[0].cfg
+    codes = (ctypes.c_int * len(filters))(
+        *[BRANCH_CODES[type(f).__name__] for f in filters])
+    shorter = float(min(h, w))
+    out = torch.empty_like(img)
+    from exposure_tpu_torch.kernels import dyn_chain_library
+    lib = dyn_chain_library()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        err = lib.dyn_chain_launch(
+            img.data_ptr(), out.data_ptr(), ids.data_ptr(), params.data_ptr(),
+            codes, len(filters), batch, h, w, num_steps, width,
+            packed_params.shape[-1], int(img.dtype == torch.uint8),
+            int(bool(fast_math)), int(masking), int(cfg.curve_steps),
+            float(cfg.maximum_sharpness), float(cfg.minimum_strength),
+            float(1 - cfg.minimum_strength), shorter, (shorter - h) / 2.0,
+            (shorter - w) / 2.0, stream)
+    if err != 0:
+        raise RuntimeError('dyn_chain kernel launch failed: %s'
+                           % lib.dyn_chain_error_string(err).decode())
+    apply_filter_chain_dynamic.launches += 1
+    return out
+
+
+# Kernel launches by apply_filter_chain_dynamic (CPU calls do not count).
+apply_filter_chain_dynamic.launches = 0

@@ -1,0 +1,98 @@
+"""Serving configs as a table of knobs.
+
+The JAX package's configs are Python modules that import ``exposure_tpu``
+(and with it ``jax``) to name their filter classes, so the port cannot
+load them.  It keeps its own table of the knobs serving reads, for the
+chain ``example`` -> ``synthetic`` -> ``synthetic_explore`` and the
+``test`` and ``masked`` configs the tests use.  Filters are named by the
+JAX class ``__name__``; ``ops.filters.build_filters`` maps each name to
+its port.  ``tests/test_torch_serving.py`` holds every entry equal to
+``exposure_tpu.utils.load_config(name)``.
+"""
+
+_BANK = ('ExposureFilter', 'GammaFilter', 'ImprovedWhiteBalanceFilter',
+         'SaturationPlusFilter', 'ToneFilter', 'ContrastFilter',
+         'WNBFilter', 'ColorFilter')
+
+
+class Dict(dict):
+    """A dict whose items are also attributes."""
+
+    def __getattr__(self, attr):
+        try:
+            return self[attr]
+        except KeyError as e:
+            raise AttributeError(attr) from e
+
+    def __setattr__(self, key, value):
+        self[key] = value
+
+    def copy(self):
+        return Dict(self)
+
+
+def _example():
+    cfg = Dict(
+        # filter bank
+        filters=_BANK,
+        curve_steps=8,
+        gamma_range=3,
+        exposure_range=3.5,
+        color_curve_range=(0.90, 1.10),
+        tone_curve_range=(0.5, 2),
+        masking=False,
+        minimum_strength=0.3,
+        maximum_sharpness=1,
+        clamp=False,
+        # action selection and trajectory
+        exploration=0.05,
+        img_include_states=True,
+        test_steps=5,
+        # networks
+        source_img_size=64,
+        base_channels=32,
+        dropout_keep_prob=0.5,
+        fc1_size=128,
+        feature_extractor_dims=4096,
+    )
+    cfg.num_state_dim = 3 + len(cfg.filters)
+    return cfg
+
+
+def _test():
+    cfg = _example()
+    cfg.base_channels = 16
+    cfg.feature_extractor_dims = 1024
+    cfg.fc1_size = 32
+    return cfg
+
+
+def _masked():
+    cfg = _example()
+    cfg.masking = True
+    cfg.filters = tuple(cfg.filters) + ('VignetFilter', 'LevelFilter')
+    cfg.num_state_dim = 3 + len(cfg.filters)
+    return cfg
+
+
+# config_synthetic.py changes only data and dispatch knobs, and
+# config_synthetic_explore.py only the training knob exploration_penalty
+CONFIGS = {
+    'example': _example,
+    'synthetic': _example,
+    'synthetic_explore': _example,
+    'test': _test,
+    'masked': _masked,
+}
+
+
+def load_config(config_name):
+    """A fresh copy of the named config's serving knobs."""
+    try:
+        make = CONFIGS[config_name]
+    except KeyError:
+        raise KeyError('no serving config %r; known: %s'
+                       % (config_name, sorted(CONFIGS))) from None
+    cfg = make()
+    cfg.name = config_name
+    return cfg

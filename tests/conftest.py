@@ -78,6 +78,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: heavy compile/training tests (full suite only; "
         "deselect with -m 'not slow')")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one); see "
+        "tests/test_torch_cuda.py")
 
 
 def pytest_collection_modifyitems(config, items):
