@@ -3,28 +3,51 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (a failing phase exits non-zero):
+Phases, one line or a few each (a failing phase exits non-zero):
 
 1. card: require CUDA, print the card's name and power limit, turn TF32 off
    for convolutions and matmuls (it can flip near-tie argmax decisions);
-2. build: compile the hand-written CUDA kernel from
-   ``exposure_tpu_torch/csrc``;
+2. build: compile the three hand-written CUDA kernels from
+   ``exposure_tpu_torch/csrc`` at once, one nvcc each, with their ptxas
+   lines;
 3. K1: the dynamic filter-chain kernel against its plain PyTorch version
-   on the card, over the chain cases of the JAX package's kernel checks
-   (f32 and u8, odd shapes, inactive steps, the all-identity trajectory,
-   exact and fast branch sets, the masked bank) and at the two shapes the
-   serving path gives it, where it also times the kernel (median of 7
-   runs after warm-up) and the plain version (median of 5) with CUDA
-   events;
-4. main path: the trained ``synthetic_explore`` policy served from the
+   over the chain cases of the JAX package's kernel checks (f32 and u8,
+   odd shapes, inactive steps, the all-identity trajectory, exact and fast
+   branch sets, the masked bank) and at the two shapes the serving path
+   gives it, where it also times the kernel (median of 7 runs after
+   warm-up) and the plain version (median of 5) with CUDA events;
+4. K2: the switch-chain kernel against its plain version over the same
+   kinds of case plus ``rows`` with ``n_active`` below the slot count, in
+   f32 and in bf16, timed at [512, 512, 512, 3] u8 K=5 in both;
+5. K3: the static-chain kernel against its plain version over the same
+   kinds of case (rows below ``n_active``, ``rows`` scatter), timed at
+   [512, 512, 512, 3] u8 K=5 on one signature;
+6. small: the whole dynamic path on the card against the CPU pipeline
+   (the plain versions throughout) on a small input;
+7. main path: the trained ``synthetic_explore`` policy served from the
    in-repo artifact at full width on B=512 batches of seeded 512x512 u8
-   images through ``RetouchPipeline.map_batches``, dropout on; checks the
-   output, the K1 launch count (6 per batch: 5 proxy steps + 1 replay),
-   the replay against the plain version, and the whole path against the
-   CPU pipeline (the plain version throughout) on a small input; prints
-   img/s and its split across resize, plan and replay.
+   images through ``RetouchPipeline.map_batches`` (dynamic, selected
+   plan), dropout on; checks the output, the K1 launch count (6 per batch:
+   5 proxy steps + 1 replay), the replay against the plain version, no
+   host sync, and prints img/s and its split across resize, plan and
+   replay;
+8. modes: the same artifact and batches through the dynamic mode with the
+   bank plan, the switch mode, the grouped mode, the grouped mode with
+   ``warmup(superset=True)`` and the auto-superset mode
+   (``auto_record_batches=2``): each mode's output agrees with the
+   dynamic bank-plan output within 1 LSB, each prints its launches per
+   kernel per batch, its host syncs (none in the dynamic and switch
+   modes, where any raises; in the grouped modes a batch waits only on
+   the event after its ids' copy), img/s and the split;
+9. planted mix: one full-width batch with a planted 6-signature plan
+   with small groups, replayed through ``call_superset``
+   (slot overflow, a missing signature, an empty slot, the K2 merge) and
+   through the accumulate route (``merge_below``), against K1;
+10. bf16 plan: the served plan in bfloat16 against the f32 plan.
 
-The line before the last is a JSON summary of every kernel; the last is
+Every kernel count is set to 0 just before a path is driven and read just
+after; the comparisons with the plain versions do not count.  The line
+before the last is a JSON summary of every kernel; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -33,16 +56,34 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join('artifacts', 'serving',
                         'synthetic_explore--best.msgpack.gz')
+DEVICE = 'cuda'
 SEED = 0
 BATCH = 512          # bench.py's default serving batch
 RES = 512
 MAIN_BATCHES = 4
+STREAM_PASSES = 3    # timed passes over the batches, for a spread
 F32_ATOL, F32_RTOL = 3e-5, 1e-4    # as tests/test_pallas_chain.py
 MAX_OUTLIER_FRAC = 1e-4            # fast S+ gray band, see dyn_chain.py
+# K2 in bf16: against the f32 result, the JAX bound (max 8 LSB, mean below
+# 2) on the inputs the JAX test states it for (its seeded u8 [2, 64, 128,
+# 3] batch and 5-step trajectory, exact set:
+# tests/test_pallas_chain.py::test_bf16_compute_mode), and the mean bound
+# on every case: the maximum depends on the inputs (other seeds of the
+# same shape reach 28 LSB in the bf16 semantics the JAX kernel and the
+# plain version share), f32 input is rounded to bf16 on load, and the fast
+# set's max-form curves cancel large terms; against its bf16 plain version,
+# at most 1e-3 of the
+# values more than 1 LSB (u8) or 2 bf16 ulps (f32) apart: both round after
+# every operation, but their f32 exp, pow and cos may differ in the last
+# bit
+BF16_MAX_LSB, BF16_MEAN_LSB = 8, 2.0
+BF16_PLAIN_FRAC = 1e-3
+BF16_PLAN_STEP1 = 0.9              # step-1 ids agreeing with the f32 plan
 
 
 def fail(msg):
@@ -71,6 +112,26 @@ def cuda_ms(fn, runs=7, warmup=2):
     return sorted(times)[len(times) // 2]
 
 
+def wrappers():
+    """The three kernel wrappers, whose ``launches`` count the kernel
+    launches they make."""
+    from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
+    from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
+    from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
+    return {'dyn_chain': apply_filter_chain_dynamic,
+            'switch_chain': apply_filter_chain_switch,
+            'static_chain': apply_filter_chain_static}
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
 def phase_card():
     import torch
     if not torch.cuda.is_available():
@@ -97,23 +158,26 @@ def phase_card():
 
 
 def phase_build():
-    from exposure_tpu_torch.kernels import dyn_chain_kernel
+    from exposure_tpu_torch.kernels import build_all
     t0 = time.perf_counter()
-    lib = dyn_chain_kernel()
-    ptxas = [ln.strip() for ln in lib.build_log.splitlines()
-             if 'registers' in ln or 'spill' in ln]
-    say('build: dyn_chain nvcc %.1f s (load %.1f s) %s'
-        % (lib.build_seconds, time.perf_counter() - t0, lib.path))
-    for ln in ptxas:
-        say('  ptxas: %s' % ln)
+    libs = build_all()
+    say('build: 3 libraries in %.1f s (one nvcc each, all at once)'
+        % (time.perf_counter() - t0))
+    for name, lib in libs.items():
+        say('build: %s nvcc %.1f s %s' % (name, lib.build_seconds, lib.path))
+        for ln in lib.build_log.splitlines():
+            if 'registers' in ln or 'spill' in ln:
+                say('  ptxas: %s' % ln.strip())
 
 
-def _trajectory(g, filters, k, b, device):
-    """Random ids in [0, len(filters)) and regressed params per step."""
+def _trajectory(g, filters, k, b, device, ids=None):
+    """Random ids in [0, len(filters)) (or the given [K, B] ids) and
+    regressed params per step."""
     import torch
     from exposure_tpu_torch.ops.filters import max_filter_parameters
-    ids = torch.randint(0, len(filters), (k, b), generator=g,
-                        dtype=torch.int32)
+    if ids is None:
+        ids = torch.randint(0, len(filters), (k, b), generator=g,
+                            dtype=torch.int32)
     params = torch.zeros((k, b, max_filter_parameters(filters)))
     for fid, f in enumerate(filters):
         n = f.get_num_filter_parameters()
@@ -134,65 +198,111 @@ def _compare(got, want):
     return float((got - want).abs().max()), float(bad.float().mean())
 
 
+def _ok(fast, outliers):
+    return outliers <= MAX_OUTLIER_FRAC if fast else outliers == 0.0
+
+
+def _case_inputs(g, filters, b, h, w, k, dt, variant, dev, ids=None):
+    import torch
+    ids, params = _trajectory(g, filters, k, b, dev, ids)
+    x = torch.rand((b, h, w, 3), generator=g) * 1.05
+    img = (x * 255).round().clamp(0, 255).to(torch.uint8) \
+        if dt == 'u8' else x
+    kw = {}
+    if filters[0].use_masking():
+        kw['mask_params'] = torch.randn((k, b, 6), generator=g).to(dev)
+    if variant == 'active':
+        kw['active_steps'] = (torch.rand((k, b), generator=g) > 0.4
+                              ).float().to(dev)
+    if variant == 'identity':
+        ids = torch.full_like(ids, len(filters))
+    return img.to(dev), ids, params, kw
+
+
+def _jax_bf16_inputs(filters, dev):
+    """The inputs of tests/test_pallas_chain.py::test_bf16_compute_mode:
+    numpy RandomState(0) draws the u8 batch, then the ids, then each
+    step's raw parameters, in that test's order."""
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.ops.filters import max_filter_parameters
+    rng = np.random.RandomState(0)
+    img8 = (rng.rand(2, 64, 128, 3) * 255).astype(np.uint8)
+    ids = rng.randint(0, len(filters), (5, 2)).astype(np.int32)
+    params = np.zeros((5, 2, max_filter_parameters(filters)), np.float32)
+    for s in range(5):
+        for i in range(2):
+            f = filters[ids[s, i]]
+            n = f.get_num_filter_parameters()
+            raw = torch.from_numpy(rng.randn(1, n).astype(np.float32))
+            params[s, i, :n] = f.filter_param_regressor(raw).numpy()[0]
+    return (torch.from_numpy(img8).to(dev), torch.from_numpy(ids).to(dev),
+            torch.from_numpy(params).to(dev))
+
+
+def _banks():
+    from exposure_tpu_torch.ops.filters import build_filters
+    from exposure_tpu_torch.utils.config import load_config
+    return {name: build_filters(load_config(name))
+            for name in ('synthetic_explore', 'masked')}
+
+
+# name, bank, B, H, W, K, dtype, fast, variant: the chain cases of the JAX
+# package's kernel checks
+CHAIN_CASES = [
+    ('f32_64', 'synthetic_explore', 4, 64, 64, 5, 'f32', False, None),
+    ('f32_512', 'synthetic_explore', 2, 512, 512, 5, 'f32', False, None),
+    ('f32_odd_67x131', 'synthetic_explore', 3, 67, 131, 5, 'f32', False,
+     None),
+    ('u8_512', 'synthetic_explore', 2, 512, 512, 5, 'u8', False, None),
+    ('u8_odd_131x67', 'synthetic_explore', 3, 131, 67, 5, 'u8', False,
+     None),
+    ('f32_active_steps', 'synthetic_explore', 4, 64, 96, 5, 'f32', False,
+     'active'),
+    ('f32_all_identity', 'synthetic_explore', 2, 64, 64, 5, 'f32', False,
+     'identity'),
+    ('u8_all_identity', 'synthetic_explore', 2, 64, 64, 5, 'u8', True,
+     'identity'),
+    ('fast_f32_64', 'synthetic_explore', 4, 64, 64, 5, 'f32', True, None),
+    ('fast_u8_512', 'synthetic_explore', 2, 512, 512, 5, 'u8', True, None),
+    ('fast_u8_odd_67x131', 'synthetic_explore', 3, 67, 131, 5, 'u8', True,
+     None),
+    ('masked_f32_64x128', 'masked', 2, 64, 128, 3, 'f32', False, None),
+    ('masked_f32_odd_96x131', 'masked', 2, 96, 131, 3, 'f32', False, None),
+    ('masked_fast_u8_128x64', 'masked', 2, 128, 64, 3, 'u8', True, None),
+    ('masked_fast_f32_active', 'masked', 2, 64, 128, 4, 'f32', True,
+     'active'),
+]
+BF16_JAX_CASE = ('bf16_jax_test_u8_64x128', 'synthetic_explore', 2, 64, 128,
+                 5, 'u8', False, 'jax')
+ROWS_CASES = [
+    ('rows_fast_u8', 'synthetic_explore', 6, 64, 96, 5, 'u8', True, 'rows'),
+    ('rows_masked_f32', 'masked', 6, 96, 64, 3, 'f32', False, 'rows'),
+]
+REPLAY_CASE = ('replay_u8_512x512x512_k5', 'synthetic_explore', BATCH, RES,
+               RES, 5, 'u8', True, 'timed')
+
+
 def phase_k1():
     import torch
     from exposure_tpu_torch.ops.dyn_chain import (
         apply_filter_chain_dynamic, apply_filter_chain_dynamic_reference)
-    from exposure_tpu_torch.ops.filters import build_filters
-    from exposure_tpu_torch.utils.config import load_config
-    dev = torch.device('cuda')
-    banks = {name: build_filters(load_config(name))
-             for name in ('synthetic_explore', 'masked')}
-    # name, bank, B, H, W, K, dtype, fast, variant
-    cases = [
-        ('f32_64', 'synthetic_explore', 4, 64, 64, 5, 'f32', False, None),
-        ('f32_512', 'synthetic_explore', 2, 512, 512, 5, 'f32', False, None),
-        ('f32_odd_67x131', 'synthetic_explore', 3, 67, 131, 5, 'f32', False,
-         None),
-        ('u8_512', 'synthetic_explore', 2, 512, 512, 5, 'u8', False, None),
-        ('u8_odd_131x67', 'synthetic_explore', 3, 131, 67, 5, 'u8', False,
-         None),
-        ('f32_active_steps', 'synthetic_explore', 4, 64, 96, 5, 'f32', False,
-         'active'),
-        ('f32_all_identity', 'synthetic_explore', 2, 64, 64, 5, 'f32', False,
-         'identity'),
-        ('u8_all_identity', 'synthetic_explore', 2, 64, 64, 5, 'u8', True,
-         'identity'),
-        ('fast_f32_64', 'synthetic_explore', 4, 64, 64, 5, 'f32', True, None),
-        ('fast_u8_512', 'synthetic_explore', 2, 512, 512, 5, 'u8', True,
-         None),
-        ('fast_u8_odd_67x131', 'synthetic_explore', 3, 67, 131, 5, 'u8',
-         True, None),
-        ('masked_f32_64x128', 'masked', 2, 64, 128, 3, 'f32', False, None),
-        ('masked_f32_odd_96x131', 'masked', 2, 96, 131, 3, 'f32', False,
-         None),
-        ('masked_fast_u8_128x64', 'masked', 2, 128, 64, 3, 'u8', True, None),
-        ('masked_fast_f32_active', 'masked', 2, 64, 128, 4, 'f32', True,
-         'active'),
+    dev = torch.device(DEVICE)
+    banks = _banks()
+    cases = CHAIN_CASES + [
         # the two shapes the serving path gives the kernel
         ('proxy_f32_512x64x64_k1', 'synthetic_explore', BATCH, 64, 64, 1,
          'f32', True, 'timed'),
-        ('replay_u8_512x512x512_k5', 'synthetic_explore', BATCH, RES, RES, 5,
-         'u8', True, 'timed'),
+        REPLAY_CASE,
     ]
     g = torch.Generator().manual_seed(SEED)
     worst = {'f32': 0.0, 'u8': 0}
     timing = {}
     for name, bank, b, h, w, k, dt, fast, variant in cases:
         filters = banks[bank]
-        ids, params = _trajectory(g, filters, k, b, dev)
-        x = torch.rand((b, h, w, 3), generator=g) * 1.05
-        img = (x * 255).round().clamp(0, 255).to(torch.uint8) \
-            if dt == 'u8' else x
-        img = img.to(dev)
-        kw = {'fast_math': fast}
-        if filters[0].use_masking():
-            kw['mask_params'] = torch.randn((k, b, 6), generator=g).to(dev)
-        if variant == 'active':
-            kw['active_steps'] = (torch.rand((k, b), generator=g) > 0.4
-                                  ).float().to(dev)
-        if variant == 'identity':
-            ids = torch.full_like(ids, len(filters))
+        img, ids, params, kw = _case_inputs(g, filters, b, h, w, k, dt,
+                                            variant, dev)
+        kw['fast_math'] = fast
         before = apply_filter_chain_dynamic.launches
         got = apply_filter_chain_dynamic(img, ids, params, filters, **kw)
         torch.cuda.synchronize()
@@ -203,11 +313,7 @@ def phase_k1():
         err, outliers = _compare(got, want)
         if variant == 'identity' and not torch.equal(got, img):
             fail('K1 %s: identity trajectory changed the image' % name)
-        limit = 1 if dt == 'u8' else F32_ATOL
-        if fast:
-            ok = outliers <= MAX_OUTLIER_FRAC
-        else:
-            ok = outliers == 0.0
+        ok = _ok(fast, outliers)
         line = ('K1 %-26s %-5s %-4s B=%d %dx%d K=%d  max_%s=%s '
                 'outlier_frac=%.2e' % (
                     name, 'fast' if fast else 'exact', dt, b, h, w, k,
@@ -221,9 +327,194 @@ def phase_k1():
             timing[name] = (ms, plain)
             line += '  kernel %.4f ms  plain %.4f ms' % (ms, plain)
         say(line + ('' if ok else '  FAIL (tolerance %s, outliers <= %g)'
-                    % (limit, MAX_OUTLIER_FRAC if fast else 0)))
+                    % (1 if dt == 'u8' else F32_ATOL,
+                       MAX_OUTLIER_FRAC if fast else 0)))
         if not ok:
             fail('K1 %s disagrees with its plain version' % name)
+        worst[dt] = max(worst[dt], err)
+    return worst, timing
+
+
+def _as_u8(x):
+    import torch
+    if x.dtype == torch.uint8:
+        return x.int()
+    return torch.round(torch.clamp(x.float(), 0, 1) * 255).int()
+
+
+def _bf16_vs_plain(got, want):
+    """Fraction of values more than 1 LSB (u8) or 2 bf16 ulps (f32)
+    apart."""
+    import torch
+    if got.dtype == torch.uint8:
+        return float(((got.int() - want.int()).abs() > 1).float().mean())
+    tol = 2.0 ** -7 * torch.clamp(want.abs(), min=1.0)
+    return float(((got - want).abs() > tol).float().mean())
+
+
+def phase_k2():
+    import torch
+    from exposure_tpu_torch.ops.switch_chain import (
+        apply_filter_chain_switch, apply_filter_chain_switch_reference)
+    dev = torch.device(DEVICE)
+    banks = _banks()
+    g = torch.Generator().manual_seed(SEED + 2)
+    worst = {'f32': 0.0, 'u8': 0, 'bf16_vs_f32_lsb': 0,
+             'bf16_vs_plain_frac': 0.0}
+    timing = {}
+    for name, bank, b, h, w, k, dt, fast, variant in \
+            CHAIN_CASES + ROWS_CASES + [BF16_JAX_CASE, REPLAY_CASE]:
+        filters = banks[bank]
+        img, ids, params, kw = _case_inputs(g, filters, b, h, w, k, dt,
+                                            variant, dev)
+        if variant == 'jax':
+            img, ids, params = _jax_bf16_inputs(filters, dev)
+        kw['fast_math'] = fast
+        if variant == 'rows':
+            rows = torch.randperm(b, generator=g)[:b - 1].to(
+                torch.int32).to(dev)
+            kw.update(rows=rows, n_active=b - 2)
+        results = {}
+        for cdt in (torch.float32, torch.bfloat16):
+            ck = dict(kw, compute_dtype=cdt)
+            if variant == 'rows':
+                ck['out'] = torch.zeros_like(img)
+            before = apply_filter_chain_switch.launches
+            got = apply_filter_chain_switch(img, ids, params, filters, **ck)
+            torch.cuda.synchronize()
+            if apply_filter_chain_switch.launches != before + 1:
+                fail('K2 %s: the wrapper did not launch the kernel' % name)
+            if variant == 'rows':
+                ck['out'] = torch.zeros_like(img)
+            want = apply_filter_chain_switch_reference(img, ids, params,
+                                                       filters, **ck)
+            results[cdt] = (got, want)
+        got, want = results[torch.float32]
+        err, outliers = _compare(got, want)
+        ok = _ok(fast, outliers)
+        if variant == 'identity' and not torch.equal(got, img):
+            fail('K2 %s: identity trajectory changed the image' % name)
+        if variant == 'rows':
+            skipped = [i for i in range(b)
+                       if i not in kw['rows'][:kw['n_active']].tolist()]
+            if got[skipped].any():
+                fail('K2 %s: rows past n_active were written' % name)
+        got16, want16 = results[torch.bfloat16]
+        plain_frac = _bf16_vs_plain(got16, want16)
+        vs_f32 = (_as_u8(got16) - _as_u8(got)).abs()
+        if variant == 'rows':   # only the replayed rows
+            active = kw['rows'][:kw['n_active']].long()
+            vs_f32 = vs_f32[active]
+        lsb16, mean16 = int(vs_f32.max()), float(vs_f32.float().mean())
+        jax_case = variant == 'jax'
+        ok16 = plain_frac <= BF16_PLAIN_FRAC and mean16 < BF16_MEAN_LSB \
+            and (not jax_case or lsb16 <= BF16_MAX_LSB)
+        line = ('K2 %-26s %-5s %-4s B=%d %dx%d K=%d  f32: max_%s=%s '
+                'outlier_frac=%.2e  bf16: vs_plain_frac=%.2e vs_f32 '
+                'max_lsb=%d mean_lsb=%.4f' % (
+                    name, 'fast' if fast else 'exact', dt, b, h, w, k,
+                    'lsb' if dt == 'u8' else 'abs_err',
+                    err if dt == 'u8' else '%.3e' % err, outliers,
+                    plain_frac, lsb16, mean16))
+        if variant == 'timed':
+            for cdt, tag in ((torch.float32, 'f32'),
+                             (torch.bfloat16, 'bf16')):
+                ck = dict(kw, compute_dtype=cdt)
+                ms = cuda_ms(lambda: apply_filter_chain_switch(
+                    img, ids, params, filters, **ck))
+                plain = cuda_ms(lambda: apply_filter_chain_switch_reference(
+                    img, ids, params, filters, **ck), runs=5, warmup=1)
+                timing[tag] = (ms, plain)
+                line += '  %s kernel %.4f ms plain %.4f ms' % (tag, ms, plain)
+        say(line + ('' if ok and ok16 else '  FAIL'))
+        if not ok:
+            fail('K2 %s (f32) disagrees with its plain version' % name)
+        if not ok16:
+            fail('K2 %s (bf16) is outside its bounds' % name)
+        worst[dt] = max(worst[dt], err)
+        worst['bf16_vs_plain_frac'] = max(worst['bf16_vs_plain_frac'],
+                                          plain_frac)
+        if jax_case:
+            worst['bf16_vs_f32_lsb'] = max(worst['bf16_vs_f32_lsb'], lsb16)
+    return worst, timing
+
+
+def _signature_of(filters, names):
+    return tuple([type(f).__name__ for f in filters].index(n) for n in names)
+
+
+SERVED_SIGNATURE = ('ExposureFilter', 'GammaFilter', 'SaturationPlusFilter',
+                    'ToneFilter', 'ContrastFilter')
+
+
+def phase_k3():
+    import torch
+    from exposure_tpu_torch.ops.static_chain import (
+        apply_filter_chain_static, apply_filter_chain_static_reference)
+    dev = torch.device(DEVICE)
+    banks = _banks()
+    g = torch.Generator().manual_seed(SEED + 3)
+    worst = {'f32': 0.0, 'u8': 0}
+    timing = {}
+    cases = [c for c in CHAIN_CASES if c[8] != 'active'] + ROWS_CASES + [
+        ('n_active_u8', 'synthetic_explore', 5, 64, 96, 5, 'u8', False,
+         'n_active'),
+        REPLAY_CASE]
+    for name, bank, b, h, w, k, dt, fast, variant in cases:
+        filters = banks[bank]
+        if variant == 'timed':
+            sig = _signature_of(filters, SERVED_SIGNATURE)
+        elif variant == 'identity':
+            sig = (len(filters),) * k
+        else:
+            sig = tuple(int(x) for x in torch.randint(
+                0, len(filters) + 1, (k,), generator=g))
+        ids = torch.tensor(sig, dtype=torch.int32)[:, None].repeat(1, b)
+        img, _, params, kw = _case_inputs(g, filters, b, h, w, k, dt,
+                                          variant, dev, ids=ids)
+        kw['fast_math'] = fast
+        n_active = b
+        if variant == 'rows':
+            rows = torch.randperm(b, generator=g)[:b - 1].to(
+                torch.int32).to(dev)
+            n_active = b - 2
+            kw.update(rows=rows, n_active=n_active)
+        elif variant == 'n_active':
+            n_active = b - 2
+            kw['n_active'] = n_active
+        out_kw = {'out': torch.zeros_like(img)} if variant == 'rows' else {}
+        before = apply_filter_chain_static.launches
+        got = apply_filter_chain_static(img, sig, params, filters, **kw,
+                                        **out_kw)
+        torch.cuda.synchronize()
+        if apply_filter_chain_static.launches != before + 1:
+            fail('K3 %s: the wrapper did not launch the kernel' % name)
+        if variant == 'rows':
+            out_kw = {'out': torch.zeros_like(img)}
+        want = apply_filter_chain_static_reference(img, sig, params, filters,
+                                                   **kw, **out_kw)
+        if variant == 'n_active':   # rows past n_active are unspecified
+            got, want = got[:n_active], want[:n_active]
+        err, outliers = _compare(got, want)
+        ok = _ok(fast, outliers)
+        if variant == 'identity' and not torch.equal(got, img):
+            fail('K3 %s: identity signature changed the image' % name)
+        line = ('K3 %-26s %-5s %-4s B=%d %dx%d K=%d sig=%s n_active=%d  '
+                'max_%s=%s outlier_frac=%.2e' % (
+                    name, 'fast' if fast else 'exact', dt, b, h, w, k,
+                    ''.join(str(s) for s in sig), n_active,
+                    'lsb' if dt == 'u8' else 'abs_err',
+                    err if dt == 'u8' else '%.3e' % err, outliers))
+        if variant == 'timed':
+            ms = cuda_ms(lambda: apply_filter_chain_static(
+                img, sig, params, filters, **kw))
+            plain = cuda_ms(lambda: apply_filter_chain_static_reference(
+                img, sig, params, filters, **kw), runs=5, warmup=1)
+            timing['replay'] = (ms, plain)
+            line += '  kernel %.4f ms  plain %.4f ms' % (ms, plain)
+        say(line + ('' if ok else '  FAIL'))
+        if not ok:
+            fail('K3 %s disagrees with its plain version' % name)
         worst[dt] = max(worst[dt], err)
     return worst, timing
 
@@ -241,37 +532,87 @@ def _images(rng, b, h, w):
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def phase_main_path():
-    import numpy as np
+def _pipeline(dev, **kw):
+    from exposure_tpu_torch.core.serving import RetouchPipeline
+    return RetouchPipeline.from_artifact(
+        'synthetic_explore', os.path.join(REPO, ARTIFACT), device=dev, **kw)
+
+
+def _split(pipe, img, dev):
+    """Median ms of resize, plan and replay of one batch, alone."""
     import torch
-    from exposure_tpu_torch.core.serving import (
-        RetouchPipeline, batch_generator)
+    from exposure_tpu_torch.core.serving import batch_generator
+    proxy = pipe.proxy(img)
+    with torch.no_grad():
+        plan = pipe.plan(proxy, batch_generator(SEED, 0, dev))
+        ids_host = plan[0].cpu().numpy() if pipe.grouped else None
+        resize_ms = cuda_ms(lambda: pipe.proxy(img), runs=5)
+        plan_ms = cuda_ms(lambda: pipe.plan(
+            proxy, batch_generator(SEED, 0, dev)), runs=5)
+        replay_ms = cuda_ms(lambda: pipe.replay(img, *plan,
+                                                ids_host=ids_host), runs=5)
+    return resize_ms, plan_ms, replay_ms
+
+
+def _timed_stream(pipe, batches, trap):
+    """ms of each of STREAM_PASSES passes over map_batches (CUDA events,
+    inputs on the device, seeds SEED + 1, SEED + 2, ...) and the host
+    synchronisations counted per pass.  ``trap``: any sync raises."""
+    import torch
+    times, syncs = [], 0
+    for n in range(STREAM_PASSES):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.cuda.set_sync_debug_mode('error' if trap else 'warn')
+            try:
+                start.record()
+                for _ in pipe.map_batches(batches, seed=SEED + 1 + n):
+                    pass
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        syncs += sum('synchroniz' in str(w.message) for w in caught)
+    return times, syncs / STREAM_PASSES
+
+
+def _rate(times):
+    """img/s of the median pass, and of the slowest and fastest."""
+    per = [MAIN_BATCHES * BATCH / (t / 1e3) for t in times]
+    return sorted(per)[len(per) // 2], min(per), max(per)
+
+
+def phase_main_path(batches):
+    import torch
+    from exposure_tpu_torch.core.serving import batch_generator
     from exposure_tpu_torch.ops.dyn_chain import (
-        apply_filter_chain_dynamic, apply_filter_chain_dynamic_reference)
-    dev = torch.device('cuda')
+        apply_filter_chain_dynamic_reference)
+    dev = torch.device(DEVICE)
     t0 = time.perf_counter()
-    pipe = RetouchPipeline.from_artifact('synthetic_explore',
-                                         os.path.join(REPO, ARTIFACT),
-                                         device=dev)
+    pipe = _pipeline(dev)
+    if not (pipe.dynamic and pipe.selected_plan):
+        fail('the default GPU pipeline is not dynamic with the selected plan')
     say('main: loaded %s step %s (%s) in %.1f s; dropout keep %.2f'
         % (pipe.run, pipe.step, ARTIFACT, time.perf_counter() - t0,
            pipe.cfg.dropout_keep_prob))
-    rng = np.random.default_rng(SEED)
-    batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(dev)
-               for _ in range(MAIN_BATCHES)]
-    torch.cuda.synchronize()
 
-    apply_filter_chain_dynamic.launches = 0
+    reset_counts()
     outs = list(pipe.map_batches(batches, seed=SEED))
     torch.cuda.synchronize()
-    launches = apply_filter_chain_dynamic.launches
+    counts = read_counts()
+    launches = counts['dyn_chain']
     steps = pipe.cfg.test_steps
-    if launches != (steps + 1) * MAIN_BATCHES:
-        fail('main path launched K1 %d times over %d batches, expected %d'
-             % (launches, MAIN_BATCHES, (steps + 1) * MAIN_BATCHES))
+    if launches != (steps + 1) * MAIN_BATCHES or \
+            counts['switch_chain'] or counts['static_chain']:
+        fail('main path launched %s over %d batches, expected K1 %d times'
+             % (counts, MAIN_BATCHES, (steps + 1) * MAIN_BATCHES))
     for i, out in enumerate(outs):
         if out.shape != batches[i].shape or out.dtype != torch.uint8 or \
-                out.device.type != 'cuda':
+                out.device.type != torch.device(DEVICE).type:
             fail('main path output %d: %s %s on %s' % (
                 i, tuple(out.shape), out.dtype, out.device))
     changed = float((outs[0] != batches[0]).float().mean())
@@ -305,50 +646,192 @@ def phase_main_path():
 
     # throughput: inputs already on the device, CUDA events; any host
     # synchronisation inside map_batches raises (sync debug mode 'error')
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.set_sync_debug_mode('error')
-    try:
-        start.record()
-        for _ in pipe.map_batches(batches, seed=SEED + 1):
-            pass
-        end.record()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    end.synchronize()
-    total_ms = start.elapsed_time(end)
-    img_s = MAIN_BATCHES * BATCH / (total_ms / 1e3)
-    img = batches[0]
-    proxy = pipe.proxy(img)
-    with torch.no_grad():
-        plan = pipe.plan(proxy, batch_generator(SEED, 0, dev))
-    resize_ms = cuda_ms(lambda: pipe.proxy(img), runs=5)
-    with torch.no_grad():
-        plan_ms = cuda_ms(lambda: pipe.plan(
-            proxy, batch_generator(SEED, 0, dev)), runs=5)
-    replay_ms = cuda_ms(lambda: pipe.replay(img, *plan), runs=5)
-    say('main: %.1f img/s (%d x %d images of %dx%d u8, inputs already on '
-        'the device, no host sync, CUDA events over map_batches: %.2f '
-        'ms/batch); split '
+    times, _ = _timed_stream(pipe, batches, trap=True)
+    img_s, lo, hi = _rate(times)
+    resize_ms, plan_ms, replay_ms = _split(pipe, batches[0], dev)
+    say('main: %.1f img/s, median of %d passes (min %.1f, max %.1f; %d x '
+        '%d images of %dx%d u8, inputs already on the device, no host '
+        'sync, CUDA events over map_batches: %.2f ms/batch); split '
         'per batch (median of 5): resize %.3f ms, plan %.3f ms, '
-        'replay %.3f ms' % (img_s, MAIN_BATCHES, BATCH, RES, RES,
-                            total_ms / MAIN_BATCHES, resize_ms, plan_ms,
-                            replay_ms))
+        'replay %.3f ms' % (img_s, STREAM_PASSES, lo, hi, MAIN_BATCHES,
+                            BATCH, RES, RES,
+                            1e3 * BATCH / img_s,
+                            resize_ms, plan_ms, replay_ms))
     return launches, img_s
 
 
+MODES = [
+    ('dynamic_bank_plan', dict(dynamic=True, selected_plan=False)),
+    ('switch', dict(dynamic=False, grouped=False)),
+    ('grouped', dict(grouped=True)),
+    ('grouped_superset', dict(grouped=True)),
+    ('auto_superset', dict(auto_superset=True, auto_record_batches=2)),
+]
+# the kernel each mode must launch, and those it must not
+MODE_KERNELS = {
+    'dynamic_bank_plan': ('dyn_chain', ('switch_chain', 'static_chain')),
+    'switch': ('switch_chain', ('dyn_chain', 'static_chain')),
+    'grouped': ('static_chain', ('dyn_chain',)),
+    'grouped_superset': ('static_chain', ('dyn_chain',)),
+    'auto_superset': ('static_chain', ('dyn_chain',)),
+}
+
+
+def phase_modes(batches):
+    """Every other serving mode on the trained artifact at full width;
+    returns the launches per kernel summed over the modes' runs."""
+    import torch
+    dev = torch.device(DEVICE)
+    totals = {name: 0 for name in wrappers()}
+    ref = None
+    rows = []
+    for mode, kw in MODES:
+        pipe = _pipeline(dev, **kw)
+        extra = ''
+        if mode == 'grouped_superset':
+            rep = pipe.warmup(batches[0], probe_batches=2, seed=SEED,
+                              superset=True)
+            if pipe._superset_layout is None:
+                fail('superset warm-up froze no layout: %s' % rep)
+            extra = ' layout %d slots %s' % (
+                len(pipe._superset_layout),
+                [size for _, size in pipe._superset_layout])
+        reset_counts()
+        if pipe.grouped:
+            pipe._runner.launches.clear()
+        outs = list(pipe.map_batches(batches, seed=SEED))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        must, must_not = MODE_KERNELS[mode]
+        if counts[must] == 0 or any(counts[k] for k in must_not):
+            fail('mode %s launched %s' % (mode, counts))
+        for name in totals:
+            totals[name] += counts[name]
+        if ref is None:
+            ref = outs
+        diff = [(o.int() - r.int()).abs() for o, r in zip(outs, ref)]
+        max_lsb = max(int(d.max()) for d in diff)
+        n_diff = sum(int((d > 0).sum()) for d in diff)
+        if max_lsb > 1:
+            fail('mode %s is %d LSB off the dynamic bank-plan output'
+                 % (mode, max_lsb))
+        if pipe.grouped:
+            extra += ' last route %s' % pipe._runner.last_route
+            if pipe._ss_auto:
+                extra += ' auto-superset %s' % {
+                    k: v for k, v in pipe.superset_report().items()
+                    if k != 'layout'}
+        times, syncs = _timed_stream(pipe, batches, trap=not pipe.grouped)
+        img_s, lo, hi = _rate(times)
+        resize_ms, plan_ms, replay_ms = _split(pipe, batches[0], dev)
+        per_batch = {k: v / MAIN_BATCHES for k, v in counts.items() if v}
+        say('mode %-18s launches per batch %s; vs dynamic bank plan: max_lsb'
+            '=%d, %d of %d values differ; %.1f img/s, median of %d passes '
+            '(min %.1f, max %.1f; %.2f ms/batch; host syncs flagged by the '
+            'sync debug mode: %.2f per batch, %s); split: resize %.3f ms, '
+            'plan %.3f ms, replay %.3f ms;%s' % (
+                mode, per_batch, max_lsb, n_diff, ref[0].numel() * len(ref),
+                img_s, STREAM_PASSES, lo, hi, 1e3 / img_s * BATCH,
+                syncs / MAIN_BATCHES,
+                'any would raise' if not pipe.grouped else
+                'the wait on the ids event is not one of them', resize_ms,
+                plan_ms, replay_ms, extra))
+        rows.append((mode, img_s))
+        del outs, pipe
+    return totals, rows
+
+
+def phase_planted(batch):
+    """One full-width batch with a planted 6-signature plan (regressed
+    random parameters): call_superset through slot overflow, two missing
+    signatures, an empty slot and the K2 merge; the accumulate route
+    through merge_below; both against K1 on the same plan."""
+    import torch
+    from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
+    dev = torch.device(DEVICE)
+    pipe = _pipeline(dev, grouped=True, fused_set_limit=0)
+    k, nf = pipe.cfg.test_steps, len(pipe.filters)
+    sigs = [tuple((s + j) % nf for j in range(k)) for s in range(7)]
+    sizes = [300, 150, 40, 10, 7, 5]        # sums to 512
+    cols = [sigs[i] for i, n in enumerate(sizes) for _ in range(n)]
+    g = torch.Generator().manual_seed(SEED + 9)
+    perm = torch.randperm(BATCH, generator=g)
+    ids_host = torch.tensor([cols[i] for i in perm.tolist()],
+                            dtype=torch.int32).T.contiguous()
+    ids, params = _trajectory(g, pipe.filters, k, BATCH, dev, ids=ids_host)
+    want = apply_filter_chain_dynamic(batch, ids, params, pipe.filters,
+                                      fast_math=True)
+    # sigs[0] overflows its bucket, sigs[4] and sigs[5] are missing, and
+    # sigs[6] holds an empty slot
+    layout = [(sigs[0], 256), (sigs[1], 192), (sigs[2], 48), (sigs[3], 12),
+              (sigs[6], 8)]
+    runner = pipe._runner
+    lines = []
+    for route in ('superset', 'accumulate'):
+        reset_counts()
+        runner.launches.clear()
+        if route == 'superset':
+            got = runner.call_superset(batch, ids_host.numpy(), params,
+                                       layout, ids_device=ids)
+        else:
+            got = runner(batch, ids, params, ids_host=ids_host.numpy())
+        torch.cuda.synchronize()
+        counts = read_counts()
+        lsb = int((got.int() - want.int()).abs().max())
+        n_diff = int((got != want).sum())
+        last = runner.last_route
+        lines.append('planted %-10s %s launches %s, max_lsb=%d vs K1, %d '
+                     'values differ' % (route, last, {
+                         k2: v for k2, v in counts.items() if v}, lsb,
+                         n_diff))
+        if lsb > 1 or last['route'] != route or not last['merge'] or \
+                not counts['static_chain'] or not counts['switch_chain']:
+            for ln in lines:
+                say(ln)
+            fail('planted mix through %s' % route)
+        if route == 'superset' and (last['filled_slots'] != 4 or
+                                    last['merged_rows'] != 44 + 12):
+            fail('planted superset routing: %s' % last)
+    for ln in lines:
+        say(ln)
+
+
+def phase_bf16_plan(batches):
+    import torch
+    from exposure_tpu_torch.core.serving import batch_generator
+    dev = torch.device(DEVICE)
+    f32 = _pipeline(dev)
+    b16 = _pipeline(dev, bf16=True)
+    step1 = total = 0.0
+    for i, img in enumerate(batches):
+        with torch.no_grad():
+            a = f32.plan(f32.proxy(img), batch_generator(SEED, i, dev))[0]
+            b = b16.plan(b16.proxy(img), batch_generator(SEED, i, dev))[0]
+        step1 += float((a[0] == b[0]).float().mean())
+        total += float((a == b).all(dim=0).float().mean())
+    step1 /= len(batches)
+    total /= len(batches)
+    out = b16(batches[0], SEED, 0)
+    torch.cuda.synchronize()
+    say('bf16 plan: step-1 ids agree with the f32 plan on %.4f of the '
+        'images, all 5 steps on %.4f (%d batches of %d); bf16-planned '
+        'output %s %s' % (step1, total, len(batches), BATCH,
+                          tuple(out.shape), out.dtype))
+    if step1 < BF16_PLAN_STEP1:
+        fail('bf16 plan: step-1 agreement %.4f below %.2f'
+             % (step1, BF16_PLAN_STEP1))
+    return step1, total
+
+
 def phase_small_reference():
-    """The whole path on the card against the CPU pipeline, which runs the
-    plain version throughout, on a small input with dropout off (the two
-    devices draw different random bits)."""
+    """The whole dynamic path on the card against the CPU pipeline, which
+    runs the plain versions throughout, on a small input with dropout off
+    (the two devices draw different random bits)."""
     import numpy as np
     import torch
-    from exposure_tpu_torch.core.serving import RetouchPipeline
     pipes = {}
-    for dev in ('cpu', 'cuda'):
-        pipe = RetouchPipeline.from_artifact(
-            'synthetic_explore', os.path.join(REPO, ARTIFACT), device=dev)
+    for dev in ('cpu', DEVICE):
+        pipe = _pipeline(dev, use_kernels=True)
         pipe.policy.shared_extractor.dropout_keep_prob = 1.0
         pipe.policy.selector_extractor.dropout_keep_prob = 1.0
         pipes[dev] = pipe
@@ -359,11 +842,11 @@ def phase_small_reference():
         with torch.no_grad():
             plans[dev] = pipe.plan(pipe.proxy(imgs.to(dev)), None)[0].cpu()
         outs[dev] = pipe(imgs).cpu()
-    same = (plans['cpu'] == plans['cuda']).all(dim=0)
+    same = (plans['cpu'] == plans[DEVICE]).all(dim=0)
     if int(same.sum()) < 4:
         fail('small input: CPU and GPU plans agree on %d of 8 rows'
              % int(same.sum()))
-    lsb = int((outs['cpu'][same].int() - outs['cuda'][same].int()).abs()
+    lsb = int((outs['cpu'][same].int() - outs[DEVICE][same].int()).abs()
               .max())
     say('small: GPU pipeline vs CPU pipeline on [8, 64, 128, 3] u8, '
         'dropout off: plans agree on %d/8 rows, max_lsb on those %d'
@@ -373,27 +856,55 @@ def phase_small_reference():
 
 
 def main():
+    import numpy as np
     import torch
+    t_start = time.perf_counter()
     card = phase_card()
     sys.path.insert(0, REPO)
     phase_build()
-    worst, timing = phase_k1()
+    k1_worst, k1_timing = phase_k1()
+    k2_worst, k2_timing = phase_k2()
+    k3_worst, k3_timing = phase_k3()
     phase_small_reference()
-    launches, _ = phase_main_path()
-    ms, plain_ms = timing['replay_u8_512x512x512_k5']
-    say(json.dumps({'kernels': [{
-        'name': 'dyn_chain',
-        'route': 'cuda',
-        'source': 'exposure_tpu_torch/csrc/dyn_chain.cu',
-        'replaces': 'exposure_tpu/ops/pallas_chain.py:479',
-        'launches': launches,
-        'max_abs_err': worst['f32'],
-        'max_lsb_u8': worst['u8'],
-        'ms': ms,
-        'plain_ms': plain_ms,
-        'shape': '[%d, %d, %d, 3] u8, K=5' % (BATCH, RES, RES),
-        'card': card,
-    }]}))
+    rng = np.random.default_rng(SEED)
+    batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
+               for _ in range(MAIN_BATCHES)]
+    torch.cuda.synchronize()
+    k1_main, _ = phase_main_path(batches)
+    totals, _ = phase_modes(batches)
+    phase_planted(batches[0])
+    phase_bf16_plan(batches)
+    say('total %.1f s' % (time.perf_counter() - t_start))
+    shape = '[%d, %d, %d, 3] u8, K=5' % (BATCH, RES, RES)
+    ms1, plain1 = k1_timing[REPLAY_CASE[0]]
+    ms2, plain2 = k2_timing['f32']
+    ms2b, plain2b = k2_timing['bf16']
+    ms3, plain3 = k3_timing['replay']
+    say(json.dumps({'kernels': [
+        {'name': 'dyn_chain', 'route': 'cuda',
+         'source': 'exposure_tpu_torch/csrc/dyn_chain.cu',
+         'replaces': 'exposure_tpu/ops/pallas_chain.py:479',
+         'launches': k1_main + totals['dyn_chain'],
+         'max_abs_err': k1_worst['f32'], 'max_lsb_u8': k1_worst['u8'],
+         'ms': ms1, 'plain_ms': plain1, 'shape': shape, 'card': card},
+        {'name': 'switch_chain', 'route': 'cuda',
+         'source': 'exposure_tpu_torch/csrc/switch_chain.cu',
+         'replaces': 'exposure_tpu/ops/pallas_chain.py:345',
+         'launches': totals['switch_chain'],
+         'max_abs_err': k2_worst['f32'], 'max_lsb_u8': k2_worst['u8'],
+         'bf16_max_lsb_vs_f32_jax_case': k2_worst['bf16_vs_f32_lsb'],
+         'bf16_frac_off_plain': k2_worst['bf16_vs_plain_frac'],
+         'ms': ms2, 'plain_ms': plain2, 'ms_bf16': ms2b,
+         'plain_ms_bf16': plain2b, 'shape': shape, 'card': card},
+        {'name': 'static_chain', 'route': 'cuda',
+         'source': 'exposure_tpu_torch/csrc/static_chain.cu',
+         'replaces': 'exposure_tpu/ops/pallas_chain.py:417',
+         'launches': totals['static_chain'],
+         'max_abs_err': k3_worst['f32'], 'max_lsb_u8': k3_worst['u8'],
+         'ms': ms3, 'plain_ms': plain3,
+         'shape': shape + ', one signature (E, G, S+, T, Ct)',
+         'card': card},
+    ]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

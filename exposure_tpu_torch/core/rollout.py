@@ -1,11 +1,17 @@
-"""Serving rollout (torch counterpart of
-``exposure_tpu/core/rollout.py::serve_rollout``).
+"""Trajectory rollouts (torch counterpart of
+``exposure_tpu/core/rollout.py``).
 
-Each step regresses every filter's parameter head, takes the argmax of the
+``rollout`` runs K ``agent_step``s, the 8-candidate bank formulation, as a
+Python loop over the steps (the JAX ``lax.scan``) with no host
+synchronisation.  ``serve_rollout`` is the serving-only plan: each step
+regresses every filter's parameter head, takes the argmax of the
 epsilon-mixed action distribution, and advances the 64px proxy through the
-dynamic chain kernel on the selected branch only: the same kernel and
-branch math the full-resolution replay uses.  The loop runs on the device
-with no host synchronisation."""
+dynamic chain kernel on the selected branch only, the same kernel and
+branch math the full-resolution replay uses.  Both draw dropout from one
+``torch.Generator`` in step order; at ``is_train=0`` ``rollout`` draws no
+selection noise, so the two plans see the same dropout at every step."""
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -13,6 +19,7 @@ import torch.nn.functional as F
 from exposure_tpu_torch.models.agent import (
     action_distribution,
     advance_states,
+    agent_step,
     enrich_image_input,
     initial_states,
     pack_param_rows,
@@ -20,7 +27,43 @@ from exposure_tpu_torch.models.agent import (
 from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
 
 
-def serve_rollout(policy, images, generator, *, cfg, filters):
+class Trajectory(NamedTuple):
+    images: torch.Tensor        # [K, B, S, S, C] per-step outputs
+    states: torch.Tensor        # [K, B, D]
+    filter_ids: torch.Tensor    # [K, B] int32
+    params: torch.Tensor        # [K, B, max_p]
+    mask_params: torch.Tensor   # [K, B, max_mask] raw mask-head outputs
+    pdfs: torch.Tensor          # [K, B, num_filters]
+    surrogates: torch.Tensor    # [K, B, 1]
+    final_image: torch.Tensor   # [B, S, S, C]
+    final_state: torch.Tensor   # [B, D]
+
+
+def rollout(policy, images, generator, *, cfg, filters, is_train=0,
+            num_steps=None, progress=1.0):
+    """Run ``num_steps`` (default ``cfg.test_steps``) agent steps."""
+    if num_steps is None:
+        num_steps = cfg.test_steps
+    img = images
+    st = initial_states(images.shape[0], cfg.num_state_dim, images.dtype,
+                        images.device)
+    ys = []
+    for _ in range(num_steps):
+        out = agent_step(policy, img, st, generator, is_train=is_train,
+                         progress=progress, cfg=cfg, filters=filters)
+        img, st = out.image, out.new_states
+        ys.append((out.image, out.new_states, out.selected_filter_id,
+                   out.selected_params, out.selected_mask_params, out.pdf,
+                   out.surrogate))
+    imgs, sts, ids, params, mask_params, pdfs, surs = (
+        torch.stack(y) for y in zip(*ys))
+    return Trajectory(images=imgs, states=sts, filter_ids=ids, params=params,
+                      mask_params=mask_params, pdfs=pdfs, surrogates=surs,
+                      final_image=img, final_state=st)
+
+
+def serve_rollout(policy, images, generator, *, cfg, filters,
+                  fast_math=True):
     """Plan a trajectory for a batch of proxies.
 
     Args:
@@ -30,7 +73,7 @@ def serve_rollout(policy, images, generator, *, cfg, filters):
 
     Returns ``(filter_ids [K, B] int32, params [K, B, max_p],
     mask_params [K, B, max_m])`` for K = ``cfg.test_steps``.  The proxy
-    advances through the fast branch set, as the replay does.
+    advances through the branch set the replay uses (``fast_math``).
     """
     batch = images.shape[0]
     num_filters = len(filters)
@@ -63,7 +106,7 @@ def serve_rollout(policy, images, generator, *, cfg, filters):
             sel_params.to(torch.float32)[None], filters,
             mask_params=(sel_mask.to(torch.float32)[None]
                          if masking else None),
-            fast_math=True).to(img.dtype)
+            fast_math=fast_math).to(img.dtype)
         if cfg.clamp:
             out = torch.clamp(out, 0.0, 5.0)
 

@@ -5,14 +5,17 @@ a shared library with a plain C interface, at first use, under
 ``exposure_tpu_torch/build/`` (listed in ``.gitignore``), and loaded with
 ctypes.  Every pointer and the CUDA stream are passed as ``c_void_p``; a
 launcher returns ``cudaGetLastError()`` and the Python wrapper raises when
-it is not 0.  A library is named by a hash of its source and flags, so an
-edited source builds anew.  Nothing here runs at import time: the CPU
-tests import every module of the package.
+it is not 0.  A library is named by a hash of its source, of every
+header it includes from ``csrc/`` (``#include "..."``, followed through
+headers) and of the flags, so an edited source or header builds anew.
+Nothing here runs at import time: the CPU tests import every module of
+the package.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +28,9 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _LOCK = threading.Lock()
+_NAME_LOCKS = {}
 _LIBRARIES = {}
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 class KernelLibrary:
@@ -50,16 +55,39 @@ def _nvcc():
     return found
 
 
+def source_digest(src, csrc_dir=CSRC_DIR):
+    """Hash of ``src``, of every file it includes from ``csrc_dir`` (each
+    once, headers followed recursively) and of the nvcc flags."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    seen, todo = set(), [os.path.abspath(src)]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        with open(path, 'rb') as f:
+            text = f.read()
+        h.update(os.path.basename(path).encode() + b'\0' + text + b'\0')
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.abspath(os.path.join(os.path.dirname(path),
+                                               inc.decode()))
+            if os.path.dirname(dep) == os.path.abspath(csrc_dir) and \
+                    os.path.exists(dep):
+                todo.append(dep)
+    return h.hexdigest()[:16]
+
+
 def build(name, bind):
-    """Compile ``csrc/<name>.cu`` (once per source hash), load it and
-    declare its C interface with ``bind(lib)``."""
+    """Compile ``csrc/<name>.cu`` (once per source digest), load it and
+    declare its C interface with ``bind(lib)``.  Builds of different
+    libraries may run at once, from different threads."""
     with _LOCK:
+        lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with lock:
         if name in _LIBRARIES:
             return _LIBRARIES[name]
         src = os.path.join(CSRC_DIR, name + '.cu')
-        with open(src, 'rb') as f:
-            digest = hashlib.sha256(
-                f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = source_digest(src)
         path = os.path.join(BUILD_DIR, 'lib%s-%s.so' % (name, digest))
         seconds, log = 0.0, ''
         if not os.path.exists(path):
@@ -94,6 +122,38 @@ def _bind_dyn_chain(lib):
     lib.dyn_chain_error_string.restype = ctypes.c_char_p
 
 
+def _bind_switch_chain(lib):
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.switch_chain_launch.argtypes = [
+        vp, vp, vp, vp, vp, vp,    # img, out, ids, params, mask, rows
+        ctypes.POINTER(i), i,      # branch codes, n_filters
+        i, i, i,                   # n, n_active, B
+        i, i, i, i, i,             # H, W, K, Pp, M
+        i, i, i, i, i,             # is_u8, bf16, fast, masked, curve_steps
+        f, f, f,                   # max_sharpness, min_strength, 1-min
+        f, f, f,                   # shorter, grid_off_h, grid_off_w
+        vp]                        # stream
+    lib.switch_chain_launch.restype = i
+    lib.switch_chain_error_string.argtypes = [i]
+    lib.switch_chain_error_string.restype = ctypes.c_char_p
+
+
+def _bind_static_chain(lib):
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.static_chain_launch.argtypes = [
+        vp, vp, vp, vp, vp,        # img, out, params, mask, rows
+        ctypes.POINTER(i),         # signature branch codes
+        i, i, i,                   # n, n_active, B
+        i, i, i, i, i,             # H, W, K, Pp, M
+        i, i, i, i,                # is_u8, fast, masked, curve_steps
+        f, f, f,                   # max_sharpness, min_strength, 1-min
+        f, f, f,                   # shorter, grid_off_h, grid_off_w
+        vp]                        # stream
+    lib.static_chain_launch.restype = i
+    lib.static_chain_error_string.argtypes = [i]
+    lib.static_chain_error_string.restype = ctypes.c_char_p
+
+
 def dyn_chain_kernel():
     """The ``dyn_chain`` library with what its build reported."""
     return build('dyn_chain', _bind_dyn_chain)
@@ -102,3 +162,35 @@ def dyn_chain_kernel():
 def dyn_chain_library():
     """The bound ``dyn_chain`` library (built on first use)."""
     return dyn_chain_kernel().lib
+
+
+def switch_chain_kernel():
+    """The ``switch_chain`` library with what its build reported."""
+    return build('switch_chain', _bind_switch_chain)
+
+
+def switch_chain_library():
+    """The bound ``switch_chain`` library (built on first use)."""
+    return switch_chain_kernel().lib
+
+
+def static_chain_kernel():
+    """The ``static_chain`` library with what its build reported."""
+    return build('static_chain', _bind_static_chain)
+
+
+def static_chain_library():
+    """The bound ``static_chain`` library (built on first use)."""
+    return static_chain_kernel().lib
+
+
+def build_all():
+    """Build (or load) every kernel library at once, one nvcc each, and
+    return ``{name: KernelLibrary}``."""
+    from concurrent.futures import ThreadPoolExecutor
+    accessors = {'dyn_chain': dyn_chain_kernel,
+                 'switch_chain': switch_chain_kernel,
+                 'static_chain': static_chain_kernel}
+    with ThreadPoolExecutor(len(accessors)) as pool:
+        futures = {name: pool.submit(fn) for name, fn in accessors.items()}
+        return {name: fut.result() for name, fut in futures.items()}

@@ -22,11 +22,13 @@ MIN_FEATURE_MAP_SIZE = 4   # the convs stop at a 4x4 map
 
 
 def dropout(x, keep_prob, generator):
-    """Inverted dropout that is on whatever the module mode."""
+    """Inverted dropout that is on whatever the module mode.  The mask is
+    drawn in float32 whatever ``x``'s dtype, so a bfloat16 plan drops the
+    same units as a float32 one from the same generator."""
     if keep_prob >= 1.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) < keep_prob
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
     return x * keep / keep_prob
 
 

@@ -26,7 +26,8 @@ def apply_filter_step(img, filter_id, packed_params, filters,
         mp = None
         if mask_params is not None and f.use_masking():
             mp = mask_params[:, :f.get_num_mask_parameters()]
-        outs.append(f.apply(img, packed_params[:, :n], mask_parameters=mp))
+        outs.append(f.apply(img, specified_parameter=packed_params[:, :n],
+                            mask_parameters=mp)[0])
     stacked = torch.stack(outs, dim=1)  # [B, K, H, W, C]
     one_hot = F.one_hot(filter_id.long(), len(filters)).to(img.dtype)
     return torch.sum(stacked * one_hot[:, :, None, None, None], dim=1)

@@ -9,12 +9,16 @@ batch) or raises; on a CPU tensor it runs the plain PyTorch version
 ``apply_filter_chain_dynamic_reference`` in this module, which groups the
 images of each step by id and applies the same branch math.
 
-The branch math below mirrors the kernel's device functions: the exact set
-(``_exposure`` ... ``_saturation``), the fast set that the serving path
-uses (``_gamma_fast``, ``_saturation_fast``, ``_contrast_fast``, the
-max-form curves) and the two mask blends.  Each branch takes planar
-``r, g, b`` of shape [n, H, W] and ``p``, a sequence of per-image scalars
-shaped [n, 1, 1].
+The branch math below mirrors the kernels' device functions
+(``csrc/chain_branches.cuh``): the exact set (``_exposure`` ...
+``_saturation``), the fast set that the serving path uses (``_gamma_fast``,
+``_saturation_fast``, ``_contrast_fast``, the max-form curves) and the two
+mask blends.  Each branch takes planar ``r, g, b`` of shape [n, H, W] and
+``p``, a sequence of per-image scalars shaped [n, 1, 1], all float32 or
+all bfloat16; in bfloat16 each constant is rounded first (``_c``), as the
+switch kernel's bf16 branch set does.  The switch and static chains
+(``ops/switch_chain.py``, ``ops/static_chain.py``) share this math and
+the helpers below.
 """
 
 import ctypes
@@ -23,6 +27,8 @@ import math
 import torch
 
 from exposure_tpu_torch.ops import fastmath as fm
+
+_c = fm.const
 
 # Branch codes shared with csrc/dyn_chain.cu (enum Branch).
 BRANCH_CODES = {
@@ -37,29 +43,31 @@ BRANCH_CODES = {
     'LevelFilter': 8,
     'VignetFilter': 9,
 }
-_MAX_FILTERS = 32          # kMaxFilters in the kernel
-_MAX_BATCH = 65535         # grid.y limit
-_MAX_STATIC_SMEM = 48 * 1024
+IDENTITY_CODE = 10         # kIdentity
+MAX_FILTERS = 32           # kMaxFilters in the kernels
+MAX_STATIC_SMEM = 48 * 1024
 
 
 def _lum(r, g, b):
-    return 0.27 * r + 0.67 * g + 0.06 * b
+    return _c(0.27, r) * r + _c(0.67, r) * g + _c(0.06, r) * b
 
 
 def _exposure(r, g, b, p):
-    m = torch.exp(p[0] * math.log(2.0))
+    m = torch.exp(p[0] * _c(math.log(2.0), r))
     return r * m, g * m, b * m
 
 
 def _gamma(r, g, b, p):
     gm = p[0]
-    return tuple(torch.pow(torch.clamp(c, min=0.001), gm) for c in (r, g, b))
+    lo = _c(0.001, r)
+    return tuple(torch.pow(torch.clamp(c, min=lo), gm) for c in (r, g, b))
 
 
 def _gamma_fast(r, g, b, p):
     """exp2(g log2 x): the same function as pow on the clamped input."""
     gm = p[0]
-    return tuple(torch.exp2(gm * torch.log2(torch.clamp(c, min=0.001)))
+    lo = _c(0.001, r)
+    return tuple(torch.exp2(gm * torch.log2(torch.clamp(c, min=lo)))
                  for c in (r, g, b))
 
 
@@ -68,18 +76,19 @@ def _white_balance(r, g, b, p):
 
 
 def _curve_apply(x, p, offset, steps):
-    psum = 1e-30
+    psum = _c(1e-30, x)
     for i in range(steps):
         psum = psum + p[offset + i]
     total = x * 0
+    width = _c(1.0 / steps, x)
     for i in range(steps):
-        total = total + torch.clamp(x - i / steps, 0.0, 1.0 / steps) * \
+        total = total + torch.clamp(x - _c(i / steps, x), 0.0, width) * \
             p[offset + i]
     return total * (steps / psum)
 
 
 def _curve_fast_apply(x, p, offset, steps):
-    psum = 1e-30
+    psum = _c(1e-30, x)
     for i in range(steps):
         psum = psum + p[offset + i]
     knots = [p[offset + i] for i in range(steps)]
@@ -103,7 +112,7 @@ def _color(curve, steps):
 def _contrast_with(half_cos):
     def fn(r, g, b, p):
         lum = torch.clamp(_lum(r, g, b), 0.0, 1.0)
-        scale = half_cos(lum) / (lum + 1e-6)
+        scale = half_cos(lum) / (lum + _c(1e-6, lum))
         t = p[0]
         return (r + (r * scale - r) * t, g + (g * scale - g) * t,
                 b + (b * scale - b) * t)
@@ -111,7 +120,7 @@ def _contrast_with(half_cos):
 
 
 def _exact_half_cos_pi(lum):
-    return -torch.cos(math.pi * lum) * 0.5 + 0.5
+    return -torch.cos(_c(math.pi, lum) * lum) * 0.5 + 0.5
 
 
 def _bw(r, g, b, p):
@@ -123,7 +132,7 @@ def _bw(r, g, b, p):
 def _level(r, g, b, p):
     lo = p[0]
     hi = p[1] + 1.0
-    inv = 1.0 / (hi - lo + 1e-6)
+    inv = 1.0 / (hi - lo + _c(1e-6, r))
     return tuple(torch.clamp((c - lo) * inv, 0.0, 1.0) for c in (r, g, b))
 
 
@@ -143,12 +152,12 @@ def _saturation_with(gray_band):
         v = torch.maximum(torch.maximum(r1, g1), b1)
         mn = torch.minimum(torch.minimum(r1, g1), b1)
         rng = v - mn
-        k = (0.5 - torch.abs(0.5 - v)) * 0.8
+        k = (0.5 - torch.abs(0.5 - v)) * _c(0.8, v)
         one_m_k = 1.0 - k
         vpos = v > 0
         safe_v = torch.where(vpos, v, torch.ones_like(v))
         rng_pos = torch.where(vpos, rng, torch.zeros_like(rng))
-        gray = rng <= gray_band * safe_v if gray_band else rng <= 0
+        gray = rng <= _c(gray_band, v) * safe_v if gray_band else rng <= 0
         ratio = (one_m_k * rng_pos + k * safe_v) / \
             torch.where(gray, torch.ones_like(rng), rng)
         vg = one_m_k * (v - rng_pos)
@@ -190,10 +199,10 @@ def _with_mask(fn, mask_offset, cfg):
         mp = [torch.tanh(p[mask_offset + j]) * fir for j in range(6)]
         inp = (gx * mp[0] + gy * mp[1] + mp[2] * (_lum(r, g, b) - 0.5) +
                mp[3] * 2)
-        inp = inp * (cfg.maximum_sharpness * mp[4] / fir)
+        inp = inp * (_c(cfg.maximum_sharpness, r) * mp[4] / fir)
         mask = torch.sigmoid(inp)
         mask = mask * (mp[5] / fir * 0.5 + 0.5) * \
-            (1 - cfg.minimum_strength) + cfg.minimum_strength
+            _c(1 - cfg.minimum_strength, r) + _c(cfg.minimum_strength, r)
         return (r + (r2 - r) * mask, g + (g2 - g) * mask,
                 b + (b2 - b) * mask)
 
@@ -207,7 +216,7 @@ def _vignet_masked(cfg, mask_offset):
     def run(r, g, b, p, gx, gy):
         mp = [torch.tanh(p[mask_offset + j]) * fir for j in range(5)]
         inp = (gx * mp[0]) ** 2 + (gy * mp[1]) ** 2 + mp[2] - fir
-        inp = inp * (cfg.maximum_sharpness * mp[3] / fir)
+        inp = inp * (_c(cfg.maximum_sharpness, r) * mp[3] / fir)
         mask = torch.sigmoid(inp) * (mp[4] / fir * 0.5 + 0.5)
         inv = 1.0 - mask
         return r * inv, g * inv, b * inv
@@ -242,15 +251,21 @@ def planar_branches(filters, mask_offset=None, fast_math=False):
     return branches
 
 
+def fold_active(filter_ids, active_steps, n_filters):
+    """[K, B] ids with inactive steps (``active_steps`` 0) set to the
+    identity id ``n_filters``."""
+    if active_steps is None:
+        return filter_ids
+    return torch.where(active_steps > 0, filter_ids,
+                       torch.full_like(filter_ids, n_filters))
+
+
 def _pack(filter_ids, packed_params, filters, active_steps, mask_params):
     """[K, B] ids and [K, B, P] params -> the kernel's [B, K] int32 ids
     (inactive steps folded to the identity id) and [B, K, P'] f32 rows
     (mask parameters appended when masking is on)."""
     masking = any(f.use_masking() for f in filters)
-    ids = filter_ids
-    if active_steps is not None:
-        ids = torch.where(active_steps > 0, ids,
-                          torch.full_like(ids, len(filters)))
+    ids = fold_active(filter_ids, active_steps, len(filters))
     params = packed_params
     if masking:
         if mask_params is None:
@@ -260,13 +275,19 @@ def _pack(filter_ids, packed_params, filters, active_steps, mask_params):
             params.transpose(0, 1).to(torch.float32).contiguous(), masking)
 
 
-def _check_inputs(img, filter_ids, packed_params, active_steps,
-                  mask_params):
+def check_image(img):
     if img.dim() != 4 or img.shape[-1] != 3:
         raise ValueError('img must be [B, H, W, 3], got %s'
                          % (tuple(img.shape),))
     if img.dtype not in (torch.uint8, torch.float32):
         raise TypeError('img must be uint8 or float32, got %s' % img.dtype)
+
+
+def check_inputs(img, filter_ids, packed_params, active_steps, mask_params):
+    """Validate a chain call: [B, H, W, 3] image, [K, B] integer ids,
+    [K, B, P] params and the optional [K, B, ...] tensors, all on the
+    image's device."""
+    check_image(img)
     k, b = filter_ids.shape
     if b != img.shape[0]:
         raise ValueError('filter_ids [K, B] disagrees with the batch: '
@@ -274,50 +295,90 @@ def _check_inputs(img, filter_ids, packed_params, active_steps,
     if filter_ids.dtype.is_floating_point:
         raise TypeError('filter_ids must be integer, got %s'
                         % filter_ids.dtype)
+    check_params(img, k, packed_params, active_steps=active_steps,
+                 mask_params=mask_params, filter_ids=filter_ids)
+
+
+def check_params(img, k, packed_params, **optional):
+    """[K, B, P] params and optional [K, B, ...] tensors on img's device."""
+    b = img.shape[0]
     if packed_params.dim() != 3 or tuple(packed_params.shape[:2]) != (k, b):
         raise ValueError('packed_params must be [K, B, P], got %s'
                          % (tuple(packed_params.shape),))
-    for name, t in (('active_steps', active_steps),
-                    ('mask_params', mask_params)):
+    for name, t in optional.items():
         if t is not None and tuple(t.shape[:2]) != (k, b):
             raise ValueError('%s must lead with [K, B] = %s, got %s'
                              % (name, (k, b), tuple(t.shape)))
-    for name, t in (('filter_ids', filter_ids),
-                    ('packed_params', packed_params),
-                    ('active_steps', active_steps),
-                    ('mask_params', mask_params)):
+    for name, t in dict(optional, packed_params=packed_params).items():
         if t is not None and t.device != img.device:
             raise ValueError('%s is on %s, img on %s'
                              % (name, t.device, img.device))
 
 
-def _mask_grid(h, w, device):
+def replay_slots(img, rows, n_active):
+    """``(indices, n, n_active)``: the image indices a chain call with
+    optional ``rows`` and ``n_active`` replays (``rows[:n_active]``, or the
+    first ``n_active`` images without ``rows``), its slot count and its
+    validated ``n_active``."""
+    n = img.shape[0] if rows is None else rows.shape[0]
+    n_active = n if n_active is None else int(n_active)
+    if not 0 <= n_active <= n:
+        raise ValueError('n_active must be in [0, %d], got %d'
+                         % (n, n_active))
+    if rows is None:
+        return torch.arange(n_active, device=img.device), n, n_active
+    return rows[:n_active].long(), n, n_active
+
+
+def check_rows(img, rows, out):
+    if rows is not None:
+        if rows.dim() != 1 or rows.dtype not in (torch.int32, torch.int64):
+            raise TypeError('rows must be a 1-d integer tensor, got %s %s'
+                            % (rows.dtype, tuple(rows.shape)))
+        if rows.device != img.device:
+            raise ValueError('rows is on %s, img on %s'
+                             % (rows.device, img.device))
+    if out is not None and (out.shape != img.shape or
+                            out.dtype != img.dtype or
+                            out.device != img.device):
+        raise ValueError('out must match img: %s %s on %s'
+                         % (tuple(img.shape), img.dtype, img.device))
+
+
+def mask_grid(h, w, device, dtype=torch.float32):
+    """The normalized centered mask grid, x over rows and y over columns,
+    computed in float32 and cast to ``dtype``: ([1, H, 1], [1, 1, W])."""
     shorter = float(min(h, w))
     rows = torch.arange(h, dtype=torch.float32, device=device)
     cols = torch.arange(w, dtype=torch.float32, device=device)
     gx = (rows + (shorter - h) / 2.0) / shorter - 0.5
     gy = (cols + (shorter - w) / 2.0) / shorter - 0.5
-    return gx[None, :, None], gy[None, None, :]
+    return gx[None, :, None].to(dtype), gy[None, None, :].to(dtype)
 
 
-def apply_filter_chain_dynamic_reference(img, filter_ids, packed_params,
-                                         filters, active_steps=None,
-                                         mask_params=None, fast_math=False):
-    """Plain PyTorch version of the kernel, on any device: for each step,
-    group the images by filter id and run that branch on the group."""
-    _check_inputs(img, filter_ids, packed_params, active_steps, mask_params)
-    ids, params, masking = _pack(filter_ids, packed_params, filters,
-                                 active_steps, mask_params)
-    max_p = packed_params.shape[-1]
-    branches = planar_branches(filters, max_p if masking else None,
-                               fast_math)
-    quantized = img.dtype == torch.uint8
+def to_planes(img, dtype=torch.float32):
+    """[n, H, W, 3] u8 or f32 -> three [n, H, W] planes in ``dtype``: u8
+    is dequantized in float32 (x / 255) and then cast."""
     x = img.to(torch.float32)
-    if quantized:
+    if img.dtype == torch.uint8:
         x = x * (1.0 / 255.0)
-    r, g, b = (x[..., c].contiguous() for c in range(3))
-    gx, gy = _mask_grid(img.shape[1], img.shape[2], img.device) \
-        if masking else (None, None)
+    x = x.to(dtype)
+    return tuple(x[..., c].contiguous() for c in range(3))
+
+
+def from_planes(r, g, b, dtype):
+    """Three planes -> [n, H, W, 3] of ``dtype``; u8 is quantized from the
+    float32 value (round half to even of clip(x, 0, 1) * 255)."""
+    y = torch.stack([r, g, b], dim=-1).to(torch.float32)
+    if dtype == torch.uint8:
+        return torch.round(torch.clamp(y, 0.0, 1.0) * 255.0).to(torch.uint8)
+    return y.to(dtype)
+
+
+def run_steps(r, g, b, ids, params, branches, gx, gy):
+    """Apply ``ids`` [n, K] (identity outside the branch list) with rows
+    ``params`` [n, K, P'] to the planes: per step, the images of each id
+    go through that branch together."""
     for k in range(ids.shape[1]):
         for fid, branch in enumerate(branches):
             sel = torch.nonzero(ids[:, k] == fid).squeeze(1)
@@ -326,10 +387,48 @@ def apply_filter_chain_dynamic_reference(img, filter_ids, packed_params,
             p = params[sel, k][:, :, None, None].unbind(1)
             out = branch(r[sel], g[sel], b[sel], p, gx, gy)
             r[sel], g[sel], b[sel] = out
-    y = torch.stack([r, g, b], dim=-1)
-    if quantized:
-        return torch.round(torch.clamp(y, 0.0, 1.0) * 255.0).to(torch.uint8)
-    return y
+    return r, g, b
+
+
+def branch_codes(filters):
+    """The bank's branch codes as the C ``int[]`` the kernels take."""
+    if len(filters) > MAX_FILTERS:
+        raise ValueError('at most %d filters' % MAX_FILTERS)
+    return (ctypes.c_int * len(filters))(
+        *[BRANCH_CODES[type(f).__name__] for f in filters])
+
+
+def kernel_scalars(filters, h, w):
+    """The config and grid scalars every chain kernel takes after its
+    flags: curve_steps, max_sharpness, min_strength, 1 - min_strength,
+    shorter side and the two grid offsets."""
+    cfg = filters[0].cfg
+    shorter = float(min(h, w))
+    return (int(cfg.curve_steps), float(cfg.maximum_sharpness),
+            float(cfg.minimum_strength), float(1 - cfg.minimum_strength),
+            shorter, (shorter - h) / 2.0, (shorter - w) / 2.0)
+
+
+def kernel_stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def apply_filter_chain_dynamic_reference(img, filter_ids, packed_params,
+                                         filters, active_steps=None,
+                                         mask_params=None, fast_math=False):
+    """Plain PyTorch version of the kernel, on any device: for each step,
+    group the images by filter id and run that branch on the group."""
+    check_inputs(img, filter_ids, packed_params, active_steps, mask_params)
+    ids, params, masking = _pack(filter_ids, packed_params, filters,
+                                 active_steps, mask_params)
+    max_p = packed_params.shape[-1]
+    branches = planar_branches(filters, max_p if masking else None,
+                               fast_math)
+    r, g, b = to_planes(img)
+    gx, gy = mask_grid(img.shape[1], img.shape[2], img.device) \
+        if masking else (None, None)
+    r, g, b = run_steps(r, g, b, ids, params, branches, gx, gy)
+    return from_planes(r, g, b, img.dtype)
 
 
 def apply_filter_chain_dynamic(img, filter_ids, packed_params, filters,
@@ -350,7 +449,9 @@ def apply_filter_chain_dynamic(img, filter_ids, packed_params, filters,
 
     Returns:
       [B, H, W, 3] of the input's dtype.  A CPU tensor runs the plain
-      PyTorch version; a CUDA tensor launches the kernel or raises.
+      PyTorch version; a CUDA tensor launches the kernel or raises.  Any
+      batch size is taken: the kernel launcher splits batches larger than
+      the grid's 65535 images into several launches.
     """
     if img.device.type == 'cpu':
         return apply_filter_chain_dynamic_reference(
@@ -359,7 +460,7 @@ def apply_filter_chain_dynamic(img, filter_ids, packed_params, filters,
             fast_math=fast_math)
     if img.device.type != 'cuda':
         raise ValueError('no chain kernel for device %s' % img.device)
-    _check_inputs(img, filter_ids, packed_params, active_steps, mask_params)
+    check_inputs(img, filter_ids, packed_params, active_steps, mask_params)
     if not img.is_contiguous():
         raise ValueError('img must be contiguous')
     if packed_params.dtype != torch.float32 or (
@@ -371,32 +472,22 @@ def apply_filter_chain_dynamic(img, filter_ids, packed_params, filters,
     planar_branches(filters, packed_params.shape[-1] if masking else None)
     batch, h, w, _ = img.shape
     num_steps, width = ids.shape[1], params.shape[-1]
-    if len(filters) > _MAX_FILTERS:
-        raise ValueError('at most %d filters' % _MAX_FILTERS)
-    if batch > _MAX_BATCH:
-        raise ValueError('at most %d images per launch' % _MAX_BATCH)
+    codes = branch_codes(filters)
     if masking and width - packed_params.shape[-1] < 6:
         raise ValueError('the kernel reads 6 mask parameters per step')
-    if num_steps * (width + 1) * 4 > _MAX_STATIC_SMEM:
+    if num_steps * (width + 1) * 4 > MAX_STATIC_SMEM:
         raise ValueError('K x P too large for the kernel: %d x %d'
                          % (num_steps, width))
-    cfg = filters[0].cfg
-    codes = (ctypes.c_int * len(filters))(
-        *[BRANCH_CODES[type(f).__name__] for f in filters])
-    shorter = float(min(h, w))
     out = torch.empty_like(img)
     from exposure_tpu_torch.kernels import dyn_chain_library
     lib = dyn_chain_library()
     with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.dyn_chain_launch(
             img.data_ptr(), out.data_ptr(), ids.data_ptr(), params.data_ptr(),
             codes, len(filters), batch, h, w, num_steps, width,
             packed_params.shape[-1], int(img.dtype == torch.uint8),
-            int(bool(fast_math)), int(masking), int(cfg.curve_steps),
-            float(cfg.maximum_sharpness), float(cfg.minimum_strength),
-            float(1 - cfg.minimum_strength), shorter, (shorter - h) / 2.0,
-            (shorter - w) / 2.0, stream)
+            int(bool(fast_math)), int(masking),
+            *kernel_scalars(filters, h, w), kernel_stream(img.device))
     if err != 0:
         raise RuntimeError('dyn_chain kernel launch failed: %s'
                            % lib.dyn_chain_error_string(err).decode())

@@ -6,17 +6,36 @@ counterpart of ``exposure_tpu/ops/fastmath.py:88,105``).  The CUDA kernel
   |err| <= ~1e-6 on [0, 1].
 - ``curve_relu``: the 8-knot piecewise-linear curve as a telescoped
   ``max`` sum; the same function as the clip form, exact up to rounding.
+
+Both take float32 or bfloat16 tensors.  In bfloat16 every constant is
+rounded to bfloat16 first (``const``), as JAX does with the weakly typed
+constants of a bf16 computation, and every operation rounds its result.
 """
+
+import functools
 
 import torch
 
 _SIN_C = (-0.55945275, 2.54400687, -5.16740635, 3.14159026)
 
 
+@functools.lru_cache(maxsize=None)
+def _bf16_value(value):
+    return float(torch.tensor(value, dtype=torch.bfloat16))
+
+
+def const(value, like):
+    """``value`` as a constant of ``like``'s dtype: unchanged for float32,
+    rounded to bfloat16 for a bfloat16 tensor."""
+    if like.dtype == torch.bfloat16:
+        return _bf16_value(float(value))
+    return value
+
+
 def _poly(coeffs, x):
-    acc = coeffs[0] * torch.ones_like(x)
+    acc = const(coeffs[0], x) * torch.ones_like(x)
     for c in coeffs[1:]:
-        acc = acc * x + c
+        acc = acc * x + const(c, x)
     return acc
 
 
@@ -38,7 +57,7 @@ def curve_relu(x, knots, norm):
     c0 = knots[k - 1]
     for i in range(1, k):
         d = knots[i] - knots[i - 1]
-        total = total + torch.clamp(x, min=i / k) * d
-        c0 = c0 - d * (i / k)
+        total = total + torch.clamp(x, min=const(i / k, x)) * d
+        c0 = c0 - d * const(i / k, x)
     total = total - torch.clamp(x, min=1.0) * knots[k - 1]
     return (total + c0) * norm

@@ -43,6 +43,9 @@ class Filter:
         """[B, H, W, C] x [B, n_params] -> [B, H, W, C]."""
         raise NotImplementedError
 
+    def no_high_res(self):
+        return False
+
     def use_masking(self):
         return self.cfg.masking
 
@@ -68,17 +71,42 @@ class Filter:
             self.cfg.minimum_strength
         return mask
 
-    def apply(self, img, specified_parameter, mask_parameters=None):
-        """Run the filter with already-regressed parameters (a replayed
-        trajectory step); with masking on, the raw mask parameters must
-        come along."""
-        assert not self.use_masking() or mask_parameters is not None
+    def apply(self, img, raw_parameters=None, specified_parameter=None,
+              mask_parameters=None, high_res=None):
+        """Run the filter; returns ``(low_res_out, high_res_out, params)``.
+
+        Give either ``raw_parameters`` (head outputs, regressed here) or
+        ``specified_parameter`` (already regressed, e.g. a replayed
+        trajectory step; with masking on, the raw mask parameters must
+        come along).  ``high_res`` is processed with the same parameters
+        (None in, None out); a filter whose ``no_high_res`` is true
+        passes it through."""
+        if (raw_parameters is None) == (specified_parameter is None):
+            raise ValueError('give exactly one of raw_parameters and '
+                             'specified_parameter')
+        if raw_parameters is not None:
+            filter_parameters = self.filter_param_regressor(raw_parameters)
+        else:
+            if self.use_masking() and mask_parameters is None:
+                raise ValueError('a masked filter replayed with '
+                                 'specified_parameter needs mask_parameters')
+            filter_parameters = specified_parameter
         if mask_parameters is None:
             mask_parameters = torch.zeros(
                 (img.shape[0], self.get_num_mask_parameters()),
                 dtype=img.dtype, device=img.device)
         mask = self.get_mask(img, mask_parameters)
-        return lerp(img, self.process(img, specified_parameter), mask)
+        low_res_output = lerp(img, self.process(img, filter_parameters), mask)
+        high_res_output = None
+        if high_res is not None:
+            if self.no_high_res():
+                high_res_output = high_res
+            else:
+                hi_mask = self.get_mask(high_res, mask_parameters)
+                high_res_output = lerp(
+                    high_res, self.process(high_res, filter_parameters),
+                    hi_mask)
+        return low_res_output, high_res_output, filter_parameters
 
 
 def _mask_grid(h, w, dtype, device):

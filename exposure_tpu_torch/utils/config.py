@@ -2,9 +2,11 @@
 
 The JAX package's configs are Python modules that import ``exposure_tpu``
 (and with it ``jax``) to name their filter classes, so the port cannot
-load them.  It keeps its own table of the knobs serving reads, for the
-chain ``example`` -> ``synthetic`` -> ``synthetic_explore`` and the
-``test`` and ``masked`` configs the tests use.  Filters are named by the
+load them.  It keeps its own table of the knobs serving and ``agent_step``
+read, for the chain ``example`` -> ``synthetic`` -> ``synthetic_explore``
+and the ``test`` and ``masked`` configs the tests use.  The knobs that the
+JAX ``agent_step`` reads with ``cfg.get`` and a default (``replay_inject_*``,
+``entropy_respike*``) are in the table with those defaults.  Filters are named by the
 JAX class ``__name__``; ``ops.filters.build_filters`` maps each name to
 its port.  ``tests/test_torch_serving.py`` holds every entry equal to
 ``exposure_tpu.utils.load_config(name)``.
@@ -44,10 +46,21 @@ def _example():
         minimum_strength=0.3,
         maximum_sharpness=1,
         clamp=False,
-        # action selection and trajectory
+        # action selection, trajectory and penalties
         exploration=0.05,
         img_include_states=True,
         test_steps=5,
+        exploration_penalty=0.05,
+        filter_usage_penalty=1.0,
+        early_stop_penalty=1.0,
+        # off-policy replay injection and the entropy re-spike (training
+        # knobs of agent_step; off unless a config sets them)
+        replay_inject_prob=0.0,
+        replay_inject_until=1.0,
+        replay_inject_mode='uniform',
+        entropy_respike=0.0,
+        entropy_respike_center=0.5,
+        entropy_respike_width=0.15,
         # networks
         source_img_size=64,
         base_channels=32,
@@ -67,6 +80,12 @@ def _test():
     return cfg
 
 
+def _synthetic_explore():
+    cfg = _example()
+    cfg.exploration_penalty = 0.2
+    return cfg
+
+
 def _masked():
     cfg = _example()
     cfg.masking = True
@@ -76,11 +95,11 @@ def _masked():
 
 
 # config_synthetic.py changes only data and dispatch knobs, and
-# config_synthetic_explore.py only the training knob exploration_penalty
+# config_synthetic_explore.py only exploration_penalty
 CONFIGS = {
     'example': _example,
     'synthetic': _example,
-    'synthetic_explore': _example,
+    'synthetic_explore': _synthetic_explore,
     'test': _test,
     'masked': _masked,
 }

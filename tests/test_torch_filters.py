@@ -1,6 +1,7 @@
 """The port's filter bank and branchless chain against the JAX package:
-every filter's regressor, ``process`` and masked ``apply`` with masking on
-and off, and ``chain.apply_filter_chain``.  Same numpy inputs on both
+every filter's regressor, ``process`` and ``apply`` (both parameter forms,
+with a high-resolution image) with masking on and off, and
+``chain.apply_filter_chain``.  Same numpy inputs on both
 sides; f32 tolerance 1e-5 (pow, exp, cos and the HSV round trip differ by
 a few ulp between XLA and PyTorch)."""
 
@@ -74,9 +75,45 @@ def test_process_and_apply(rng, banks):
         want, _, _ = a.apply(jnp.asarray(img),
                              specified_parameter=jnp.asarray(param),
                              mask_parameters=jnp.asarray(mp))
-        got = b.apply(torch.from_numpy(img), torch.from_numpy(param),
-                      mask_parameters=torch.from_numpy(mp))
+        got, _, _ = b.apply(torch.from_numpy(img),
+                            specified_parameter=torch.from_numpy(param),
+                            mask_parameters=torch.from_numpy(mp))
         _close(got, want, msg='apply %s' % a.get_short_name())
+
+
+@pytest.mark.parametrize('form', ['raw', 'specified'])
+def test_apply_contract(rng, banks, form):
+    """``Filter.apply`` takes raw or regressed parameters and an optional
+    high-res image, and returns (low_res, high_res, params) as JAX does."""
+    img = (rng.rand(3, 16, 24, 3) * 1.1).astype(np.float32)
+    hi = (rng.rand(3, 32, 40, 3) * 1.1).astype(np.float32)
+    for a, b in zip(*banks):
+        raw = rng.randn(3, a.get_num_filter_parameters()).astype(np.float32)
+        mp = rng.randn(3, a.get_num_mask_parameters()).astype(np.float32)
+        if form == 'raw':
+            jkw = dict(raw_parameters=jnp.asarray(raw))
+            tkw = dict(raw_parameters=torch.from_numpy(raw))
+        else:
+            reg = np.array(a.filter_param_regressor(jnp.asarray(raw)))
+            jkw = dict(specified_parameter=jnp.asarray(reg))
+            tkw = dict(specified_parameter=torch.from_numpy(reg))
+        masked = a.use_masking()
+        want = a.apply(jnp.asarray(img), high_res=jnp.asarray(hi),
+                       mask_parameters=jnp.asarray(mp) if masked else None,
+                       **jkw)
+        got = b.apply(torch.from_numpy(img), high_res=torch.from_numpy(hi),
+                      mask_parameters=torch.from_numpy(mp) if masked
+                      else None, **tkw)
+        assert len(got) == 3
+        for g, w, part in zip(got, want, ('low', 'high', 'params')):
+            _close(g, w, msg='%s %s' % (part, a.get_short_name()))
+        low, none_hi, _ = b.apply(torch.from_numpy(img),
+                                  mask_parameters=torch.from_numpy(mp),
+                                  **tkw)
+        assert none_hi is None
+        _close(low, want[0])
+    with pytest.raises(ValueError):   # exactly one parameter form
+        b.apply(torch.from_numpy(img))
 
 
 @pytest.mark.parametrize('hw', [(16, 24), (24, 16), (7, 7)])

@@ -1,0 +1,50 @@
+"""The kernel build's source digest, on the CPU (no nvcc needed): a
+library is named by a hash of its source and of every header it includes
+from ``csrc/``, so editing a shared header rebuilds every kernel that
+includes it."""
+
+import os
+import shutil
+
+from exposure_tpu_torch.kernels import CSRC_DIR, source_digest
+
+KERNELS = ('dyn_chain', 'switch_chain', 'static_chain')
+
+
+def _copy_csrc(tmp_path):
+    dst = tmp_path / 'csrc'
+    shutil.copytree(CSRC_DIR, dst)
+    return str(dst)
+
+
+def test_digest_follows_included_headers(tmp_path):
+    csrc = _copy_csrc(tmp_path)
+    srcs = {k: os.path.join(csrc, k + '.cu') for k in KERNELS}
+    before = {k: source_digest(p, csrc) for k, p in srcs.items()}
+    assert before == {k: source_digest(os.path.join(CSRC_DIR, k + '.cu'))
+                      for k in KERNELS}
+    assert len(set(before.values())) == len(KERNELS)
+    header = os.path.join(csrc, 'chain_branches.cuh')
+    with open(header, 'ab') as f:
+        f.write(b'\n// one more line\n')
+    after = {k: source_digest(p, csrc) for k, p in srcs.items()}
+    for k in KERNELS:   # every kernel includes the shared header
+        assert after[k] != before[k], k
+
+
+def test_digest_of_a_header_chain_and_of_the_source(tmp_path):
+    csrc = tmp_path / 'csrc'
+    csrc.mkdir()
+    (csrc / 'k.cu').write_bytes(b'#include "a.cuh"\n#include <cstdint>\n')
+    (csrc / 'a.cuh').write_bytes(b'#pragma once\n  #  include "b.cuh"\n')
+    (csrc / 'b.cuh').write_bytes(b'// b\n')
+    src = str(csrc / 'k.cu')
+    d0 = source_digest(src, str(csrc))
+    (csrc / 'b.cuh').write_bytes(b'// b, edited\n')
+    d1 = source_digest(src, str(csrc))
+    (csrc / 'k.cu').write_bytes(b'#include "a.cuh"\n#include <cstdint>\n\n')
+    d2 = source_digest(src, str(csrc))
+    assert len({d0, d1, d2}) == 3
+    # a system header is not followed, and an unrelated file is not hashed
+    (csrc / 'unused.cuh').write_bytes(b'// not included\n')
+    assert source_digest(src, str(csrc)) == d2

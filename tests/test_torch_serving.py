@@ -45,14 +45,28 @@ from exposure_tpu_torch.utils.config import load_config as t_load_config
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# knobs the JAX agent_step reads with cfg.get and these defaults
+# (exposure_tpu/models/agent.py:177-249)
+AGENT_STEP_DEFAULTS = {
+    'replay_inject_prob': 0.0, 'replay_inject_until': 1.0,
+    'replay_inject_mode': 'uniform', 'entropy_respike': 0.0,
+    'entropy_respike_center': 0.5, 'entropy_respike_width': 0.15}
+
+
 @pytest.mark.parametrize('name', sorted(CONFIGS))
 def test_config_table_matches_load_config(name):
     jcfg, tcfg = j_load_config(name), t_load_config(name)
     assert list(tcfg.filters) == [c.__name__ for c in jcfg.filters]
+    for knob in ('exploration_penalty', 'filter_usage_penalty',
+                 'early_stop_penalty', *AGENT_STEP_DEFAULTS):
+        assert knob in tcfg, knob
     for knob, value in tcfg.items():
         if knob in ('filters', 'name'):
             continue
-        assert jcfg[knob] == value, knob
+        want = jcfg.get(knob, AGENT_STEP_DEFAULTS.get(knob, KeyError))
+        assert want == value, knob
+    if name == 'synthetic_explore':
+        assert tcfg.exploration_penalty == 0.2
 
 
 def test_agent_helpers_match_jax(rng):
@@ -200,7 +214,8 @@ def test_pipeline_matches_jax(models, dtype):
                       use_pallas=True, interpret=True, dynamic=True,
                       selected_plan=True)
     want = np.asarray(jpipe(imgs, seed=3))
-    tpipe = TPipeline(m.tcfg, m.policy)
+    tpipe = TPipeline(m.tcfg, m.policy, use_kernels=True)
+    assert tpipe.dynamic and tpipe.selected_plan
     got = tpipe(imgs, seed=3)
     assert got.dtype == torch.from_numpy(imgs).dtype
     assert got.shape == imgs.shape
@@ -250,9 +265,15 @@ def test_port_imports_without_jax_or_flax():
                 return None
 
         sys.meta_path.insert(0, Refuse())
+        import exposure_tpu_torch.core.rollout
         import exposure_tpu_torch.core.serving
         import exposure_tpu_torch.kernels
+        import exposure_tpu_torch.models.agent
         import exposure_tpu_torch.ops.chain
+        import exposure_tpu_torch.ops.grouped_chain
+        import exposure_tpu_torch.ops.sampling
+        import exposure_tpu_torch.ops.static_chain
+        import exposure_tpu_torch.ops.switch_chain
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                       'exposure_tpu')]
