@@ -7,9 +7,9 @@ Phases, one line or a few each (a failing phase exits non-zero):
 
 1. card: require CUDA, print the card's name and power limit, turn TF32 off
    for convolutions and matmuls (it can flip near-tie argmax decisions);
-2. build: compile the three hand-written CUDA kernels from
-   ``exposure_tpu_torch/csrc`` at once, one nvcc each, with their ptxas
-   lines;
+2. build: compile the four CUDA kernel libraries from
+   ``exposure_tpu_torch/csrc`` (the three chain kernels and the probes) at
+   once, one nvcc each, with their ptxas lines;
 3. K1: the dynamic filter-chain kernel against its plain PyTorch version
    over the chain cases of the JAX package's kernel checks (f32 and u8,
    odd shapes, inactive steps, the all-identity trajectory, exact and fast
@@ -22,16 +22,30 @@ Phases, one line or a few each (a failing phase exits non-zero):
 5. K3: the static-chain kernel against its plain version over the same
    kinds of case (rows below ``n_active``, ``rows`` scatter), timed at
    [512, 512, 512, 3] u8 K=5 on one signature;
-6. small: the whole dynamic path on the card against the CPU pipeline
+6. probes: K4a (3 ops x steps 0, 1, 5), K4b (its 11 ops) and K4c (4 ops x
+   3 styles, 8 steps) against their plain versions on a small and an odd
+   size (a byte count that is not a multiple of 16), and K4c's bf16_cast
+   against bf16_splat bit for bit;
+7. probe tools: the port's bench_kernel_probe (K4a, and K2 beside the
+   branchless chain), bench_fastmath (K4b) and bench_bf16_probe (K4c) at
+   their JAX tools' default shapes, each printing its JSON report; then
+   each timed case's kernel output held to its plain version on the timed
+   input with the tolerances of phase 6 (and K4c's bf16_cast against
+   bf16_splat), and the plain version timed there; the u8 round trip's
+   bandwidth from K4a's copy;
+8. tools: the port's verify_kernel (K1, K2 and the grouped K3 route against
+   the branchless chain, its 24 cases must pass) and bench_filters at
+   B=256 u8, with the fast branch set and without;
+9. small: the whole dynamic path on the card against the CPU pipeline
    (the plain versions throughout) on a small input;
-7. main path: the trained ``synthetic_explore`` policy served from the
+10. main path: the trained ``synthetic_explore`` policy served from the
    in-repo artifact at full width on B=512 batches of seeded 512x512 u8
    images through ``RetouchPipeline.map_batches`` (dynamic, selected
    plan), dropout on; checks the output, the K1 launch count (6 per batch:
    5 proxy steps + 1 replay), the replay against the plain version, no
    host sync, and prints img/s and its split across resize, plan and
    replay;
-8. modes: the same artifact and batches through the dynamic mode with the
+11. modes: the same artifact and batches through the dynamic mode with the
    bank plan, the switch mode, the grouped mode, the grouped mode with
    ``warmup(superset=True)`` and the auto-superset mode
    (``auto_record_batches=2``): each mode's output agrees with the
@@ -39,14 +53,15 @@ Phases, one line or a few each (a failing phase exits non-zero):
    kernel per batch, its host syncs (none in the dynamic and switch
    modes, where any raises; in the grouped modes a batch waits only on
    the event after its ids' copy), img/s and the split;
-9. planted mix: one full-width batch with a planted 6-signature plan
+12. planted mix: one full-width batch with a planted 6-signature plan
    with small groups, replayed through ``call_superset``
    (slot overflow, a missing signature, an empty slot, the K2 merge) and
    through the accumulate route (``merge_below``), against K1;
-10. bf16 plan: the served plan in bfloat16 against the f32 plan.
+13. bf16 plan: the served plan in bfloat16 against the f32 plan.
 
-Every kernel count is set to 0 just before a path is driven and read just
-after; the comparisons with the plain versions do not count.  The line
+Every kernel count is set to 0 just before a path is driven (the serving
+modes, and the tools, which are the probes' path) and read just after;
+the comparisons with the plain versions do not count.  The line
 before the last is a JSON summary of every kernel; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -84,6 +99,14 @@ MAX_OUTLIER_FRAC = 1e-4            # fast S+ gray band, see dyn_chain.py
 BF16_MAX_LSB, BF16_MEAN_LSB = 8, 2.0
 BF16_PLAIN_FRAC = 1e-3
 BF16_PLAN_STEP1 = 0.9              # step-1 ids agreeing with the f32 plan
+# The probes: [B, H, W] of the checks (16-byte chunks only, and a ragged
+# end), and the JAX tools' default shapes for the timings
+PROBE_SIZES = {'small': (2, 64, 64), 'odd': (3, 37, 53)}
+PROBE_BATCH, BF16_PROBE_BATCH, BF16_PROBE_STEPS = 256, 64, 8
+PROBE_ITERS = 7      # bench_kernel_probe's timed calls (its CLI default: 20)
+PLAIN_RUNS = 3       # timed runs of the probes' plain versions
+# K4c in bf16 against its plain version, as K2-bf16
+PROBE_BF16_FRAC = 1e-3
 
 
 def fail(msg):
@@ -97,30 +120,25 @@ def say(msg):
 
 def cuda_ms(fn, runs=7, warmup=2):
     """Median milliseconds of ``fn()`` between CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
+    from exposure_tpu_torch.tools import median_seconds
+    return median_seconds(fn, DEVICE, runs=runs, warmup=warmup) * 1e3
 
 
 def wrappers():
-    """The three kernel wrappers, whose ``launches`` count the kernel
+    """The six kernel wrappers, whose ``launches`` count the kernel
     launches they make."""
     from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
     from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
     from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
+    from exposure_tpu_torch.tools.bench_bf16_probe import run_probe
+    from exposure_tpu_torch.tools.bench_fastmath import run_op
+    from exposure_tpu_torch.tools.bench_kernel_probe import mono_chain
     return {'dyn_chain': apply_filter_chain_dynamic,
             'switch_chain': apply_filter_chain_switch,
-            'static_chain': apply_filter_chain_static}
+            'static_chain': apply_filter_chain_static,
+            'mono_probe': mono_chain,
+            'fastmath_probe': run_op,
+            'bf16_probe': run_probe}
 
 
 def reset_counts():
@@ -161,8 +179,8 @@ def phase_build():
     from exposure_tpu_torch.kernels import build_all
     t0 = time.perf_counter()
     libs = build_all()
-    say('build: 3 libraries in %.1f s (one nvcc each, all at once)'
-        % (time.perf_counter() - t0))
+    say('build: %d libraries in %.1f s (one nvcc each, all at once)'
+        % (len(libs), time.perf_counter() - t0))
     for name, lib in libs.items():
         say('build: %s nvcc %.1f s %s' % (name, lib.build_seconds, lib.path))
         for ln in lib.build_log.splitlines():
@@ -519,6 +537,218 @@ def phase_k3():
     return worst, timing
 
 
+def _launch_checked(name, fn, *args):
+    """``fn(*args)`` on the card, failing unless the wrapper ``name``
+    launched its kernel exactly once."""
+    import torch
+    wrapper = wrappers()[name]
+    before = wrapper.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    if wrapper.launches != before + 1:
+        fail('%s: the wrapper did not launch the kernel' % name)
+    return got
+
+
+def _lsb(got, want):
+    return int((got.int() - want.int()).abs().max())
+
+
+def _probe_worst():
+    return {'mono_probe': 0, 'fastmath_probe': 0, 'bf16_probe': 0,
+            'bf16_probe_bf16_lsb': 0, 'bf16_probe_frac_off': 0.0}
+
+
+def _hold_probe(worst, name, key, got, want):
+    """Hold the probe kernel ``name``'s output ``got`` on case ``key`` to
+    its plain version's ``want``: at most 1 LSB apart, or for K4c's bf16
+    styles at most ``PROBE_BF16_FRAC`` of the values more than 1 LSB apart.
+    Folds the case into ``worst`` and returns ``(max_lsb, frac_off)``."""
+    lsb = _lsb(got, want)
+    frac = float(((got.int() - want.int()).abs() > 1).float().mean())
+    if name == 'bf16_probe' and not key.endswith('/f32'):
+        worst['bf16_probe_bf16_lsb'] = max(worst['bf16_probe_bf16_lsb'], lsb)
+        worst['bf16_probe_frac_off'] = max(worst['bf16_probe_frac_off'], frac)
+        ok = frac <= PROBE_BF16_FRAC
+    else:
+        worst[name] = max(worst[name], lsb)
+        ok = lsb <= 1
+    if not ok:
+        fail('%s %s disagrees with its plain version: max %d LSB, %g of the '
+             'values more than 1 LSB apart' % (name, key, lsb, frac))
+    return lsb, frac
+
+
+def phase_probes():
+    """K4a, K4b and K4c against their plain versions on a small and an odd
+    size; returns the largest LSB difference of each kernel."""
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.tools import bench_bf16_probe as k4c
+    from exposure_tpu_torch.tools import bench_fastmath as k4b
+    from exposure_tpu_torch.tools import bench_kernel_probe as k4a
+    dev = torch.device(DEVICE)
+    rng = np.random.RandomState(SEED + 4)
+    worst = _probe_worst()
+
+    def u8(*shape):
+        return torch.from_numpy((rng.rand(*shape) * 255).astype(
+            np.uint8)).to(dev)
+
+    for size, (b, h, w) in PROBE_SIZES.items():
+        nhwc, planar, mono = u8(b, h, w, 3), u8(b, 3, h, w), u8(b, 1, h, w)
+        lsb = {}
+        for op in k4a.MONO_OPS:
+            for steps in (0, 1, 5):
+                key = '%s%d' % (op, steps)
+                got = _launch_checked('mono_probe', k4a.mono_chain, nhwc,
+                                      steps, op)
+                lsb[key], _ = _hold_probe(
+                    worst, 'mono_probe', key, got,
+                    k4a.mono_chain_reference(nhwc, steps, op))
+        say('K4a %-5s [%d, %d, %d, 3] u8 (%d bytes, %d past a 16-byte '
+            'chunk): max_lsb by op and steps %s' % (
+                size, b, h, w, nhwc.numel(), nhwc.numel() % 16, lsb))
+        lsb = {}
+        for op in k4b.OPS:
+            got = _launch_checked('fastmath_probe', k4b.run_op, planar, op)
+            lsb[op], _ = _hold_probe(worst, 'fastmath_probe', op, got,
+                                     k4b.run_op_reference(planar, op))
+        say('K4b %-5s [%d, 3, %d, %d] u8 (%d bytes, %d past a 16-byte '
+            'chunk): max_lsb by op %s' % (size, b, h, w, planar.numel(),
+                                          planar.numel() % 16, lsb))
+        lsb, frac = {}, {}
+        for op in k4c.OPS:
+            outs = {}
+            for style in k4c.STYLES:
+                args = (mono, k4c.PARAMS, op, style, BF16_PROBE_STEPS)
+                key = '%s/%s' % (op, style)
+                outs[style] = _launch_checked('bf16_probe', k4c.run_probe,
+                                              *args)
+                lsb[key], frac[key] = _hold_probe(
+                    worst, 'bf16_probe', key, outs[style],
+                    k4c.run_probe_reference(*args))
+            if not torch.equal(outs['bf16_cast'], outs['bf16_splat']):
+                fail('K4c %s: bf16_cast and bf16_splat differ' % op)
+        say('K4c %-5s [%d, 1, %d, %d] u8 (%d bytes, %d past a 16-byte '
+            'chunk) %d steps: max_lsb by op/style %s; bf16 fraction more '
+            'than 1 LSB off %s; bf16_cast == bf16_splat bit for bit' % (
+                size, b, h, w, mono.numel(), mono.numel() % 16,
+                BF16_PROBE_STEPS, lsb,
+                {k: v for k, v in frac.items() if '/bf16' in k}))
+    return worst
+
+
+def phase_probe_tools():
+    """The tools that drive the probes, at the JAX tools' default shapes,
+    with the counts set to 0 before and read after; then each timed case's
+    kernel output held to its plain version on the timed input, and the
+    plain version timed there.  Returns the counts, ``{kernel: {case: (ms,
+    plain_ms)}}``, the largest differences at these shapes and the u8
+    round trip's GB/s."""
+    import torch
+    from exposure_tpu_torch.tools import bench_bf16_probe as k4c
+    from exposure_tpu_torch.tools import bench_fastmath as k4b
+    from exposure_tpu_torch.tools import bench_kernel_probe as k4a
+    dev = torch.device(DEVICE)
+
+    reset_counts()
+    rep_a = k4a.report(PROBE_BATCH, RES, iters=PROBE_ITERS, device=dev)
+    say('bench_kernel_probe: ' + json.dumps(rep_a))
+    rep_b = k4b.report(PROBE_BATCH, RES, device=dev,
+                       say=lambda ln: say('  bench_fastmath ' + ln))
+    say('bench_fastmath: ' + json.dumps(rep_b))
+    rep_c = []
+    for op in k4c.OPS:
+        for style in k4c.STYLES:
+            rep_c.append(k4c.probe(op, style, BF16_PROBE_BATCH, RES,
+                                   BF16_PROBE_STEPS, dev))
+            say('bench_bf16_probe: ' + json.dumps(rep_c[-1]))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for name in ('mono_probe', 'fastmath_probe', 'bf16_probe',
+                 'switch_chain'):
+        if not counts[name]:
+            fail('the probe tools did not launch %s: %s' % (name, counts))
+    say('probe tools: launches %s' % {k: v for k, v in counts.items() if v})
+
+    worst = _probe_worst()
+    lsb = {'mono_probe': {}, 'fastmath_probe': {}, 'bf16_probe': {}}
+    timing = {'mono_probe': {}, 'fastmath_probe': {}, 'bf16_probe': {}}
+
+    def hold(name, key, ms, wrapper, reference, *args):
+        got = _launch_checked(name, wrapper, *args)
+        lsb[name][key], _ = _hold_probe(worst, name, key, got,
+                                        reference(*args))
+        del got
+        timing[name][key] = (ms, cuda_ms(lambda: reference(*args),
+                                         runs=PLAIN_RUNS, warmup=1))
+
+    img = k4a.make_input(PROBE_BATCH, RES).to(dev)
+    for key, steps, op in k4a.SECTION_A:
+        hold('mono_probe', key, rep_a[key + '_ms'], k4a.mono_chain,
+             k4a.mono_chain_reference, img, steps, op)
+    img = k4b.make_input(PROBE_BATCH, RES).to(dev)
+    for op in k4b.OPS:
+        hold('fastmath_probe', op, rep_b[op + '_ms'], k4b.run_op,
+             k4b.run_op_reference, img, op)
+    img = k4c.make_input(BF16_PROBE_BATCH, RES).to(dev)
+    for r in rep_c:
+        hold('bf16_probe', '%s/%s' % (r['op'], r['style']), r['ms'],
+             k4c.run_probe, k4c.run_probe_reference, img, k4c.PARAMS,
+             r['op'], r['style'], BF16_PROBE_STEPS)
+    for op in k4c.OPS:
+        cast, splat = (_launch_checked('bf16_probe', k4c.run_probe, img,
+                                       k4c.PARAMS, op, style,
+                                       BF16_PROBE_STEPS)
+                       for style in ('bf16_cast', 'bf16_splat'))
+        if not torch.equal(cast, splat):
+            fail('K4c %s at the tool shape: bf16_cast and bf16_splat differ'
+                 % op)
+    del img
+    say('K4c at the tool shape: bf16_cast == bf16_splat bit for bit')
+    for name, rows in timing.items():
+        say('%s at the tool shape: max_lsb by case %s' % (name, lsb[name]))
+        say('%s kernel / plain ms: %s' % (name, {
+            k: '%.4f / %.4f' % v for k, v in rows.items()}))
+    copy_ms = rep_a['pallas_copy_0step_ms']
+    nbytes = 2 * PROBE_BATCH * RES * RES * 3
+    say('u8 round trip (K4a copy, 0 steps, [%d, %d, %d, 3]): %d bytes read '
+        'and written in %.4f ms = %.1f GB/s' % (
+            PROBE_BATCH, RES, RES, nbytes, copy_ms, nbytes / copy_ms / 1e6))
+    return counts, timing, worst, nbytes / copy_ms / 1e6
+
+
+def phase_tools():
+    """verify_kernel (all 24 cases must pass) and bench_filters at B=256
+    u8, with the fast set and without, with the counts set to 0 before and
+    read after.  Returns the counts and the two per-filter tables."""
+    import torch
+    from exposure_tpu_torch.tools import bench_filters, verify_kernel
+    dev = torch.device(DEVICE)
+    reset_counts()
+    report = verify_kernel.verify(seed=SEED, device=dev,
+                                  say=lambda ln: say('verify_kernel' + ln))
+    say('verify_kernel: ' + json.dumps(verify_kernel.summary(report)))
+    if not report['ok'] or len(report['cases']) != 24:
+        fail('verify_kernel: %d of %d cases pass' % (
+            sum(r['ok'] for r in report['cases']), len(report['cases'])))
+    tables = {}
+    for fast in (False, True):
+        tag = 'bench_filters%s' % (' --fast' if fast else '')
+        tables[fast] = bench_filters.per_filter(
+            PROBE_BATCH, RES, 5, fast=fast, device=dev,
+            say=lambda ln, t=tag: say(t + ln))
+        say('%s: %s' % (tag, json.dumps(tables[fast])))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for name in ('dyn_chain', 'switch_chain', 'static_chain'):
+        if not counts[name]:
+            fail('the tools did not launch %s: %s' % (name, counts))
+    say('tools: launches %s' % {k: v for k, v in counts.items() if v})
+    return counts, tables
+
+
 def _images(rng, b, h, w):
     """Seeded u8 images with smooth colour fields and texture, so the
     policy sees varied exposure and colour."""
@@ -865,6 +1095,11 @@ def main():
     k1_worst, k1_timing = phase_k1()
     k2_worst, k2_timing = phase_k2()
     k3_worst, k3_timing = phase_k3()
+    probe_worst = phase_probes()
+    probe_counts, probe_timing, tool_worst, floor_gb_s = phase_probe_tools()
+    for key, v in tool_worst.items():   # the largest over both phases
+        probe_worst[key] = max(probe_worst[key], v)
+    tool_counts, _ = phase_tools()
     phase_small_reference()
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
@@ -880,6 +1115,23 @@ def main():
     ms2, plain2 = k2_timing['f32']
     ms2b, plain2b = k2_timing['bf16']
     ms3, plain3 = k3_timing['replay']
+    for name in totals:     # the paths: main, modes, probe tools, tools
+        totals[name] += probe_counts[name] + tool_counts[name]
+
+    def probe_entry(name, replaces, max_lsb, shape, **extra):
+        rows = probe_timing[name]
+        return dict({
+            'name': name, 'route': 'cuda',
+            'source': 'exposure_tpu_torch/csrc/probes.cu',
+            'replaces': replaces, 'launches': totals[name],
+            'max_abs_err': max_lsb / 255.0, 'max_lsb_u8': max_lsb,
+            # the sums over the timed cases; each case's pair below
+            'ms': sum(k for k, _ in rows.values()),
+            'plain_ms': sum(p for _, p in rows.values()),
+            'ms_by_case': {k: v[0] for k, v in rows.items()},
+            'plain_ms_by_case': {k: v[1] for k, v in rows.items()},
+            'shape': shape, 'card': card}, **extra)
+
     say(json.dumps({'kernels': [
         {'name': 'dyn_chain', 'route': 'cuda',
          'source': 'exposure_tpu_torch/csrc/dyn_chain.cu',
@@ -904,6 +1156,22 @@ def main():
          'ms': ms3, 'plain_ms': plain3,
          'shape': shape + ', one signature (E, G, S+, T, Ct)',
          'card': card},
+        probe_entry('mono_probe',
+                    'exposure_tpu/tools/bench_kernel_probe.py:41',
+                    probe_worst['mono_probe'],
+                    '[%d, %d, %d, 3] u8' % (PROBE_BATCH, RES, RES),
+                    u8_round_trip_gb_s=floor_gb_s),
+        probe_entry('fastmath_probe',
+                    'exposure_tpu/tools/bench_fastmath.py:117',
+                    probe_worst['fastmath_probe'],
+                    '[%d, 3, %d, %d] u8, 5 steps' % (PROBE_BATCH, RES, RES)),
+        probe_entry('bf16_probe',
+                    'exposure_tpu/tools/bench_bf16_probe.py:57',
+                    probe_worst['bf16_probe'],
+                    '[%d, 1, %d, %d] u8, %d steps' % (
+                        BF16_PROBE_BATCH, RES, RES, BF16_PROBE_STEPS),
+                    bf16_max_lsb=probe_worst['bf16_probe_bf16_lsb'],
+                    bf16_frac_off_plain=probe_worst['bf16_probe_frac_off']),
     ]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -3,10 +3,9 @@
 // grouped replays of one plan run one copy of each filter's f32 math.
 //
 // Counterpart of the planar branch set of exposure_tpu/ops/pallas_chain.py
-// (`_PLANAR_IMPL`, `_PLANAR_IMPL_FAST`, `_with_mask`, `_vignet_masked`) and
-// of the fast-math helpers `fast_half_cos_pi` and `curve_relu`
-// (exposure_tpu/ops/fastmath.py).  The plain PyTorch version of the same
-// math is exposure_tpu_torch/ops/dyn_chain.py.
+// (`_PLANAR_IMPL`, `_PLANAR_IMPL_FAST`, `_with_mask`, `_vignet_masked`);
+// the fast-math helpers it uses live in fastmath.cuh.  The plain PyTorch
+// version of the same math is exposure_tpu_torch/ops/dyn_chain.py.
 //
 // Every kernel that includes this header is built without --use_fast_math:
 // the exact branch set must stay exact, and the S+ gray test divides by
@@ -16,6 +15,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "fastmath.cuh"
 
 namespace {
 
@@ -69,15 +70,19 @@ __device__ __forceinline__ float lum_of(float r, float g, float b) {
   return 0.27f * r + 0.67f * g + 0.06f * b;
 }
 
-// -cos(pi x)/2 + 1/2 via the odd sin polynomial of fastmath.py.
-__device__ __forceinline__ float fast_half_cos_pi(float x) {
-  const float u = x - 0.5f;
-  const float z = u * u;
-  float acc = -0.55945275f;
-  acc = acc * z + 2.54400687f;
-  acc = acc * z + -5.16740635f;
-  acc = acc * z + 3.14159026f;
-  return acc * u * 0.5f + 0.5f;
+// The library calls of the exact set and of the fast gamma, which the
+// probes (probes.cu) time beside their polynomial counterparts.
+__device__ __forceinline__ float gamma_exact(float x, float g) {
+  return powf(fmaxf(x, 0.001f), g);
+}
+
+// exp2(g log2 x): the same function as pow on the clamped input
+__device__ __forceinline__ float gamma_fast(float x, float g) {
+  return exp2f(g * log2f(fmaxf(x, 0.001f)));
+}
+
+__device__ __forceinline__ float half_cos_pi(float x) {
+  return -cosf(3.14159265358979323846f * x) * 0.5f + 0.5f;
 }
 
 // sum_i t_i clip(x - i/K, 0, 1/K) * K / (1e-30 + sum_i t_i)
@@ -92,24 +97,6 @@ __device__ __forceinline__ float curve_exact(float x, const float* t,
     total += fminf(fmaxf(x - lo, 0.0f), width) * t[i];
   }
   return total * ((float)steps / psum);
-}
-
-// The same curve in the telescoped max form of fastmath.py::curve_relu.
-__device__ __forceinline__ float curve_fast(float x, const float* t,
-                                            int steps) {
-  float psum = 1e-30f;
-  for (int i = 0; i < steps; ++i) psum += t[i];
-  const float norm = (float)steps / psum;
-  float total = fmaxf(x, 0.0f) * t[0];
-  float c0 = t[steps - 1];
-  for (int i = 1; i < steps; ++i) {
-    const float d = t[i] - t[i - 1];
-    const float c = (float)i / (float)steps;
-    total += fmaxf(x, c) * d;
-    c0 -= d * c;
-  }
-  total -= fmaxf(x, 1.0f) * t[steps - 1];
-  return (total + c0) * norm;
 }
 
 template <bool FAST>
@@ -157,13 +144,13 @@ __device__ __forceinline__ void apply_branch(int code, float& r, float& g,
     case kGamma: {
       const float gm = p[0];
       if (FAST) {
-        r = exp2f(gm * log2f(fmaxf(r, 0.001f)));
-        g = exp2f(gm * log2f(fmaxf(g, 0.001f)));
-        b = exp2f(gm * log2f(fmaxf(b, 0.001f)));
+        r = gamma_fast(r, gm);
+        g = gamma_fast(g, gm);
+        b = gamma_fast(b, gm);
       } else {
-        r = powf(fmaxf(r, 0.001f), gm);
-        g = powf(fmaxf(g, 0.001f), gm);
-        b = powf(fmaxf(b, 0.001f), gm);
+        r = gamma_exact(r, gm);
+        g = gamma_exact(g, gm);
+        b = gamma_exact(b, gm);
       }
       break;
     }
@@ -180,9 +167,7 @@ __device__ __forceinline__ void apply_branch(int code, float& r, float& g,
       break;
     case kContrast: {
       const float lum = clamp01(lum_of(r, g, b));
-      const float clum = FAST
-          ? fast_half_cos_pi(lum)
-          : -cosf(3.14159265358979323846f * lum) * 0.5f + 0.5f;
+      const float clum = FAST ? fast_half_cos_pi(lum) : half_cos_pi(lum);
       const float scale = clum / (lum + 1e-6f);
       const float t = p[0];
       r = r + (r * scale - r) * t;
@@ -270,8 +255,11 @@ __device__ __forceinline__ float load_px(const uint8_t v) {
 __device__ __forceinline__ float load_px(const float v) { return v; }
 
 // u8: round half to even of clip(x, 0, 1) * 255, as jnp.round.
+__device__ __forceinline__ uint8_t quantize_px(float x) {
+  return (uint8_t)__float2int_rn(clamp01(x) * 255.0f);
+}
 __device__ __forceinline__ void store_px(uint8_t* dst, float x) {
-  *dst = (uint8_t)__float2int_rn(clamp01(x) * 255.0f);
+  *dst = quantize_px(x);
 }
 __device__ __forceinline__ void store_px(float* dst, float x) { *dst = x; }
 

@@ -1,0 +1,360 @@
+// Probe kernels for Hopper (sm_90a): K4a, K4b and K4c.
+//
+// Replace the TPU kernels of the JAX package's kernel tools:
+// - K4a `_mono_kernel` (exposure_tpu/tools/bench_kernel_probe.py), reached
+//   through `mono_chain`: `steps` x copy, E (x 1.5) or G (pow 0.8);
+// - K4b `_kernel` (exposure_tpu/tools/bench_fastmath.py), reached through
+//   `run_op`: 5 x one of the 11 ops of that tool's `OPS`;
+// - K4c `_probe_kernel` (exposure_tpu/tools/bench_bf16_probe.py), reached
+//   through `probe`: `steps` x mul, pow, cos or curve with two scalar
+//   parameters, in f32 or in bf16 (styles bf16_cast and bf16_splat).
+// The wrappers are exposure_tpu_torch/tools/bench_kernel_probe.py,
+// bench_fastmath.py and bench_bf16_probe.py, beside their plain versions.
+//
+// What they compute: an elementwise pass over a contiguous u8 buffer.
+// Each value is dequantized (x * (1/255), in f32; rounded to bf16 in the
+// bf16 styles), goes through the op `steps` times, and is quantized with
+// round half to even of clip(x, 0, 1) * 255 (quantize_px).  Every op acts
+// on each value alone, so the TPU's planar layout and 256x256 tiles do not
+// matter here: the kernels read any layout as flat bytes.
+//
+// The ops call the device functions the chain kernels run: the library
+// calls of chain_branches.cuh (gamma_exact = powf, gamma_fast = exp2f of
+// log2f, half_cos_pi = cosf, curve_exact) and the polynomials of
+// fastmath.cuh.  So K4b times the code of the chain's branches, and is
+// built, like them, without --use_fast_math: its "builtin" rows are the
+// CUDA library's full-precision calls.  In K4c the bf16 styles round after
+// every add, subtract and multiply and round every constant first
+// (fastmath.cuh's bf16 section); bf16_cast rounds the parameters once,
+// before the launch, and bf16_splat where each step uses them, so the two
+// give the same bits: the TPU's difference between them was whether Mosaic
+// legalized scalar bf16 arithmetic, not the numbers.
+//
+// What bounds them on an H100: with 0 steps, memory traffic alone (1 byte
+// read and 1 written per value), which makes K4a's copy the measure of the
+// u8 round trip's floor; with more steps the op's instructions.
+//
+// What the design does about it: each thread loads 16 consecutive bytes
+// with one uint4 load, keeps the 16 values in registers through all the
+// steps (the 16 independent chains give the scheduler work to overlap),
+// and stores 16 bytes with one uint4 store; the thread holding the ragged
+// end of a buffer whose length is not a multiple of 16 loads and stores it
+// byte by byte.  The buffers must be 16-byte aligned (the wrappers check).
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -shared -Xcompiler -fPIC (exposure_tpu_torch/kernels/__init__.py).
+
+#include <climits>
+#include <cstdint>
+#include <type_traits>
+#include <cuda_runtime.h>
+
+#include "chain_branches.cuh"
+
+namespace {
+
+constexpr int kBytes = 16;   // bytes per thread: one uint4 load and store
+
+// Op codes; the wrappers' tuples keep the same order
+// (bench_kernel_probe.MONO_OPS, bench_fastmath.OPS,
+// bench_bf16_probe.OPS and STYLES).
+enum MonoOp : int { kMonoCopy = 0, kMonoE = 1, kMonoG = 2 };
+enum FastMathOp : int {
+  kFmCopy = 0,
+  kFmPowBuiltin = 1,
+  kFmPowFast = 2,
+  kFmPowExp2Log2 = 3,
+  kFmPowExpLog = 4,
+  kFmCosBuiltin = 5,
+  kFmCosFast = 6,
+  kFmDivBuiltin = 7,
+  kFmDivFast = 8,
+  kFmCurveClip = 9,
+  kFmCurveRelu = 10,
+};
+enum ScalarOp : int { kScMul = 0, kScPow = 1, kScCos = 2, kScCurve = 3 };
+enum Style : int { kF32 = 0, kBf16Cast = 1, kBf16Splat = 2 };
+
+constexpr int kCurveKnots = 8;
+
+// How a value enters and leaves the op: f32, or bf16 rounded from the f32
+// dequantized value and quantized from its f32 value.
+struct F32Pixels {
+  typedef float T;
+  __device__ static float load(uint8_t v) { return load_px(v); }
+  __device__ static float value(float x) { return x; }
+};
+
+struct Bf16Pixels {
+  typedef bf T;
+  __device__ static bf load(uint8_t v) { return R(load_px(v)); }
+  __device__ static float value(bf x) { return F(x); }
+};
+
+// K4a
+template <int OP>
+struct Mono : F32Pixels {
+  __device__ float step(float x) const {
+    if constexpr (OP == kMonoE) {
+      return x * 1.5f;
+    } else if constexpr (OP == kMonoG) {
+      return gamma_exact(x, 0.8f);
+    } else {
+      return x;
+    }
+  }
+};
+
+// K4b: bench_fastmath.py's OPS with its constants (pow 0.7, the divide's
+// 1e-6, the knots _T)
+template <int OP>
+struct FastMath : F32Pixels {
+  __device__ float step(float x) const {
+    if constexpr (OP == kFmPowBuiltin) {
+      return gamma_exact(x, 0.7f);
+    } else if constexpr (OP == kFmPowFast) {
+      return fast_pow(fmaxf(x, 0.001f), 0.7f);
+    } else if constexpr (OP == kFmPowExp2Log2) {
+      return gamma_fast(x, 0.7f);
+    } else if constexpr (OP == kFmPowExpLog) {
+      return expf(0.7f * logf(fmaxf(x, 0.001f)));
+    } else if constexpr (OP == kFmCosBuiltin) {
+      return half_cos_pi(clamp01(x));
+    } else if constexpr (OP == kFmCosFast) {
+      return fast_half_cos_pi(clamp01(x));
+    } else if constexpr (OP == kFmDivBuiltin) {
+      return 0.5f / (x + 1e-6f);
+    } else if constexpr (OP == kFmDivFast) {
+      return 0.5f * fast_rcp(x + 1e-6f);
+    } else if constexpr (OP == kFmCurveClip || OP == kFmCurveRelu) {
+      const float knots[kCurveKnots] = {1.1f, 0.9f, 1.3f, 0.7f,
+                                        1.2f, 0.8f, 1.05f, 0.95f};
+      return OP == kFmCurveClip ? curve_exact(x, knots, kCurveKnots)
+                                : curve_fast(x, knots, kCurveKnots);
+    } else {
+      return x;
+    }
+  }
+};
+
+// K4c: parameters p0, p1 and the curve's norm = 8 / (sum of the knots
+// [p0, p1, p0, ...] + 1e-30), all taken in f32 on the host; bf16_cast
+// holds them rounded to bf16, bf16_splat rounds them at each use.
+template <int OP, int STYLE>
+struct Scalar
+    : std::conditional_t<STYLE == kF32, F32Pixels, Bf16Pixels> {
+  typedef std::conditional_t<STYLE == kF32, float, bf> T;
+  typedef std::conditional_t<STYLE == kBf16Cast, bf, float> P;
+  P p0, p1, norm;
+
+  __device__ bf use(P p) const {
+    if constexpr (STYLE == kBf16Cast) {
+      return p;
+    } else {
+      return R(p);
+    }
+  }
+
+  __device__ T step(T x) const {
+    if constexpr (STYLE == kF32) {
+      if constexpr (OP == kScMul) {
+        return x * p0;
+      } else if constexpr (OP == kScPow) {
+        return gamma_exact(x, p0);
+      } else if constexpr (OP == kScCos) {
+        return x + (fast_half_cos_pi(clamp01(x)) - x) * p0;
+      } else {
+        const float t[kCurveKnots] = {p0, p1, p0, p1, p0, p1, p0, p1};
+        return curve_relu(x, t, kCurveKnots, norm);
+      }
+    } else {
+      const bf g = use(p0);
+      if constexpr (OP == kScMul) {
+        return mul(x, g);
+      } else if constexpr (OP == kScPow) {
+        return R(powf(F(bmax(x, C(0.001f))), F(g)));
+      } else if constexpr (OP == kScCos) {
+        const bf lum = bclamp(x, C(0.0f), C(1.0f));
+        return add(x, mul(sub(fast_half_cos_pi_bf(lum), x), g));
+      } else {
+        const bf h = use(p1);
+        const bf t[kCurveKnots] = {g, h, g, h, g, h, g, h};
+        return curve_relu_bf(x, t, kCurveKnots, use(norm));
+      }
+    }
+  }
+};
+
+__device__ __forceinline__ uint8_t byte_of(const uint32_t* w, int j) {
+  return (uint8_t)(w[j / 4] >> (8 * (j % 4)));
+}
+
+// The skeleton: 16 bytes a thread, the op `steps` times on each value.
+template <typename Op>
+__global__ void __launch_bounds__(kThreads)
+probe_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+             long long n, int steps, Op op) {
+  typedef typename Op::T T;
+  const long long start =
+      ((long long)blockIdx.x * kThreads + threadIdx.x) * kBytes;
+  if (start >= n) return;
+  const bool full = n - start >= kBytes;
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (full) {
+    const uint4 v = *reinterpret_cast<const uint4*>(in + start);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBytes; ++j) {
+      if (start + j < n) w[j / 4] |= (uint32_t)in[start + j] << (8 * (j % 4));
+    }
+  }
+  T x[kBytes];
+#pragma unroll
+  for (int j = 0; j < kBytes; ++j) x[j] = op.load(byte_of(w, j));
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll
+    for (int j = 0; j < kBytes; ++j) x[j] = op.step(x[j]);
+  }
+  uint32_t q[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < kBytes; ++j) {
+    q[j / 4] |= (uint32_t)quantize_px(op.value(x[j])) << (8 * (j % 4));
+  }
+  if (full) {
+    *reinterpret_cast<uint4*>(out + start) = make_uint4(q[0], q[1], q[2], q[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBytes; ++j) {
+      if (start + j < n) out[start + j] = byte_of(q, j);
+    }
+  }
+}
+
+template <typename Op>
+cudaError_t launch(const void* in, void* out, long long n, int steps,
+                   const Op& op, cudaStream_t stream) {
+  const long long chunks = (n + kBytes - 1) / kBytes;
+  const long long blocks = (chunks + kThreads - 1) / kThreads;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  probe_kernel<Op><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), n, steps,
+      op);
+  return cudaGetLastError();
+}
+
+bool bad_buffers(const void* in, const void* out, long long n, int steps) {
+  return !in || !out || n <= 0 || steps < 0 ||
+         reinterpret_cast<uintptr_t>(in) % kBytes != 0 ||
+         reinterpret_cast<uintptr_t>(out) % kBytes != 0;
+}
+
+template <int OP, int STYLE>
+cudaError_t launch_scalar(const void* in, void* out, long long n, int steps,
+                          float p0, float p1, float norm, cudaStream_t s) {
+  Scalar<OP, STYLE> op;
+  if constexpr (STYLE == kBf16Cast) {   // once, before the loop
+    op.p0 = __float2bfloat16_rn(p0);
+    op.p1 = __float2bfloat16_rn(p1);
+    op.norm = __float2bfloat16_rn(norm);
+  } else {
+    op.p0 = p0;
+    op.p1 = p1;
+    op.norm = norm;
+  }
+  return launch(in, out, n, steps, op, s);
+}
+
+template <int STYLE>
+cudaError_t launch_style(const void* in, void* out, long long n, int op,
+                         int steps, float p0, float p1, float norm,
+                         cudaStream_t s) {
+  switch (op) {
+    case kScMul:
+      return launch_scalar<kScMul, STYLE>(in, out, n, steps, p0, p1, norm, s);
+    case kScPow:
+      return launch_scalar<kScPow, STYLE>(in, out, n, steps, p0, p1, norm, s);
+    case kScCos:
+      return launch_scalar<kScCos, STYLE>(in, out, n, steps, p0, p1, norm, s);
+    case kScCurve:
+      return launch_scalar<kScCurve, STYLE>(in, out, n, steps, p0, p1, norm,
+                                            s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// in/out: n contiguous u8 values, 16-byte aligned.  Each launcher runs on
+// `stream` and returns cudaGetLastError() (0 on success).
+
+// K4a: op 0 copy, 1 E, 2 G.
+int mono_probe_launch(const void* in, void* out, long long n, int op,
+                      int steps, void* stream) {
+  if (bad_buffers(in, out, n, steps)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (op) {
+    case kMonoCopy: return (int)launch(in, out, n, steps, Mono<kMonoCopy>(), s);
+    case kMonoE: return (int)launch(in, out, n, steps, Mono<kMonoE>(), s);
+    case kMonoG: return (int)launch(in, out, n, steps, Mono<kMonoG>(), s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K4b: op is the index of the op in bench_fastmath.OPS.
+int fastmath_probe_launch(const void* in, void* out, long long n, int op,
+                          int steps, void* stream) {
+  if (bad_buffers(in, out, n, steps)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (op) {
+    case kFmCopy: err = launch(in, out, n, steps, FastMath<kFmCopy>(), s); break;
+    case kFmPowBuiltin: err = launch(in, out, n, steps, FastMath<kFmPowBuiltin>(), s); break;
+    case kFmPowFast: err = launch(in, out, n, steps, FastMath<kFmPowFast>(), s); break;
+    case kFmPowExp2Log2: err = launch(in, out, n, steps, FastMath<kFmPowExp2Log2>(), s); break;
+    case kFmPowExpLog: err = launch(in, out, n, steps, FastMath<kFmPowExpLog>(), s); break;
+    case kFmCosBuiltin: err = launch(in, out, n, steps, FastMath<kFmCosBuiltin>(), s); break;
+    case kFmCosFast: err = launch(in, out, n, steps, FastMath<kFmCosFast>(), s); break;
+    case kFmDivBuiltin: err = launch(in, out, n, steps, FastMath<kFmDivBuiltin>(), s); break;
+    case kFmDivFast: err = launch(in, out, n, steps, FastMath<kFmDivFast>(), s); break;
+    case kFmCurveClip: err = launch(in, out, n, steps, FastMath<kFmCurveClip>(), s); break;
+    case kFmCurveRelu: err = launch(in, out, n, steps, FastMath<kFmCurveRelu>(), s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return (int)err;
+}
+
+// K4c: op 0 mul, 1 pow, 2 cos, 3 curve; style 0 f32, 1 bf16_cast,
+// 2 bf16_splat; p0, p1 the two scalar parameters.
+int bf16_probe_launch(const void* in, void* out, long long n, int op,
+                      int style, int steps, float p0, float p1,
+                      void* stream) {
+  if (bad_buffers(in, out, n, steps)) return (int)cudaErrorInvalidValue;
+  // the curve's knots are [p0, p1, p0, ...]; its norm in f32, summed in
+  // the knots' order from 0
+  float sum = 0.0f;
+  for (int i = 0; i < kCurveKnots; ++i) sum += (i % 2 == 0) ? p0 : p1;
+  const float norm = 8.0f / (sum + 1e-30f);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (style) {
+    case kF32:
+      return (int)launch_style<kF32>(in, out, n, op, steps, p0, p1, norm, s);
+    case kBf16Cast:
+      return (int)launch_style<kBf16Cast>(in, out, n, op, steps, p0, p1,
+                                          norm, s);
+    case kBf16Splat:
+      return (int)launch_style<kBf16Splat>(in, out, n, op, steps, p0, p1,
+                                           norm, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+const char* probes_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -39,7 +39,6 @@
 //        -shared -Xcompiler -fPIC (exposure_tpu_torch/kernels/__init__.py).
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "chain_branches.cuh"
@@ -47,42 +46,11 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// bf16 arithmetic: one rounding after every operation
+// the bf16 branch set (its arithmetic: fastmath.cuh's bf16 section)
 // ---------------------------------------------------------------------------
-
-typedef __nv_bfloat16 bf;
-
-__device__ __forceinline__ float F(bf x) { return __bfloat162float(x); }
-__device__ __forceinline__ bf R(float x) { return __float2bfloat16_rn(x); }
-__device__ __forceinline__ bf add(bf a, bf b) { return R(__fadd_rn(F(a), F(b))); }
-__device__ __forceinline__ bf sub(bf a, bf b) { return R(__fsub_rn(F(a), F(b))); }
-__device__ __forceinline__ bf mul(bf a, bf b) { return R(__fmul_rn(F(a), F(b))); }
-__device__ __forceinline__ bf dvd(bf a, bf b) { return R(__fdiv_rn(F(a), F(b))); }
-__device__ __forceinline__ bf bmax(bf a, bf b) { return F(a) >= F(b) ? a : b; }
-__device__ __forceinline__ bf bmin(bf a, bf b) { return F(a) <= F(b) ? a : b; }
-__device__ __forceinline__ bf bclamp(bf x, bf lo, bf hi) {
-  return bmin(bmax(x, lo), hi);
-}
-__device__ __forceinline__ bf bneg(bf x) { return R(-F(x)); }
-__device__ __forceinline__ bf babs(bf x) { return R(fabsf(F(x))); }
-// a constant rounded to bf16 (a weakly typed constant in the TPU kernel)
-__device__ __forceinline__ bf C(float x) { return R(x); }
-// 1 / x, as torch's x.reciprocal()
-__device__ __forceinline__ bf rcp(bf x) { return R(__frcp_rn(F(x))); }
 
 __device__ __forceinline__ bf lum_bf(bf r, bf g, bf b) {
   return add(add(mul(C(0.27f), r), mul(C(0.67f), g)), mul(C(0.06f), b));
-}
-
-// -cos(pi x)/2 + 1/2, the sin polynomial of fastmath.py
-__device__ __forceinline__ bf fast_half_cos_pi_bf(bf x) {
-  const bf u = sub(x, C(0.5f));
-  const bf z = mul(u, u);
-  bf acc = C(-0.55945275f);
-  acc = add(mul(acc, z), C(2.54400687f));
-  acc = add(mul(acc, z), C(-5.16740635f));
-  acc = add(mul(acc, z), C(3.14159026f));
-  return add(mul(mul(acc, u), C(0.5f)), C(0.5f));
 }
 
 // steps / (1e-30 + sum t): torch evaluates `steps / psum` as
@@ -105,17 +73,7 @@ __device__ __forceinline__ bf curve_exact_bf(bf x, const bf* t, int steps) {
 }
 
 __device__ __forceinline__ bf curve_fast_bf(bf x, const bf* t, int steps) {
-  const bf norm = curve_norm_bf(t, steps);
-  bf total = mul(bmax(x, C(0.0f)), t[0]);
-  bf c0 = t[steps - 1];
-  for (int i = 1; i < steps; ++i) {
-    const bf d = sub(t[i], t[i - 1]);
-    const bf c = C((float)i / (float)steps);
-    total = add(total, mul(bmax(x, c), d));
-    c0 = sub(c0, mul(d, c));
-  }
-  total = sub(total, mul(bmax(x, C(1.0f)), t[steps - 1]));
-  return mul(add(total, c0), norm);
+  return curve_relu_bf(x, t, steps, curve_norm_bf(t, steps));
 }
 
 template <bool FAST>

@@ -154,6 +154,21 @@ def _bind_static_chain(lib):
     lib.static_chain_error_string.restype = ctypes.c_char_p
 
 
+def _bind_probes(lib):
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    n = ctypes.c_longlong
+    lib.mono_probe_launch.argtypes = [vp, vp, n, i, i, vp]  # op, steps
+    lib.mono_probe_launch.restype = i
+    lib.fastmath_probe_launch.argtypes = [vp, vp, n, i, i, vp]
+    lib.fastmath_probe_launch.restype = i
+    lib.bf16_probe_launch.argtypes = [
+        vp, vp, n, i, i, i,        # in, out, n, op, style, steps
+        f, f, vp]                  # p0, p1, stream
+    lib.bf16_probe_launch.restype = i
+    lib.probes_error_string.argtypes = [i]
+    lib.probes_error_string.restype = ctypes.c_char_p
+
+
 def dyn_chain_kernel():
     """The ``dyn_chain`` library with what its build reported."""
     return build('dyn_chain', _bind_dyn_chain)
@@ -184,13 +199,24 @@ def static_chain_library():
     return static_chain_kernel().lib
 
 
+def probes_kernel():
+    """The ``probes`` library (K4a-c) with what its build reported."""
+    return build('probes', _bind_probes)
+
+
+def probes_library():
+    """The bound ``probes`` library (built on first use)."""
+    return probes_kernel().lib
+
+
 def build_all():
     """Build (or load) every kernel library at once, one nvcc each, and
     return ``{name: KernelLibrary}``."""
     from concurrent.futures import ThreadPoolExecutor
     accessors = {'dyn_chain': dyn_chain_kernel,
                  'switch_chain': switch_chain_kernel,
-                 'static_chain': static_chain_kernel}
+                 'static_chain': static_chain_kernel,
+                 'probes': probes_kernel}
     with ThreadPoolExecutor(len(accessors)) as pool:
         futures = {name: pool.submit(fn) for name, fn in accessors.items()}
         return {name: fut.result() for name, fut in futures.items()}

@@ -1,6 +1,6 @@
-"""The CUDA chain kernels against their plain PyTorch versions, on the card:
-K1 (``dyn_chain``), K2 (``switch_chain``, f32 and bf16) and K3
-(``static_chain``).
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+chain kernels K1 (``dyn_chain``), K2 (``switch_chain``, f32 and bf16) and
+K3 (``static_chain``), and the probes K4a-c (``csrc/probes.cu``).
 
 These tests need a CUDA device and ``nvcc``; without a device they skip.
 They import neither JAX nor the rest of the test suite's fixtures, so a
@@ -20,7 +20,12 @@ and with the fast set's max-form curves the JAX kernel in bf16 is itself
 up to 68 LSB off its f32 result) and, against its bf16
 plain version, to at most 1e-3 of the values off by more than 1 LSB:
 both round after every operation, but their f32 exp, pow and cos may
-differ in the last bit, which moves a bf16 rounding now and then."""
+differ in the last bit, which moves a bf16 rounding now and then.
+
+The probes: K4a, K4b and K4c in f32 within 1 LSB of their plain versions
+(the CUDA library's powf, cosf, expf and logf may differ from torch's in the
+last bit), K4c in bf16 with at most 1e-3 of the values more than 1 LSB
+apart, and its bf16_cast and bf16_splat styles equal bit for bit."""
 
 import numpy as np
 import pytest
@@ -39,6 +44,9 @@ from exposure_tpu_torch.ops.switch_chain import (
     apply_filter_chain_switch,
     apply_filter_chain_switch_reference,
 )
+from exposure_tpu_torch.tools import bench_bf16_probe as bf16_probe
+from exposure_tpu_torch.tools import bench_fastmath as fastmath_probe
+from exposure_tpu_torch.tools import bench_kernel_probe as mono_probe
 from exposure_tpu_torch.utils.config import load_config
 
 
@@ -263,3 +271,78 @@ def test_static_chain_matches_plain(cuda_device, config, fast, dtype):
         n_active=3)
     torch.cuda.synchronize()
     assert _outlier_fraction(got[:3], want[:3]) <= 1e-4
+
+
+# [B, H, W] of the probe inputs: 16-byte chunks only, and a ragged end
+PROBE_SIZES = {'small': (2, 64, 64), 'odd': (3, 37, 53)}
+
+
+def _probe_input(cuda_device, shape):
+    rng = np.random.RandomState(6)
+    return torch.from_numpy((rng.rand(*shape) * 255).astype(np.uint8)).to(
+        cuda_device)
+
+
+def _max_lsb(got, want):
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    return int((got.int() - want.int()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size', list(PROBE_SIZES))
+def test_mono_probe_matches_plain(cuda_device, size):
+    b, h, w = PROBE_SIZES[size]
+    img = _probe_input(cuda_device, (b, h, w, 3))
+    for op in mono_probe.MONO_OPS:
+        for steps in (0, 1, 5):
+            before = mono_probe.mono_chain.launches
+            got = mono_probe.mono_chain(img, steps, op)
+            assert mono_probe.mono_chain.launches == before + 1
+            want = mono_probe.mono_chain_reference(img, steps, op)
+            torch.cuda.synchronize()
+            assert _max_lsb(got, want) <= 1, (op, steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size', list(PROBE_SIZES))
+def test_fastmath_probe_matches_plain(cuda_device, size):
+    b, h, w = PROBE_SIZES[size]
+    img = _probe_input(cuda_device, (b, 3, h, w))
+    for op in fastmath_probe.OPS:
+        before = fastmath_probe.run_op.launches
+        got = fastmath_probe.run_op(img, op)
+        assert fastmath_probe.run_op.launches == before + 1
+        want = fastmath_probe.run_op_reference(img, op)
+        torch.cuda.synchronize()
+        assert _max_lsb(got, want) <= 1, op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size', list(PROBE_SIZES))
+def test_bf16_probe_matches_plain(cuda_device, size):
+    b, h, w = PROBE_SIZES[size]
+    img = _probe_input(cuda_device, (b, 1, h, w))
+    for op in bf16_probe.OPS:
+        outs = {}
+        for style in bf16_probe.STYLES:
+            before = bf16_probe.run_probe.launches
+            got = bf16_probe.run_probe(img, bf16_probe.PARAMS, op, style, 8)
+            assert bf16_probe.run_probe.launches == before + 1
+            want = bf16_probe.run_probe_reference(img, bf16_probe.PARAMS, op,
+                                                  style, 8)
+            torch.cuda.synchronize()
+            if style == 'f32':
+                assert _max_lsb(got, want) <= 1, op
+            else:
+                off = (got.int() - want.int()).abs() > 1
+                assert float(off.float().mean()) <= 1e-3, (op, style)
+            outs[style] = got
+        assert torch.equal(outs['bf16_cast'], outs['bf16_splat']), op
+
+
+@pytest.mark.cuda
+def test_probes_refuse_unaligned_buffers(cuda_device):
+    flat = torch.zeros(4097, dtype=torch.uint8, device=cuda_device)
+    img = flat[1:].view(1, 1, 64, 64)     # 1 byte past an aligned start
+    with pytest.raises(ValueError):
+        bf16_probe.run_probe(img, bf16_probe.PARAMS, 'mul', 'f32', 1)

@@ -1,14 +1,14 @@
 """The kernel build's source digest, on the CPU (no nvcc needed): a
 library is named by a hash of its source and of every header it includes
 from ``csrc/``, so editing a shared header rebuilds every kernel that
-includes it."""
+includes it, directly or through another header."""
 
 import os
 import shutil
 
 from exposure_tpu_torch.kernels import CSRC_DIR, source_digest
 
-KERNELS = ('dyn_chain', 'switch_chain', 'static_chain')
+KERNELS = ('dyn_chain', 'switch_chain', 'static_chain', 'probes')
 
 
 def _copy_csrc(tmp_path):
@@ -24,12 +24,15 @@ def test_digest_follows_included_headers(tmp_path):
     assert before == {k: source_digest(os.path.join(CSRC_DIR, k + '.cu'))
                       for k in KERNELS}
     assert len(set(before.values())) == len(KERNELS)
-    header = os.path.join(csrc, 'chain_branches.cuh')
-    with open(header, 'ab') as f:
-        f.write(b'\n// one more line\n')
-    after = {k: source_digest(p, csrc) for k, p in srcs.items()}
-    for k in KERNELS:   # every kernel includes the shared header
-        assert after[k] != before[k], k
+    # every kernel includes both shared headers (fastmath.cuh through
+    # chain_branches.cuh)
+    for header in ('chain_branches.cuh', 'fastmath.cuh'):
+        with open(os.path.join(csrc, header), 'ab') as f:
+            f.write(b'\n// one more line\n')
+        after = {k: source_digest(p, csrc) for k, p in srcs.items()}
+        for k in KERNELS:
+            assert after[k] != before[k], (header, k)
+        before = after
 
 
 def test_digest_of_a_header_chain_and_of_the_source(tmp_path):

@@ -274,6 +274,11 @@ def test_port_imports_without_jax_or_flax():
         import exposure_tpu_torch.ops.sampling
         import exposure_tpu_torch.ops.static_chain
         import exposure_tpu_torch.ops.switch_chain
+        import exposure_tpu_torch.tools.bench_bf16_probe
+        import exposure_tpu_torch.tools.bench_fastmath
+        import exposure_tpu_torch.tools.bench_filters
+        import exposure_tpu_torch.tools.bench_kernel_probe
+        import exposure_tpu_torch.tools.verify_kernel
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                       'exposure_tpu')]

@@ -1,0 +1,186 @@
+"""The port's kernel tools on the CPU: ``verify_kernel``'s cases through
+the kernels' plain versions (as tests/test_tools.py::TestVerifyKernel runs
+the JAX tool in interpret mode), its numpy draws against the JAX tool's,
+the per-filter table and the probe reports at a tiny size with ``--cpu``,
+and the rule that a tool without a CUDA device and without ``--cpu``
+exits non-zero."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from exposure_tpu.tools import verify_kernel as j_verify
+from exposure_tpu.utils import load_config as j_load_config
+from exposure_tpu_torch.tools import bench_bf16_probe as t_bf16
+from exposure_tpu_torch.tools import bench_fastmath as t_fastmath
+from exposure_tpu_torch.tools import bench_filters as t_filters
+from exposure_tpu_torch.tools import bench_kernel_probe as t_probe
+from exposure_tpu_torch.tools import verify_kernel as t_verify
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_random_trajectory_draws_as_jax():
+    cfg = j_load_config('example')
+    j_ids, j_params = j_verify.random_trajectory(
+        np.random.RandomState(3), [f(cfg) for f in cfg.filters], 5, 4)
+    ids, params = t_verify.random_trajectory(
+        np.random.RandomState(3), t_verify.banks()['plain'], 5, 4)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(j_ids))
+    np.testing.assert_allclose(params.numpy(), np.asarray(j_params),
+                               rtol=1e-6, atol=1e-6)
+
+
+# name, bank, shape, steps, dtype, masked, active, grouped, fast, dynamic:
+# one of each kind of the 24 cases, at a small size
+CASES = [
+    ('f32', 'plain', (2, 32, 64), 3, 'f32', False, False, False, False,
+     False),
+    ('u8_active', 'plain', (2, 32, 48), 3, 'u8', False, True, False, False,
+     False),
+    ('masked', 'masked', (1, 32, 64), 2, 'f32', True, False, False, False,
+     False),
+    ('vignette', 'vignette', (1, 32, 48), 2, 'f32', True, False, False,
+     False, False),
+    ('fast_u8', 'plain', (2, 32, 64), 3, 'u8', False, False, False, True,
+     False),
+    ('grouped_u8', 'plain', (3, 32, 64), 3, 'u8', False, False, True, False,
+     False),
+    ('fast_grouped_masked_u8', 'masked', (2, 32, 64), 2, 'u8', True, False,
+     True, True, False),
+    ('dyn_f32_active', 'plain', (2, 32, 48), 3, 'f32', False, True, False,
+     False, True),
+    ('fast_dyn_masked_u8', 'masked', (2, 32, 64), 2, 'u8', True, False,
+     False, True, True),
+]
+
+
+@pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
+def test_run_case_on_the_plain_versions(case):
+    name, bank, shape, steps, dtype, masked, active, grouped, fast, dyn = \
+        case
+    r = t_verify.run_case(name, np.random.RandomState(0),
+                          t_verify.banks()[bank], shape, steps, dtype=dtype,
+                          masked=masked, active=active, grouped=grouped,
+                          fast_math=fast, dynamic=dyn, device='cpu')
+    assert r['ok'], r
+    assert r['tol'] == (2 if dtype == 'u8' else 1e-4)
+
+
+def _jax_banks():
+    cfg = j_load_config('example')
+    mcfg = cfg.copy()
+    mcfg.masking = True
+    return {'plain': [f(cfg) for f in cfg.filters],
+            'masked': [f(mcfg) for f in mcfg.filters]}
+
+
+# name, bank, shape, steps, masked, active, fast, dynamic: u8 cases
+JAX_CASES = [
+    ('u8_active', 'plain', (2, 32, 48), 3, False, True, False, False),
+    ('fast_u8', 'plain', (2, 32, 64), 3, False, False, True, False),
+    ('fast_dyn_masked_u8', 'masked', (2, 32, 64), 2, True, False, True,
+     True),
+]
+
+
+@pytest.mark.parametrize('case', JAX_CASES, ids=[c[0] for c in JAX_CASES])
+def test_replay_against_the_jax_tools_chain(case):
+    """The port's replay route on a case's draws (its K2 or K1 plain
+    version) against the JAX tool's reference, its branchless chain, on the
+    same RandomState draws, judged by the tool's rule."""
+    import jax.numpy as jnp
+    from exposure_tpu.ops.chain import apply_filter_chain as j_chain
+    name, bank, shape, steps, masked, active, fast, dyn = case
+    filters = t_verify.banks()[bank]
+    imgf, ids, params, mask_params, active_steps = t_verify.draw_case(
+        np.random.RandomState(0), filters, shape, steps, masked, active)
+    img8 = (imgf * 255).round().astype(np.uint8)
+    got = t_verify._replay(filters, False, dyn, fast, ids, params,
+                           active_steps, mask_params)(
+        torch.from_numpy(img8)).numpy()
+
+    def jax_arg(t):
+        return None if t is None else jnp.asarray(t.numpy())
+
+    want = np.asarray(j_chain(
+        jnp.asarray(img8.astype(np.float32) / 255.0), jax_arg(ids),
+        jax_arg(params), _jax_banks()[bank],
+        active_steps=jax_arg(active_steps), mask_params=jax_arg(mask_params)))
+    want_q = np.round(np.clip(want, 0, 1) * 255.0)
+    diffs = np.abs(got.astype(np.int64) - want_q.astype(np.int64))
+    assert t_verify.judge(diffs, t_verify.U8_TOL, 64, ids, filters, fast), \
+        (name, diffs.max(), (diffs > t_verify.U8_TOL).mean())
+
+
+def test_cases_are_the_jax_tools_24():
+    """The same 24 cases, in the JAX tool's order, read from its source."""
+    with open(j_verify.__file__) as f:
+        src = f.read()
+    banks = {'filters': 'plain', 'mfilters': 'masked', 'vfilters': 'vignette'}
+    want = [(name, banks[bank], tuple(int(d) for d in shape.split(', ')),
+             int(steps), dtype)
+            for name, bank, shape, steps, dtype in re.findall(
+                r"\('(\w+)', (\w+), \(([\d, ]+)\), (\d), '(\w+)'", src)]
+    assert len(want) == 24
+    assert [c[:5] for c in t_verify.cases()] == want
+    report = {'ok': True, 'device': 'cpu', 'cases': [
+        {'dtype': 'u8', 'fast_math': True, 'max_abs_diff': 1.0,
+         'outlier_frac': 0.0}]}
+    assert set(t_verify.summary(report)) == {
+        'kernel_check_ok', 'device', 'worst_f32', 'worst_u8_lsb',
+        'worst_fast_u8_lsb', 'worst_fast_outlier_frac'}
+
+
+def test_per_filter_table_on_the_cpu():
+    out = t_filters.per_filter(batch=2, res=32, steps=2, fast=True,
+                               device='cpu', say=lambda s: None)
+    assert out['kernel'] == 'static_switchless_fast'
+    assert out['timing'] == 'host_clock_median_cpu'
+    assert list(out['per_filter']) == ['E', 'G', 'W', 'S+', 'T', 'Ct', 'BW',
+                                       'C']
+    assert all(v > 0 for v in out['per_filter'].values())
+
+
+def test_probe_reports_carry_the_jax_keys():
+    a = t_probe.report(batch=2, res=32, iters=1, device='cpu')
+    assert {'pallas_copy_0step_ms', 'pallas_E_1step_ms', 'pallas_E_5step_ms',
+            'pallas_G_5step_ms', 'switch_E_1step_ms', 'switch_E_5step_ms',
+            'jnp_chain_5step_f32_ms', 'switch_E_5step_f32_ms'} <= set(a)
+    b = t_fastmath.report(batch=1, res=16, device='cpu', say=lambda s: None)
+    assert {op + '_ms' for op in t_fastmath.OPS} | {
+        'pow_err', 'cos_err', 'div_err', 'curve_err'} <= set(b)
+    assert b['pow_err'] < 5e-5 and b['cos_err'] < 2e-6
+    assert b['div_err'] < 1e-2 and b['curve_err'] < 2e-6
+    c = t_bf16.probe('curve', 'bf16_splat', 2, 16, 2, device='cpu')
+    assert set(c) == {'op', 'style', 'ok', 'ms'} and c['ok']
+
+
+def _tool(*args):
+    return subprocess.run([sys.executable, '-m', *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_tools_exit_nonzero_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip('checks the behaviour without a CUDA device')
+    for tool in ('bench_kernel_probe', 'bench_fastmath', 'bench_bf16_probe',
+                 'bench_filters', 'verify_kernel'):
+        proc = _tool('exposure_tpu_torch.tools.' + tool)
+        assert proc.returncode != 0, tool
+        assert 'no CUDA device' in proc.stderr, (tool, proc.stderr[-500:])
+
+
+def test_bench_filters_cli_with_cpu():
+    proc = _tool('exposure_tpu_torch.tools.bench_filters', '--cpu',
+                 '--batch', '2', '--res', '32', '--steps', '2', '--f32')
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out['dtype'] == 'f32' and out['device'] == 'cpu'
+    assert out['sum_all_branches_ms'] > 0
