@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``exposure_tpu_torch``) once on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --turns PARENT_CHECKOUT   # A/B of the serving path
 
 Phases, one line or a few each (a failing phase exits non-zero):
 
@@ -9,7 +10,8 @@ Phases, one line or a few each (a failing phase exits non-zero):
    for convolutions and matmuls (it can flip near-tie argmax decisions);
 2. build: compile the four CUDA kernel libraries from
    ``exposure_tpu_torch/csrc`` (the three chain kernels and the probes) at
-   once, one nvcc each, with their ptxas lines;
+   once, one nvcc each; each chain kernel variant's registers, stack frame
+   and spills from ptxas, the probes' ptxas lines;
 3. K1: the dynamic filter-chain kernel against its plain PyTorch version
    over the chain cases of the JAX package's kernel checks (f32 and u8,
    odd shapes, inactive steps, the all-identity trajectory, exact and fast
@@ -41,8 +43,9 @@ Phases, one line or a few each (a failing phase exits non-zero):
 10. main path: the trained ``synthetic_explore`` policy served from the
    in-repo artifact at full width on B=512 batches of seeded 512x512 u8
    images through ``RetouchPipeline.map_batches`` (dynamic, selected
-   plan), dropout on; checks the output, the K1 launch count (6 per batch:
-   5 proxy steps + 1 replay), the replay against the plain version, no
+   plan), dropout on; checks the output, the K1 launch count, read around
+   each plan and each replay (6 per batch: 5 proxy steps in the plan + 1
+   replay), the replay against the plain version, no
    host sync, and prints img/s and its split across resize, plan and
    replay;
 11. modes: the same artifact and batches through the dynamic mode with the
@@ -62,12 +65,22 @@ Phases, one line or a few each (a failing phase exits non-zero):
 Every kernel count is set to 0 just before a path is driven (the serving
 modes, and the tools, which are the probes' path) and read just after;
 the comparisons with the plain versions do not count.  The line
-before the last is a JSON summary of every kernel; the last is
-``{"ok": true, "device": {...}}``.
+before the last is a JSON summary of every kernel: launches, error, time
+beside its plain version's, its H100 bound (``ops/dyn_chain.py::chain_cost``
+for the chains, ``probe_cost`` for the probes; ``tools.bound_ms``) and the
+time of the PyTorch call that computes the same function, where one does
+(``Tensor.copy_`` for the probes' 0-step copy; no single call computes a
+filter chain).  The last line is ``{"ok": true, "device": {...}}``.
+
+``--turns PARENT`` runs the main path and the five modes of another
+checkout (``PARENT``, e.g. ``git archive`` of the parent commit) and of
+this one in turns, parent, change, change, parent, and compares the two
+trees' main-path outputs value by value.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -107,6 +120,10 @@ PROBE_ITERS = 7      # bench_kernel_probe's timed calls (its CLI default: 20)
 PLAIN_RUNS = 3       # timed runs of the probes' plain versions
 # K4c in bf16 against its plain version, as K2-bf16
 PROBE_BF16_FRAC = 1e-3
+CHAIN_LIBS = ('dyn_chain', 'static_chain', 'switch_chain')
+_VARIANT = re.compile(
+    r'(dyn_chain_kernel|static_chain_kernel|switch_chain_f32|'
+    r'switch_chain_bf16)I([hf])Lb([01])ELb([01])E(?:Li(\d+)E)?')
 
 
 def fail(msg):
@@ -175,17 +192,72 @@ def phase_card():
     return card
 
 
+def ptxas_variants(log):
+    """``{variant: {registers, stack, spill_stores, spill_loads}}`` of the
+    chain kernels from ptxas -v output; a variant reads as
+    ``kernel<type,set,mask,S>``, S the compiled knot count (0: generic)."""
+    rows, name, props = {}, None, None
+    for ln in log.splitlines():
+        m = re.search(r'Function properties for (\S+)', ln)
+        if m:
+            v = _VARIANT.search(m.group(1))
+            name = None if v is None else '%s<%s,%s,%s%s>' % (
+                v.group(1), 'u8' if v.group(2) == 'h' else 'f32',
+                'fast' if v.group(3) == '1' else 'exact',
+                'masked' if v.group(4) == '1' else 'unmasked',
+                '' if v.group(5) is None else ',S=%s' % v.group(5))
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', ln)
+        if m and name:
+            props = dict(zip(('stack', 'spill_stores', 'spill_loads'),
+                             map(int, m.groups())))
+            continue
+        m = re.search(r'Used (\d+) registers', ln)
+        if m and name and props is not None:
+            rows[name] = dict(props, registers=int(m.group(1)))
+            name = props = None
+    return rows
+
+
 def phase_build():
+    """Build the four libraries at once; print each chain kernel variant's
+    registers, stack frame and spills.  Returns ``{library: variants}``."""
     from exposure_tpu_torch.kernels import build_all
     t0 = time.perf_counter()
     libs = build_all()
     say('build: %d libraries in %.1f s (one nvcc each, all at once)'
         % (len(libs), time.perf_counter() - t0))
+    variants = {}
     for name, lib in libs.items():
         say('build: %s nvcc %.1f s %s' % (name, lib.build_seconds, lib.path))
-        for ln in lib.build_log.splitlines():
-            if 'registers' in ln or 'spill' in ln:
-                say('  ptxas: %s' % ln.strip())
+        if name not in CHAIN_LIBS:
+            for ln in lib.build_log.splitlines():
+                if 'registers' in ln or 'spill' in ln:
+                    say('  ptxas: %s' % ln.strip())
+            continue
+        variants[name] = ptxas_variants(lib.build_log)
+        for v, p in sorted(variants[name].items()):
+            say('  ptxas: %-44s %3d registers, %3d bytes stack frame, %d/%d '
+                'bytes spill stores/loads' % (v, p['registers'], p['stack'],
+                                              p['spill_stores'],
+                                              p['spill_loads']))
+    return variants
+
+
+def _bound(cost):
+    """``chain_cost``'s dict with the H100 bound it gives."""
+    from exposure_tpu_torch.tools import bound_ms
+    ms, by = bound_ms(cost['flops'], cost['bytes'])
+    return dict(cost, bound_ms=ms, bound_by=by)
+
+
+def _chain_bound(ids, filters, img, fast):
+    """The bound of a chain over ``img`` with the [K, n] ids it runs."""
+    from exposure_tpu_torch.ops.dyn_chain import chain_cost
+    masked = any(f.use_masking() for f in filters)
+    return _bound(chain_cost(ids, filters, img.shape[1], img.shape[2],
+                             img.dtype, fast, masked))
 
 
 def _trajectory(g, filters, k, b, device, ids=None):
@@ -299,6 +371,8 @@ ROWS_CASES = [
 ]
 REPLAY_CASE = ('replay_u8_512x512x512_k5', 'synthetic_explore', BATCH, RES,
                RES, 5, 'u8', True, 'timed')
+PROXY_CASE = ('proxy_f32_512x64x64_k1', 'synthetic_explore', BATCH, 64, 64,
+              1, 'f32', True, 'timed')
 
 
 def phase_k1():
@@ -307,15 +381,11 @@ def phase_k1():
         apply_filter_chain_dynamic, apply_filter_chain_dynamic_reference)
     dev = torch.device(DEVICE)
     banks = _banks()
-    cases = CHAIN_CASES + [
-        # the two shapes the serving path gives the kernel
-        ('proxy_f32_512x64x64_k1', 'synthetic_explore', BATCH, 64, 64, 1,
-         'f32', True, 'timed'),
-        REPLAY_CASE,
-    ]
+    # the two shapes the serving path gives the kernel
+    cases = CHAIN_CASES + [PROXY_CASE, REPLAY_CASE]
     g = torch.Generator().manual_seed(SEED)
     worst = {'f32': 0.0, 'u8': 0}
-    timing = {}
+    timing, errors = {}, {}
     for name, bank, b, h, w, k, dt, fast, variant in cases:
         filters = banks[bank]
         img, ids, params, kw = _case_inputs(g, filters, b, h, w, k, dt,
@@ -342,15 +412,18 @@ def phase_k1():
                 img, ids, params, filters, **kw))
             plain = cuda_ms(lambda: apply_filter_chain_dynamic_reference(
                 img, ids, params, filters, **kw), runs=5, warmup=1)
-            timing[name] = (ms, plain)
-            line += '  kernel %.4f ms  plain %.4f ms' % (ms, plain)
+            bound = _chain_bound(ids, filters, img, fast)
+            timing[name] = (ms, plain, bound)
+            line += '  kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)' % (
+                ms, plain, bound['bound_ms'], bound['bound_by'])
         say(line + ('' if ok else '  FAIL (tolerance %s, outliers <= %g)'
                     % (1 if dt == 'u8' else F32_ATOL,
                        MAX_OUTLIER_FRAC if fast else 0)))
         if not ok:
             fail('K1 %s disagrees with its plain version' % name)
         worst[dt] = max(worst[dt], err)
-    return worst, timing
+        errors[name] = err
+    return worst, timing, errors
 
 
 def _as_u8(x):
@@ -442,8 +515,10 @@ def phase_k2():
                     img, ids, params, filters, **ck))
                 plain = cuda_ms(lambda: apply_filter_chain_switch_reference(
                     img, ids, params, filters, **ck), runs=5, warmup=1)
-                timing[tag] = (ms, plain)
-                line += '  %s kernel %.4f ms plain %.4f ms' % (tag, ms, plain)
+                bound = _chain_bound(ids, filters, img, fast)
+                timing[tag] = (ms, plain, bound)
+                line += '  %s kernel %.4f ms plain %.4f ms bound %.4f ms' % (
+                    tag, ms, plain, bound['bound_ms'])
         say(line + ('' if ok and ok16 else '  FAIL'))
         if not ok:
             fail('K2 %s (f32) disagrees with its plain version' % name)
@@ -528,8 +603,10 @@ def phase_k3():
                 img, sig, params, filters, **kw))
             plain = cuda_ms(lambda: apply_filter_chain_static_reference(
                 img, sig, params, filters, **kw), runs=5, warmup=1)
-            timing['replay'] = (ms, plain)
-            line += '  kernel %.4f ms  plain %.4f ms' % (ms, plain)
+            bound = _chain_bound(ids, filters, img, fast)
+            timing['replay'] = (ms, plain, bound)
+            line += '  kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)' % (
+                ms, plain, bound['bound_ms'], bound['bound_by'])
         say(line + ('' if ok else '  FAIL'))
         if not ok:
             fail('K3 %s disagrees with its plain version' % name)
@@ -672,31 +749,39 @@ def phase_probe_tools():
             fail('the probe tools did not launch %s: %s' % (name, counts))
     say('probe tools: launches %s' % {k: v for k, v in counts.items() if v})
 
+    from exposure_tpu_torch.ops.dyn_chain import probe_cost
     worst = _probe_worst()
     lsb = {'mono_probe': {}, 'fastmath_probe': {}, 'bf16_probe': {}}
     timing = {'mono_probe': {}, 'fastmath_probe': {}, 'bf16_probe': {}}
 
-    def hold(name, key, ms, wrapper, reference, *args):
+    def hold(name, key, ms, wrapper, reference, *args, op, steps):
+        img = args[0]
         got = _launch_checked(name, wrapper, *args)
         lsb[name][key], _ = _hold_probe(worst, name, key, got,
                                         reference(*args))
+        library = None
+        if op == 'copy':   # the one probe op with a PyTorch call
+            library = cuda_ms(lambda: got.copy_(img))
         del got
+        bound = _bound(probe_cost(name, op, steps, img.numel()))
         timing[name][key] = (ms, cuda_ms(lambda: reference(*args),
-                                         runs=PLAIN_RUNS, warmup=1))
+                                         runs=PLAIN_RUNS, warmup=1),
+                             bound, library)
 
     img = k4a.make_input(PROBE_BATCH, RES).to(dev)
     for key, steps, op in k4a.SECTION_A:
         hold('mono_probe', key, rep_a[key + '_ms'], k4a.mono_chain,
-             k4a.mono_chain_reference, img, steps, op)
+             k4a.mono_chain_reference, img, steps, op, op=op, steps=steps)
     img = k4b.make_input(PROBE_BATCH, RES).to(dev)
     for op in k4b.OPS:
         hold('fastmath_probe', op, rep_b[op + '_ms'], k4b.run_op,
-             k4b.run_op_reference, img, op)
+             k4b.run_op_reference, img, op, op=op, steps=k4b.STEPS)
     img = k4c.make_input(BF16_PROBE_BATCH, RES).to(dev)
     for r in rep_c:
         hold('bf16_probe', '%s/%s' % (r['op'], r['style']), r['ms'],
              k4c.run_probe, k4c.run_probe_reference, img, k4c.PARAMS,
-             r['op'], r['style'], BF16_PROBE_STEPS)
+             r['op'], r['style'], BF16_PROBE_STEPS, op=r['op'],
+             steps=BF16_PROBE_STEPS)
     for op in k4c.OPS:
         cast, splat = (_launch_checked('bf16_probe', k4c.run_probe, img,
                                        k4c.PARAMS, op, style,
@@ -709,8 +794,11 @@ def phase_probe_tools():
     say('K4c at the tool shape: bf16_cast == bf16_splat bit for bit')
     for name, rows in timing.items():
         say('%s at the tool shape: max_lsb by case %s' % (name, lsb[name]))
-        say('%s kernel / plain ms: %s' % (name, {
-            k: '%.4f / %.4f' % v for k, v in rows.items()}))
+        say('%s kernel / plain / bound (by) / library ms: %s' % (name, {
+            k: '%.4f / %.4f / %.4f (%s) / %s' % (
+                v[0], v[1], v[2]['bound_ms'], v[2]['bound_by'],
+                'none' if v[3] is None else '%.4f' % v[3])
+            for k, v in rows.items()}))
     copy_ms = rep_a['pallas_copy_0step_ms']
     nbytes = 2 * PROBE_BATCH * RES * RES * 3
     say('u8 round trip (K4a copy, 0 steps, [%d, %d, %d, 3]): %d bytes read '
@@ -816,7 +904,26 @@ def _rate(times):
     return sorted(per)[len(per) // 2], min(per), max(per)
 
 
+def _count_k1_by_stage(pipe):
+    """Wrap ``pipe.plan`` and ``pipe.replay`` so that the K1 launches made
+    inside each call add to the returned ``{'plan': n, 'replay': n}``."""
+    from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
+    stages = {'plan': 0, 'replay': 0}
+    for stage in stages:
+        def counted(*args, _fn=getattr(pipe, stage), _stage=stage, **kw):
+            before = apply_filter_chain_dynamic.launches
+            try:
+                return _fn(*args, **kw)
+            finally:
+                stages[_stage] += apply_filter_chain_dynamic.launches - before
+        setattr(pipe, stage, counted)
+    return stages
+
+
 def phase_main_path(batches):
+    """The served path; returns K1's launches in it, ``{'proxy': n,
+    'replay': n}`` (the plan's steps on the proxy, and the replay), img/s
+    and the outputs."""
     import torch
     from exposure_tpu_torch.core.serving import batch_generator
     from exposure_tpu_torch.ops.dyn_chain import (
@@ -830,16 +937,22 @@ def phase_main_path(batches):
         % (pipe.run, pipe.step, ARTIFACT, time.perf_counter() - t0,
            pipe.cfg.dropout_keep_prob))
 
+    stages = _count_k1_by_stage(pipe)
     reset_counts()
     outs = list(pipe.map_batches(batches, seed=SEED))
     torch.cuda.synchronize()
     counts = read_counts()
     launches = counts['dyn_chain']
+    by_stage = {'proxy': stages['plan'], 'replay': stages['replay']}
+    del pipe.plan, pipe.replay     # the timed runs below go unwrapped
     steps = pipe.cfg.test_steps
-    if launches != (steps + 1) * MAIN_BATCHES or \
+    if by_stage != {'proxy': steps * MAIN_BATCHES, 'replay': MAIN_BATCHES} \
+            or launches != sum(by_stage.values()) or \
             counts['switch_chain'] or counts['static_chain']:
-        fail('main path launched %s over %d batches, expected K1 %d times'
-             % (counts, MAIN_BATCHES, (steps + 1) * MAIN_BATCHES))
+        fail('main path launched %s over %d batches (K1: %s by stage), '
+             'expected K1 %d times on the proxy and %d on the replay'
+             % (counts, MAIN_BATCHES, by_stage, steps * MAIN_BATCHES,
+                MAIN_BATCHES))
     for i, out in enumerate(outs):
         if out.shape != batches[i].shape or out.dtype != torch.uint8 or \
                 out.device.type != torch.device(DEVICE).type:
@@ -847,9 +960,11 @@ def phase_main_path(batches):
                 i, tuple(out.shape), out.dtype, out.device))
     changed = float((outs[0] != batches[0]).float().mean())
     say('main: %d batches of [%d, %d, %d, 3] u8 -> u8 on %s; K1 launches '
-        '%d (%d per batch); %.3f of output values differ from the input'
+        '%d (%d per batch: %d on the proxy in the plan, %d replay); %.3f of '
+        'output values differ from the input'
         % (MAIN_BATCHES, BATCH, RES, RES, outs[0].device, launches,
-           launches // MAIN_BATCHES, changed))
+           launches // MAIN_BATCHES, by_stage['proxy'] // MAIN_BATCHES,
+           by_stage['replay'] // MAIN_BATCHES, changed))
 
     # the plan of batch 0 again; its replay of 16 images against the plain
     # version on the same plan
@@ -887,7 +1002,7 @@ def phase_main_path(batches):
                             BATCH, RES, RES,
                             1e3 * BATCH / img_s,
                             resize_ms, plan_ms, replay_ms))
-    return launches, img_s
+    return by_stage, img_s, outs
 
 
 MODES = [
@@ -1091,8 +1206,8 @@ def main():
     t_start = time.perf_counter()
     card = phase_card()
     sys.path.insert(0, REPO)
-    phase_build()
-    k1_worst, k1_timing = phase_k1()
+    variants = phase_build()
+    k1_worst, k1_timing, k1_errors = phase_k1()
     k2_worst, k2_timing = phase_k2()
     k3_worst, k3_timing = phase_k3()
     probe_worst = phase_probes()
@@ -1105,57 +1220,92 @@ def main():
     batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
                for _ in range(MAIN_BATCHES)]
     torch.cuda.synchronize()
-    k1_main, _ = phase_main_path(batches)
+    k1_main, _, _ = phase_main_path(batches)
     totals, _ = phase_modes(batches)
     phase_planted(batches[0])
     phase_bf16_plan(batches)
     say('total %.1f s' % (time.perf_counter() - t_start))
     shape = '[%d, %d, %d, 3] u8, K=5' % (BATCH, RES, RES)
-    ms1, plain1 = k1_timing[REPLAY_CASE[0]]
-    ms2, plain2 = k2_timing['f32']
-    ms2b, plain2b = k2_timing['bf16']
-    ms3, plain3 = k3_timing['replay']
     for name in totals:     # the paths: main, modes, probe tools, tools
         totals[name] += probe_counts[name] + tool_counts[name]
 
+    def ptxas(lib, kernel):
+        """The worst registers, stack frame and spills over the variants."""
+        rows = [p for v, p in variants[lib].items() if v.startswith(kernel)]
+        return {k: max(p[k] for p in rows) for k in rows[0]}
+
+    def chain_entry(name, source, replaces, timed, worst, launches, lib,
+                    kernel, **extra):
+        ms, plain, bound = timed
+        return dict({
+            'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': launches,
+            'max_abs_err': worst['f32'], 'max_lsb_u8': worst['u8'],
+            'ms': ms, 'plain_ms': plain, 'bound_ms': bound['bound_ms'],
+            'bound_by': bound['bound_by'], 'flops': bound['flops'],
+            'bytes': bound['bytes'], 'library_ms': None,
+            'ptxas_worst_variant': ptxas(lib, kernel), 'shape': shape,
+            'card': card}, **extra)
+
     def probe_entry(name, replaces, max_lsb, shape, **extra):
         rows = probe_timing[name]
+        library = {k: v[3] for k, v in rows.items() if v[3] is not None}
         return dict({
             'name': name, 'route': 'cuda',
             'source': 'exposure_tpu_torch/csrc/probes.cu',
             'replaces': replaces, 'launches': totals[name],
             'max_abs_err': max_lsb / 255.0, 'max_lsb_u8': max_lsb,
-            # the sums over the timed cases; each case's pair below
-            'ms': sum(k for k, _ in rows.values()),
-            'plain_ms': sum(p for _, p in rows.values()),
+            # the sums over the timed cases; each case's numbers below
+            'ms': sum(v[0] for v in rows.values()),
+            'plain_ms': sum(v[1] for v in rows.values()),
+            'bound_ms': sum(v[2]['bound_ms'] for v in rows.values()),
+            # the kind that sets most of the summed bound
+            'bound_by': max(('bytes', 'operations'), key=lambda by: sum(
+                v[2]['bound_ms'] for v in rows.values()
+                if v[2]['bound_by'] == by)),
+            # Tensor.copy_ on the 0-step copy's buffers: the one case that
+            # a PyTorch call computes
+            'library_ms': sum(library.values()) if library else None,
+            'library_ms_by_case': library,
             'ms_by_case': {k: v[0] for k, v in rows.items()},
             'plain_ms_by_case': {k: v[1] for k, v in rows.items()},
+            'bound_ms_by_case': {k: v[2]['bound_ms']
+                                 for k, v in rows.items()},
             'shape': shape, 'card': card}, **extra)
 
+    proxy = PROXY_CASE[0]
     say(json.dumps({'kernels': [
-        {'name': 'dyn_chain', 'route': 'cuda',
-         'source': 'exposure_tpu_torch/csrc/dyn_chain.cu',
-         'replaces': 'exposure_tpu/ops/pallas_chain.py:479',
-         'launches': k1_main + totals['dyn_chain'],
-         'max_abs_err': k1_worst['f32'], 'max_lsb_u8': k1_worst['u8'],
-         'ms': ms1, 'plain_ms': plain1, 'shape': shape, 'card': card},
-        {'name': 'switch_chain', 'route': 'cuda',
-         'source': 'exposure_tpu_torch/csrc/switch_chain.cu',
-         'replaces': 'exposure_tpu/ops/pallas_chain.py:345',
-         'launches': totals['switch_chain'],
-         'max_abs_err': k2_worst['f32'], 'max_lsb_u8': k2_worst['u8'],
-         'bf16_max_lsb_vs_f32_jax_case': k2_worst['bf16_vs_f32_lsb'],
-         'bf16_frac_off_plain': k2_worst['bf16_vs_plain_frac'],
-         'ms': ms2, 'plain_ms': plain2, 'ms_bf16': ms2b,
-         'plain_ms_bf16': plain2b, 'shape': shape, 'card': card},
-        {'name': 'static_chain', 'route': 'cuda',
-         'source': 'exposure_tpu_torch/csrc/static_chain.cu',
-         'replaces': 'exposure_tpu/ops/pallas_chain.py:417',
-         'launches': totals['static_chain'],
-         'max_abs_err': k3_worst['f32'], 'max_lsb_u8': k3_worst['u8'],
-         'ms': ms3, 'plain_ms': plain3,
-         'shape': shape + ', one signature (E, G, S+, T, Ct)',
-         'card': card},
+        # the main path's replay launches, with the modes' and the tools';
+        # its proxy launches are the next row's
+        chain_entry('dyn_chain', 'exposure_tpu_torch/csrc/dyn_chain.cu',
+                    'exposure_tpu/ops/pallas_chain.py:479',
+                    k1_timing[REPLAY_CASE[0]], k1_worst,
+                    k1_main['replay'] + totals['dyn_chain'], 'dyn_chain',
+                    'dyn_chain_kernel',
+                    launches_main_path_replay=k1_main['replay'],
+                    launches_other_paths=totals['dyn_chain']),
+        # the same kernel on the plan's proxy: 5 of its 6 launches a batch,
+        # counted by stage on the main path; its error is its own case's
+        chain_entry('dyn_chain_proxy', 'exposure_tpu_torch/csrc/dyn_chain.cu',
+                    'exposure_tpu/ops/pallas_chain.py:479',
+                    k1_timing[proxy], {'f32': k1_errors[proxy], 'u8': None},
+                    k1_main['proxy'], 'dyn_chain', 'dyn_chain_kernel',
+                    shape='[%d, 64, 64, 3] f32, K=1' % BATCH),
+        chain_entry('switch_chain', 'exposure_tpu_torch/csrc/switch_chain.cu',
+                    'exposure_tpu/ops/pallas_chain.py:345',
+                    k2_timing['f32'], k2_worst, totals['switch_chain'],
+                    'switch_chain', 'switch_chain_f32',
+                    bf16_max_lsb_vs_f32_jax_case=k2_worst['bf16_vs_f32_lsb'],
+                    bf16_frac_off_plain=k2_worst['bf16_vs_plain_frac'],
+                    ms_bf16=k2_timing['bf16'][0],
+                    plain_ms_bf16=k2_timing['bf16'][1],
+                    ptxas_worst_variant_bf16=ptxas('switch_chain',
+                                                   'switch_chain_bf16')),
+        chain_entry('static_chain', 'exposure_tpu_torch/csrc/static_chain.cu',
+                    'exposure_tpu/ops/pallas_chain.py:417',
+                    k3_timing['replay'], k3_worst, totals['static_chain'],
+                    'static_chain', 'static_chain_kernel',
+                    shape=shape + ', one signature (E, G, S+, T, Ct)'),
         probe_entry('mono_probe',
                     'exposure_tpu/tools/bench_kernel_probe.py:41',
                     probe_worst['mono_probe'],
@@ -1178,5 +1328,163 @@ def main():
         'count': torch.cuda.device_count()}}), flush=True)
 
 
+def _digest(tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _branch_outputs(dev):
+    """K1 on one step of each filter of the ``synthetic_explore`` and the
+    ``masked`` banks, exact and fast, f32 and u8, on seeded [16, 256, 256,
+    3] images: the kernels' math branch by branch, with and without the
+    mask blend, ``{name: numpy array}``."""
+    import torch
+    from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
+    g = torch.Generator().manual_seed(SEED + 11)
+    b = 16
+    x = torch.rand((b, 256, 256, 3), generator=g) * 1.05
+    imgs = {'f32': x.to(dev),
+            'u8': (x * 255).round().clamp(0, 255).to(torch.uint8).to(dev)}
+    out = {}
+    for bank, filters in _banks().items():
+        masked = filters[0].use_masking()
+        for fid, f in enumerate(filters):
+            ids, params = _trajectory(g, filters, 1, b, dev,
+                                      ids=torch.full((1, b), fid,
+                                                     dtype=torch.int32))
+            kw = {}
+            if masked:
+                kw['mask_params'] = torch.randn((1, b, 6), generator=g).to(
+                    dev)
+            for fast in (False, True):
+                for dt, img in imgs.items():
+                    y = apply_filter_chain_dynamic(img, ids, params, filters,
+                                                   fast_math=fast, **kw)
+                    out['%s%s_%s_%s' % ('masked_' if masked else '',
+                                        f.get_short_name(),
+                                        'fast' if fast else 'exact', dt)] = \
+                        y.cpu().numpy()
+    return out
+
+
+def serve(tree, work, tag, first):
+    """``--serve TREE WORK TAG [--first]``: the main path and the five
+    modes with the package of the checkout ``TREE`` (its kernels built from
+    its own sources), and that tree's replay of one fixed plan (batch 0's,
+    planned by the first turn and kept in ``WORK``).  A tree's first turn
+    saves its main-path outputs, fixed-plan replay and one-step outputs of
+    each branch (``_branch_outputs``) in ``WORK``.  The last line is
+    ``{"tree", "main_img_s", "modes": {mode: img/s}, "main_digest",
+    "replay_digest"}``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.abspath(tree))
+    from exposure_tpu_torch.core.serving import batch_generator
+    phase_card()
+    phase_build()
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED)
+    batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
+               for _ in range(MAIN_BATCHES)]
+    _, img_s, outs = phase_main_path(batches)
+    main_digest = _digest(outs)
+    if first:
+        np.save(os.path.join(work, tag + '_main.npy'),
+                torch.stack(outs).cpu().numpy())
+    del outs
+    pipe = _pipeline(dev)
+    plan_path = os.path.join(work, 'plan.pt')
+    if not os.path.exists(plan_path):
+        with torch.no_grad():
+            plan = pipe.plan(pipe.proxy(batches[0]),
+                             batch_generator(SEED, 0, dev))
+        torch.save([t.cpu() for t in plan], plan_path)
+    plan = [t.to(dev) for t in torch.load(plan_path)]
+    replay = pipe.replay(batches[0], *plan)
+    replay_digest = _digest([replay])
+    if first:
+        np.save(os.path.join(work, tag + '_replay.npy'), replay.cpu().numpy())
+        np.savez(os.path.join(work, tag + '_branches.npz'),
+                 **_branch_outputs(dev))
+    del replay, pipe
+    _, rows = phase_modes(batches)
+    print(json.dumps({'tree': tree, 'main_img_s': img_s,
+                      'modes': dict(rows), 'main_digest': main_digest,
+                      'replay_digest': replay_digest}), flush=True)
+
+
+def _lsb_diff(a, b):
+    """(max LSB, values differing) between two u8 arrays, in slices."""
+    max_lsb = n_diff = 0
+    for i in range(a.shape[0]):
+        d = abs(a[i].astype('int16') - b[i].astype('int16'))
+        max_lsb = max(max_lsb, int(d.max()))
+        n_diff += int((d > 0).sum())
+    return max_lsb, n_diff
+
+
+def turns(parent):
+    """``--turns PARENT``: the main path and modes of the checkout PARENT
+    and of this one, in turns (parent, change, change, parent), each turn a
+    process of its own (``--serve``) on the same card; then the two trees'
+    main-path outputs compared value by value, their replays of one fixed
+    plan (the kernels alone: the plan feeds back through the proxy chain,
+    so a last-bit difference there can move a plan), and their one-step
+    outputs of each branch (values differing, per branch).  Each turn's
+    outputs are also hashed, to show a tree repeats itself."""
+    import numpy as np
+    phase_card()
+    work = os.path.join(REPO, 'exposure_tpu_torch', 'build', 'turns')
+    os.makedirs(work, exist_ok=True)
+    for name in os.listdir(work):
+        os.remove(os.path.join(work, name))
+    trees = {'parent': os.path.abspath(parent), 'change': REPO}
+    results = []
+    for tag in ('parent', 'change', 'change', 'parent'):
+        cmd = [sys.executable, os.path.abspath(__file__), '--serve',
+               trees[tag], work, tag]
+        if not any(r['tag'] == tag for r in results):
+            cmd.append('--first')
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=1200)
+        for ln in proc.stdout.splitlines():
+            if ln.startswith(('main:', 'mode ', 'build:', '  ptxas')):
+                say('%s: %s' % (tag, ln))
+        if proc.returncode != 0:
+            say(proc.stdout[-3000:] + proc.stderr[-3000:])
+            fail('turn %s failed' % tag)
+        results.append(dict(json.loads(proc.stdout.splitlines()[-1]),
+                            tag=tag))
+        say('turn %s: %s' % (tag, json.dumps(results[-1])))
+    compare = {}
+    for what in ('main', 'replay'):
+        a = np.load(os.path.join(work, 'parent_%s.npy' % what),
+                    mmap_mode='r')
+        b = np.load(os.path.join(work, 'change_%s.npy' % what),
+                    mmap_mode='r')
+        max_lsb, n_diff = _lsb_diff(a, b)
+        compare[what] = {'shape': list(a.shape), 'max_lsb': max_lsb,
+                         'values_differing': n_diff}
+    a = np.load(os.path.join(work, 'parent_branches.npz'))
+    b = np.load(os.path.join(work, 'change_branches.npz'))
+    compare['branches'] = {k: int((a[k] != b[k]).sum()) for k in a.files}
+    repeats = {tag: len({(r['main_digest'], r['replay_digest'])
+                         for r in results if r['tag'] == tag}) == 1
+               for tag in trees}
+    say(json.dumps({'turns': results, 'parent_vs_change': compare,
+                    'each_tree_repeats_its_outputs': repeats}))
+    if compare['main']['max_lsb'] > 1 or compare['replay']['max_lsb'] > 1:
+        fail('the two trees differ by more than 1 LSB: %s' % compare)
+
+
 if __name__ == '__main__':
-    main()
+    if len(sys.argv) > 4 and sys.argv[1] == '--serve':
+        serve(sys.argv[2], sys.argv[3], sys.argv[4],
+              sys.argv[5:6] == ['--first'])
+    elif len(sys.argv) > 2 and sys.argv[1] == '--turns':
+        turns(sys.argv[2])
+    else:
+        main()

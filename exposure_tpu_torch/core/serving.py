@@ -7,6 +7,10 @@ policy (``plan``), then replay the [K, B] ids and [K, B, P] params on the
 full-resolution batch (``replay``).  uint8 input gives uint8 output;
 float32 input is the linear [0, 1] domain.
 
+The pipeline runs on the card (``device='cuda'``) unless the caller asks
+for the CPU (``device='cpu'``, as the tests do); without a GPU the default
+raises rather than serving on the host.
+
 Modes, resolved from the constructor's knobs as the JAX pipeline resolves
 them (``use_kernels`` stands for its ``use_pallas`` and defaults to
 whether the device is a GPU):
@@ -37,9 +41,12 @@ every mode.
 
 >>> pipe = RetouchPipeline.from_artifact(
 ...     'synthetic_explore',
+...     'artifacts/serving/synthetic_explore--best.msgpack.gz')
+>>> out_u8 = pipe(images_u8)           # [B, H, W, 3] uint8, on the card
+>>> cpu = RetouchPipeline.from_artifact(
+...     'synthetic_explore',
 ...     'artifacts/serving/synthetic_explore--best.msgpack.gz',
-...     device='cuda')
->>> out_u8 = pipe(images_u8)           # [B, H, W, 3] uint8 tensor
+...     device='cpu')                  # the plain versions, on the host
 """
 
 import collections
@@ -86,13 +93,18 @@ def proxy_resize(images, size):
 
 class RetouchPipeline:
 
-    def __init__(self, cfg, policy, device='cpu', run=None, step=None,
+    def __init__(self, cfg, policy, device='cuda', run=None, step=None,
                  use_kernels=None, bf16=False, grouped=None, fast_math=True,
                  fused_set_limit=None, dynamic=None, selected_plan=None,
                  auto_superset=False, auto_record_batches=8,
                  auto_drift_window=8, auto_drift_threshold=1.0 / 16.0):
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError(
+                'RetouchPipeline runs on the card by default and no CUDA '
+                'device is available; pass device=\'cpu\' to serve the '
+                'plain versions on the host')
         self.filters = build_filters(cfg)
         self.policy = policy.to(self.device).eval()
         self.masking = bool(cfg.masking)
@@ -141,7 +153,7 @@ class RetouchPipeline:
         self._ss_drift = collections.deque(maxlen=self._ss_window)
 
     @classmethod
-    def from_artifact(cls, config_name, path, device='cpu', **kwargs):
+    def from_artifact(cls, config_name, path, device='cuda', **kwargs):
         """A pipeline serving the generator of a JAX serving artifact;
         ``kwargs`` are the mode knobs of the constructor."""
         cfg = load_config(config_name)

@@ -13,22 +13,25 @@
 // TPU kernel does with jnp.round.  With masking on, every step is blended
 // in by a sigmoid mask evaluated from the global pixel grid.
 //
-// What bounds it on an H100: memory traffic.  With u8 in and out a pixel
-// costs 6 bytes (3 read, 3 written): a 512-image batch of 512x512 moves
-// about 805 MB.  Against that, each pixel runs at most 5 branches of f32
-// math on scalar parameters (tens to a few hundred flops per step).
+// What bounds it on an H100 (ops/dyn_chain.py::chain_cost counts both
+// bounds): with u8 in and out a pixel costs 6 bytes (3 read, 3 written),
+// so a 512-image batch of 512x512 moves 805 MB, 0.240 ms at 3.35 TB/s.
+// The served trajectory (E, G, S+, T, Ct in the fast set) runs 198 f32
+// operations a pixel, most of them in the curves, the S+ HSV round trip
+// and the contrast: 0.389 ms at 67 TFLOP/s.  So the redesigned kernel sits
+// nearer its operations bound than its bytes bound.
 //
-// What this simple design does about it: each pixel is read once and
-// written once, and its r, g, b stay in registers through all K steps.
-// The grid is (pixel blocks, B): a block belongs to one image, so the
-// filter id of each step is uniform across the block and the branch is a
-// plain switch with no warp divergence (the counterpart of the TPU
-// kernel's pl.when on an SMEM scalar).  Each block stages its image's K
-// branch codes and K x P parameters in shared memory.  The image is read
+// The design (chain_branches.cuh): the grid is (pixel blocks, B) and a
+// block belongs to one image, so the code of each step is uniform across
+// the block and the branch is a plain switch with no warp divergence (the
+// counterpart of the TPU kernel's pl.when on an SMEM scalar).  In the
+// prologue the threads k < K read step k's id and raw parameters and write
+// its code and per-step plan to shared memory; then each thread reads its
+// run of 16 pixels with 16-byte loads, applies the K steps, branching once
+// per step, and writes the run with 16-byte stores.  The image is read
 // NHWC directly: the TPU wrapper's planar transpose and padding exist for
 // the TPU's tiling and are gone.  Grid dimension y holds at most 65535
 // images, so the launcher splits a larger batch into several launches.
-// Vector loads and more pixels per thread are left for later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (exposure_tpu_torch/kernels/__init__.py).
@@ -42,48 +45,44 @@
 
 namespace {
 
-template <typename T, bool FAST, bool MASKED>
-__global__ void __launch_bounds__(kThreads)
-dyn_chain_kernel(const T* __restrict__ img, T* __restrict__ out,
+template <typename T, bool FAST, bool MASKED, int S>
+__global__ void dyn_chain_kernel(const T* __restrict__ img, T* __restrict__ out,
                  const int32_t* __restrict__ ids,
-                 const float* __restrict__ params, int b0, BranchTable table,
-                 ChainArgs a) {
-  extern __shared__ float smem[];
+                 const float* __restrict__ params, int b0,
+                 const __grid_constant__ BranchTable table,
+                 const __grid_constant__ ChainArgs a) {
   const int b = blockIdx.y + b0;
-  const int kp = a.K * a.P;
-  float* s_params = smem;
-  int* s_code = reinterpret_cast<int*>(smem + kp);
-
-  const float* row = params + (size_t)b * kp;
-  for (int i = threadIdx.x; i < kp; i += blockDim.x) s_params[i] = row[i];
-  for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
-    const int id = ids[(size_t)b * a.K + k];
-    s_code[k] = (id >= 0 && id < a.n_filters) ? (int)table.code[id]
-                                              : (int)kIdentity;
-  }
-  __syncthreads();
-  chain_pixels<T, FAST, MASKED>(img + image_offset(b, a),
-                                out + image_offset(b, a), s_code, s_params,
-                                a);
+  chain_image<T, FAST, MASKED, S>(
+      img + image_offset(b, a), out + image_offset(b, a), a,
+      [&](int k, int* s_code, float* plan) {
+        const int id = ids[(size_t)b * a.K + k];
+        const int code = (id >= 0 && id < a.n_filters) ? (int)table.code[id]
+                                                       : (int)kIdentity;
+        const float* p = params + ((size_t)b * a.K + k) * a.P;
+        s_code[k] = code;
+        plan_step<FAST, MASKED>(code, p, p + a.mask_offset, a, plan);
+      });
 }
 
 template <typename T, bool FAST, bool MASKED>
 cudaError_t launch(const void* img, void* out, const void* ids,
                    const void* params, const BranchTable& table,
                    const ChainArgs& a, int B, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)a.K * a.P * sizeof(float) + (size_t)a.K * sizeof(int);
-  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
-    const int n = B - b0 < kMaxGridY ? B - b0 : kMaxGridY;
-    const dim3 grid(pixel_blocks(a.H, a.W), (unsigned)n);
-    dyn_chain_kernel<T, FAST, MASKED><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(img), static_cast<T*>(out),
-        static_cast<const int32_t*>(ids), static_cast<const float*>(params),
-        b0, table, a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  const size_t smem = plan_smem_bytes(a.K, a.curve_steps);
+  return with_curve_steps(a.curve_steps, [&](auto steps) {
+    constexpr int S = decltype(steps)::value;
+    for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+      const int n = B - b0 < kMaxGridY ? B - b0 : kMaxGridY;
+      const dim3 grid(chain_blocks(a.H, a.W), (unsigned)n);
+      dyn_chain_kernel<T, FAST, MASKED, S><<<grid, kThreads, smem, stream>>>(
+          static_cast<const T*>(img), static_cast<T*>(out),
+          static_cast<const int32_t*>(ids), static_cast<const float*>(params),
+          b0, table, a);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  });
 }
 
 template <typename T>
@@ -105,6 +104,7 @@ extern "C" {
 
 // img/out: [B, H, W, 3] u8 (is_u8) or f32; ids: [B, K] int32;
 // params: [B, K, P] f32; codes: host array of n_filters branch codes.
+// img and out may have any 4-byte (f32) or byte (u8) alignment.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 int dyn_chain_launch(const void* img, void* out, const void* ids,
                      const void* params, const int* codes, int n_filters,

@@ -2,10 +2,11 @@
 //
 // Counterpart of exposure_tpu/ops/fastmath.py (same coefficients and bit
 // tricks); the plain PyTorch version is exposure_tpu_torch/ops/fastmath.py.
-// The chain kernels (through chain_branches.cuh) run fast_half_cos_pi and
-// curve_fast in their fast branch set, and the probe kernels (probes.cu)
-// time every function here against the CUDA library call it would
-// replace, so the probes measure the code the chain kernels run.
+// The chain kernels (through chain_branches.cuh) run fast_half_cos_pi in
+// their fast branch set, and the probe kernels (probes.cu) time every
+// function here against the CUDA library call it would replace.  The
+// curves, in both sets, are chain_branches.cuh's (plan_curve, Curve),
+// which the probes time too.
 //
 // The f32 functions are written as plain expressions: nvcc contracts
 // a * b + c into an FMA, as it does in the chain kernels.  The bf16 section
@@ -81,30 +82,6 @@ __device__ __forceinline__ float fast_half_cos_pi(float x) {
   return acc * u * 0.5f + 0.5f;
 }
 
-// sum_i t_i clip(x - i/K, 0, 1/K) * norm in the telescoped max form:
-// sum_i d_i max(x, i/K) - t_{K-1} max(x, 1) + C0, d_i = t_i - t_{i-1}.
-__device__ __forceinline__ float curve_relu(float x, const float* t,
-                                            int steps, float norm) {
-  float total = fmaxf(x, 0.0f) * t[0];
-  float c0 = t[steps - 1];
-  for (int i = 1; i < steps; ++i) {
-    const float d = t[i] - t[i - 1];
-    const float c = (float)i / (float)steps;
-    total += fmaxf(x, c) * d;
-    c0 -= d * c;
-  }
-  total -= fmaxf(x, 1.0f) * t[steps - 1];
-  return (total + c0) * norm;
-}
-
-// The chain's curve: curve_relu with norm = K / (1e-30 + sum t).
-__device__ __forceinline__ float curve_fast(float x, const float* t,
-                                            int steps) {
-  float psum = 1e-30f;
-  for (int i = 0; i < steps; ++i) psum += t[i];
-  return curve_relu(x, t, steps, (float)steps / psum);
-}
-
 // ---------------------------------------------------------------------------
 // bf16, one rounding after every operation
 // ---------------------------------------------------------------------------
@@ -140,7 +117,9 @@ __device__ __forceinline__ bf fast_half_cos_pi_bf(bf x) {
   return add(mul(mul(acc, u), C(0.5f)), C(0.5f));
 }
 
-// curve_relu in bf16: knots, d_i and C0 are bf16 values
+// sum_i t_i clip(x - i/K, 0, 1/K) * norm in the telescoped max form,
+// sum_i d_i max(x, i/K) - t_{K-1} max(x, 1) + C0 with d_i = t_i - t_{i-1},
+// in bf16: knots, d_i and C0 are bf16 values
 __device__ __forceinline__ bf curve_relu_bf(bf x, const bf* t, int steps,
                                             bf norm) {
   bf total = mul(bmax(x, C(0.0f)), t[0]);

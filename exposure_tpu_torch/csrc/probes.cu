@@ -20,7 +20,8 @@
 //
 // The ops call the device functions the chain kernels run: the library
 // calls of chain_branches.cuh (gamma_exact = powf, gamma_fast = exp2f of
-// log2f, half_cos_pi = cosf, curve_exact) and the polynomials of
+// log2f, half_cospi = cospif), its curves (the per-step plan_curve and
+// Curve at 8 knots, clip and max form) and the polynomials of
 // fastmath.cuh.  So K4b times the code of the chain's branches, and is
 // built, like them, without --use_fast_math: its "builtin" rows are the
 // CUDA library's full-precision calls.  In K4c the bf16 styles round after
@@ -77,6 +78,21 @@ enum Style : int { kF32 = 0, kBf16Cast = 1, kBf16Splat = 2 };
 
 constexpr int kCurveKnots = 8;
 
+// The chain's curve on knots t: its per-step plan (plan_curve) and the
+// evaluation at a compiled knot count (Curve<FAST, 8>); a nonzero norm
+// replaces the plan's.  The plan depends on the knots alone (constants in
+// K4b, kernel parameters in K4c), so the compiler may hoist it out of the
+// loops over values and steps, as the chain kernels make it once a block.
+template <bool FAST>
+__device__ __forceinline__ float knot_curve(float x,
+                                            const float (&t)[kCurveKnots],
+                                            float norm = 0.0f) {
+  float plan[curve_plan_floats(kCurveKnots)];
+  plan_curve<FAST>(t, kCurveKnots, plan);
+  if (norm != 0.0f) plan[curve_plan_floats(kCurveKnots) - 1] = norm;
+  return Curve<FAST, kCurveKnots>(plan, kCurveKnots)(x);
+}
+
 // How a value enters and leaves the op: f32, or bf16 rounded from the f32
 // dequantized value and quantized from its f32 value.
 struct F32Pixels {
@@ -119,7 +135,7 @@ struct FastMath : F32Pixels {
     } else if constexpr (OP == kFmPowExpLog) {
       return expf(0.7f * logf(fmaxf(x, 0.001f)));
     } else if constexpr (OP == kFmCosBuiltin) {
-      return half_cos_pi(clamp01(x));
+      return half_cospi(clamp01(x));
     } else if constexpr (OP == kFmCosFast) {
       return fast_half_cos_pi(clamp01(x));
     } else if constexpr (OP == kFmDivBuiltin) {
@@ -129,8 +145,7 @@ struct FastMath : F32Pixels {
     } else if constexpr (OP == kFmCurveClip || OP == kFmCurveRelu) {
       const float knots[kCurveKnots] = {1.1f, 0.9f, 1.3f, 0.7f,
                                         1.2f, 0.8f, 1.05f, 0.95f};
-      return OP == kFmCurveClip ? curve_exact(x, knots, kCurveKnots)
-                                : curve_fast(x, knots, kCurveKnots);
+      return knot_curve<OP == kFmCurveRelu>(x, knots);
     } else {
       return x;
     }
@@ -165,7 +180,7 @@ struct Scalar
         return x + (fast_half_cos_pi(clamp01(x)) - x) * p0;
       } else {
         const float t[kCurveKnots] = {p0, p1, p0, p1, p0, p1, p0, p1};
-        return curve_relu(x, t, kCurveKnots, norm);
+        return knot_curve<true>(x, t, norm);
       }
     } else {
       const bf g = use(p0);

@@ -13,20 +13,24 @@
 // output is left as it was.  An id outside [0, n_filters) is the identity.
 // u8 is dequantized on load and quantized on store (round half to even).
 //
-// What bounds it on an H100: memory traffic, 6 bytes a pixel for u8 in
-// and out, as for the dynamic kernel.
+// What bounds it on an H100: 6 bytes a pixel for u8 in and out, and the
+// operations of the signature's branches, as for the dynamic kernel (see
+// dyn_chain.cu); on the served signature the operations bound the larger.
 //
-// What this simple design does about it: the TPU compiled one program per
-// signature because its lax.switch ran every branch; here a switch on a
-// block-uniform code is real control flow, so one compiled kernel serves
-// every signature.  The K branch codes and n_active come in by value from
-// the host; the grid is (pixel blocks, slots), a block belongs to one
-// slot, and a block past n_active returns before loading a pixel.  The
-// gather of a group's images and the scatter of its results happen in
-// the kernel through `rows` (the TPU wrapper's jnp.take and
-// .at[].set(mode='drop') around the call), so a group is one launch.
-// Parameters are read in the plan's own [K, B, P] layout, and each block
-// stages its row's K x (P + M) values in shared memory.
+// The design: the TPU compiled one program per signature because its
+// lax.switch ran every branch; here a switch on a block-uniform code is
+// real control flow, so one compiled kernel serves every signature, and
+// the branch math, per-step plan and 16-pixel runs are the dynamic
+// kernel's (chain_branches.cuh: one copy, so the modes agree bit for bit).
+// The K branch codes and n_active come in by value from the host; the grid
+// is (pixel blocks, slots), a block belongs to one slot, and a block past
+// n_active returns before loading a pixel.  The gather of a group's images
+// and the scatter of its results happen in the kernel through `rows` (the
+// TPU wrapper's jnp.take and .at[].set(mode='drop') around the call), so a
+// group is one launch; a slot's image base, and so its alignment, comes
+// from rows[i].  Parameters are read in the plan's own [K, B, P] layout by
+// the prologue's threads k < K, which write the block's per-step plans to
+// shared memory.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (exposure_tpu_torch/kernels/__init__.py).
@@ -44,32 +48,27 @@ struct Signature {
   int8_t code[kMaxSteps];
 };
 
-template <typename T, bool FAST, bool MASKED>
-__global__ void __launch_bounds__(kThreads)
-static_chain_kernel(const T* __restrict__ img, T* __restrict__ out,
+template <typename T, bool FAST, bool MASKED, int S>
+__global__ void static_chain_kernel(const T* __restrict__ img, T* __restrict__ out,
                     const float* __restrict__ params,
                     const float* __restrict__ mask,
                     const int32_t* __restrict__ rows, int i0, int n_active,
-                    int B, int M, Signature sig, ChainArgs a) {
+                    int B, int M, const __grid_constant__ Signature sig,
+                    const __grid_constant__ ChainArgs a) {
   const int i = blockIdx.y + i0;
   if (i >= n_active) return;   // padded slot: no load, no math, no store
-  extern __shared__ float smem[];
-  const int kp = a.K * a.P;
-  float* s_params = smem;
-  int* s_code = reinterpret_cast<int*>(smem + kp);
   const int row = rows ? rows[i] : i;
   const int pp = a.mask_offset;   // packed filter-parameter width
-  for (int idx = threadIdx.x; idx < kp; idx += blockDim.x) {
-    const int k = idx / a.P, j = idx - k * a.P;
-    s_params[idx] = j < pp
-        ? params[((size_t)k * B + row) * pp + j]
-        : mask[((size_t)k * B + row) * M + (j - pp)];
-  }
-  for (int k = threadIdx.x; k < a.K; k += blockDim.x) s_code[k] = sig.code[k];
-  __syncthreads();
-  chain_pixels<T, FAST, MASKED>(img + image_offset(row, a),
-                                out + image_offset(row, a), s_code, s_params,
-                                a);
+  chain_image<T, FAST, MASKED, S>(
+      img + image_offset(row, a), out + image_offset(row, a), a,
+      [&](int k, int* s_code, float* plan) {
+        const int code = sig.code[k];
+        s_code[k] = code;
+        plan_step<FAST, MASKED>(code, params + ((size_t)k * B + row) * pp,
+                                MASKED ? mask + ((size_t)k * B + row) * M
+                                       : nullptr,
+                                a, plan);
+      });
 }
 
 template <typename T, bool FAST, bool MASKED>
@@ -77,20 +76,24 @@ cudaError_t launch(const void* img, void* out, const void* params,
                    const void* mask, const void* rows, int n, int n_active,
                    int B, int M, const Signature& sig, const ChainArgs& a,
                    cudaStream_t stream) {
-  const size_t smem =
-      (size_t)a.K * a.P * sizeof(float) + (size_t)a.K * sizeof(int);
+  const size_t smem = plan_smem_bytes(a.K, a.curve_steps);
   const int n_run = n_active < n ? n_active : n;
-  for (int i0 = 0; i0 < n_run; i0 += kMaxGridY) {
-    const int chunk = n_run - i0 < kMaxGridY ? n_run - i0 : kMaxGridY;
-    const dim3 grid(pixel_blocks(a.H, a.W), (unsigned)chunk);
-    static_chain_kernel<T, FAST, MASKED><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(img), static_cast<T*>(out),
-        static_cast<const float*>(params), static_cast<const float*>(mask),
-        static_cast<const int32_t*>(rows), i0, n_active, B, M, sig, a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+  return with_curve_steps(a.curve_steps, [&](auto steps) {
+    constexpr int S = decltype(steps)::value;
+    for (int i0 = 0; i0 < n_run; i0 += kMaxGridY) {
+      const int chunk = n_run - i0 < kMaxGridY ? n_run - i0 : kMaxGridY;
+      const dim3 grid(chain_blocks(a.H, a.W), (unsigned)chunk);
+      static_chain_kernel<T, FAST, MASKED, S>
+          <<<grid, kThreads, smem, stream>>>(
+              static_cast<const T*>(img), static_cast<T*>(out),
+              static_cast<const float*>(params),
+              static_cast<const float*>(mask),
+              static_cast<const int32_t*>(rows), i0, n_active, B, M, sig, a);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    return cudaSuccess;
+  });
 }
 
 template <typename T>
@@ -116,7 +119,8 @@ extern "C" {
 // img/out: [B, H, W, 3] u8 (is_u8) or f32, the whole batch; params:
 // [K, B, Pp] f32; mask: [K, B, M] f32 or null (masked == 0); rows: [n]
 // int32 image indices or null (slot i is image i, n <= B); signature: host
-// array of K branch codes.  Slots at or past n_active do nothing.
+// array of K branch codes.  Slots at or past n_active do nothing.  img and
+// out may have any 4-byte (f32) or byte (u8) alignment.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 int static_chain_launch(const void* img, void* out, const void* params,
                         const void* mask, const void* rows,

@@ -11,8 +11,9 @@
 // rows[i] (image i without `rows`) and writes out[row]; slots at or past
 // n_active do nothing.  An id outside [0, n_filters) is the identity.
 //
-// - f32: the branch math of chain_branches.cuh, shared with the dynamic and
-//   static kernels.
+// - f32: the core of chain_branches.cuh (branch math, per-step plan made in
+//   the prologue, 16-pixel runs with 16-byte I/O), shared with the dynamic
+//   and static kernels, so the modes agree bit for bit.
 // - bf16: r, g, b and the parameters are __nv_bfloat16.  Every add,
 //   subtract, multiply and divide is done in f32 with the _rn intrinsics
 //   (which nvcc never contracts into an FMA) and rounded to bf16 at once;
@@ -27,12 +28,13 @@
 // and out); bf16 does not move fewer bytes here, since pixels live in
 // registers between load and store.
 //
-// What this simple design does about it: the TPU's lax.switch ran every
+// What this design does about it: the TPU's lax.switch ran every
 // branch; on the card a switch on a block-uniform id is real control flow,
 // so each step costs only its own branch.  The grid is (pixel blocks,
-// slots); each block stages its row's K branch codes and K x (P + M)
-// parameters in shared memory, reading the plan's [K, B, P] layout
-// directly.  `rows` lets the grouped runner merge a few images of a batch
+// slots), reading the plan's [K, B, P] layout directly.  The f32 path's
+// prologue writes its row's K branch codes and per-step plans to shared
+// memory; the bf16 path, not yet redesigned, stages its row's K x (P + M)
+// parameters in bf16 and runs 4 pixels a thread with byte loads.  `rows` lets the grouped runner merge a few images of a batch
 // in one launch without gathering or scattering whole images.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -232,12 +234,35 @@ __device__ __forceinline__ void apply_branch_masked_bf(
 __device__ __forceinline__ bf load_bf(const uint8_t v) { return R(load_px(v)); }
 __device__ __forceinline__ bf load_bf(const float v) { return R(v); }
 
+__device__ __forceinline__ void store_px(uint8_t* dst, float x) {
+  *dst = quantize_px(x);
+}
+__device__ __forceinline__ void store_px(float* dst, float x) { *dst = x; }
+
+// The normalized centered mask grid at a pixel: x runs over rows and y
+// over columns (pallas_chain.py:515-522).
+__device__ __forceinline__ void mask_grid(long long pix, const ChainArgs& a,
+                                          float& gx, float& gy) {
+  const int row_i = (int)(pix / a.W);
+  const int col_j = (int)(pix - (long long)row_i * a.W);
+  gx = ((float)row_i + a.grid_off_h) / a.shorter - 0.5f;
+  gy = ((float)col_j + a.grid_off_w) / a.shorter - 0.5f;
+}
+
+constexpr int kPixelsPerThread = 4;   // the bf16 path's pixels a thread
+
+inline unsigned pixel_blocks(int H, int W) {
+  const long long hw = (long long)H * W;
+  const long long per_block = (long long)kThreads * kPixelsPerThread;
+  return (unsigned)((hw + per_block - 1) / per_block);
+}
+
 // ---------------------------------------------------------------------------
 // the kernels
 // ---------------------------------------------------------------------------
 
-// Stage slot i's branch codes and K x (P + M) parameters; false for a slot
-// at or past n_active.
+// Stage slot i's branch codes and K x (P + M) bf16 parameters (the bf16
+// path); returns the slot's image row.
 template <typename P>
 __device__ __forceinline__ int stage_row(
     const int32_t* __restrict__ ids, const float* __restrict__ params,
@@ -262,24 +287,30 @@ __device__ __forceinline__ int stage_row(
   return row;
 }
 
-template <typename T, bool FAST, bool MASKED>
-__global__ void __launch_bounds__(kThreads)
-switch_chain_f32(const T* __restrict__ img, T* __restrict__ out,
+template <typename T, bool FAST, bool MASKED, int S>
+__global__ void switch_chain_f32(const T* __restrict__ img, T* __restrict__ out,
                  const int32_t* __restrict__ ids,
                  const float* __restrict__ params,
                  const float* __restrict__ mask,
                  const int32_t* __restrict__ rows, int i0, int n_active,
-                 int B, int M, BranchTable table, ChainArgs a) {
+                 int B, int M, const __grid_constant__ BranchTable table,
+                 const __grid_constant__ ChainArgs a) {
   const int i = blockIdx.y + i0;
   if (i >= n_active) return;
-  extern __shared__ float smem[];
-  float* s_params = smem;
-  int* s_code = reinterpret_cast<int*>(smem + a.K * a.P);
-  const int row = stage_row(ids, params, mask, rows, i, B, M, table, a,
-                            s_params, s_code);
-  chain_pixels<T, FAST, MASKED>(img + image_offset(row, a),
-                                out + image_offset(row, a), s_code, s_params,
-                                a);
+  const int row = rows ? rows[i] : i;
+  const int pp = a.mask_offset;
+  chain_image<T, FAST, MASKED, S>(
+      img + image_offset(row, a), out + image_offset(row, a), a,
+      [&](int k, int* s_code, float* plan) {
+        const int id = ids[(size_t)k * B + row];
+        const int code = (id >= 0 && id < a.n_filters) ? (int)table.code[id]
+                                                       : (int)kIdentity;
+        s_code[k] = code;
+        plan_step<FAST, MASKED>(code, params + ((size_t)k * B + row) * pp,
+                                MASKED ? mask + ((size_t)k * B + row) * M
+                                       : nullptr,
+                                a, plan);
+      });
 }
 
 template <typename T, bool FAST, bool MASKED>
@@ -289,7 +320,8 @@ switch_chain_bf16(const T* __restrict__ img, T* __restrict__ out,
                   const float* __restrict__ params,
                   const float* __restrict__ mask,
                   const int32_t* __restrict__ rows, int i0, int n_active,
-                  int B, int M, BranchTable table, ChainArgs a) {
+                  int B, int M, const __grid_constant__ BranchTable table,
+                  const __grid_constant__ ChainArgs a) {
   const int i = blockIdx.y + i0;
   if (i >= n_active) return;
   extern __shared__ float smem[];
@@ -342,28 +374,46 @@ struct Launch {
   int n, n_active, B, M;
 };
 
-template <typename T, bool BF16, bool FAST, bool MASKED>
-cudaError_t launch(const Launch& l, const BranchTable& table,
-                   const ChainArgs& a, cudaStream_t stream) {
-  const size_t smem = (size_t)a.K * sizeof(int) +
-      (size_t)a.K * a.P * (BF16 ? sizeof(bf) : sizeof(float));
+// One launch per chunk of at most kMaxGridY slots, through `kernel(grid)`.
+template <typename K>
+cudaError_t launch_chunks(const Launch& l, unsigned blocks, const K& kernel) {
   const int n_run = l.n_active < l.n ? l.n_active : l.n;
   for (int i0 = 0; i0 < n_run; i0 += kMaxGridY) {
     const int chunk = n_run - i0 < kMaxGridY ? n_run - i0 : kMaxGridY;
-    const dim3 grid(pixel_blocks(a.H, a.W), (unsigned)chunk);
-    auto kernel = BF16 ? switch_chain_bf16<T, FAST, MASKED>
-                       : switch_chain_f32<T, FAST, MASKED>;
-    kernel<<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(l.img), static_cast<T*>(l.out),
-        static_cast<const int32_t*>(l.ids),
-        static_cast<const float*>(l.params),
-        static_cast<const float*>(l.mask),
-        static_cast<const int32_t*>(l.rows), i0, l.n_active, l.B, l.M, table,
-        a);
+    kernel(dim3(blocks, (unsigned)chunk), i0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+template <typename T, bool BF16, bool FAST, bool MASKED>
+cudaError_t launch(const Launch& l, const BranchTable& table,
+                   const ChainArgs& a, cudaStream_t stream) {
+  const T* img = static_cast<const T*>(l.img);
+  T* out = static_cast<T*>(l.out);
+  const int32_t* ids = static_cast<const int32_t*>(l.ids);
+  const float* params = static_cast<const float*>(l.params);
+  const float* mask = static_cast<const float*>(l.mask);
+  const int32_t* rows = static_cast<const int32_t*>(l.rows);
+  if constexpr (BF16) {
+    const size_t smem =
+        (size_t)a.K * sizeof(int) + (size_t)a.K * a.P * sizeof(bf);
+    return launch_chunks(l, pixel_blocks(a.H, a.W), [&](dim3 grid, int i0) {
+      switch_chain_bf16<T, FAST, MASKED><<<grid, kThreads, smem, stream>>>(
+          img, out, ids, params, mask, rows, i0, l.n_active, l.B, l.M, table,
+          a);
+    });
+  }
+  const size_t smem = plan_smem_bytes(a.K, a.curve_steps);
+  return with_curve_steps(a.curve_steps, [&](auto steps) {
+    constexpr int S = decltype(steps)::value;
+    return launch_chunks(l, chain_blocks(a.H, a.W), [&](dim3 grid, int i0) {
+      switch_chain_f32<T, FAST, MASKED, S><<<grid, kThreads, smem, stream>>>(
+          img, out, ids, params, mask, rows, i0, l.n_active, l.B, l.M, table,
+          a);
+    });
+  });
 }
 
 template <typename T, bool BF16>

@@ -27,6 +27,7 @@ import math
 import torch
 
 from exposure_tpu_torch.ops import fastmath as fm
+from exposure_tpu_torch.ops.filters import max_filter_parameters
 
 _c = fm.const
 
@@ -46,6 +47,107 @@ BRANCH_CODES = {
 IDENTITY_CODE = 10         # kIdentity
 MAX_FILTERS = 32           # kMaxFilters in the kernels
 MAX_STATIC_SMEM = 48 * 1024
+
+
+def plan_smem_bytes(num_steps, curve_steps):
+    """Shared memory of a chain kernel's block (``plan_smem_bytes`` in
+    ``csrc/chain_branches.cuh``): K branch codes and K per-step plans of
+    three curves (``curve_steps + 3`` floats each) and six mask scalars."""
+    return num_steps * 4 * (1 + 3 * (curve_steps + 3) + 6)
+
+
+def check_plan_smem(num_steps, filters):
+    """Raise when K steps' plans do not fit the kernel's shared memory."""
+    steps = int(filters[0].cfg.curve_steps)
+    if steps <= 0:
+        raise ValueError('curve_steps must be positive, got %d' % steps)
+    if plan_smem_bytes(num_steps, steps) > MAX_STATIC_SMEM:
+        raise ValueError('K = %d steps of %d-knot curves do not fit the '
+                         'kernel\'s shared memory' % (num_steps, steps))
+
+
+# Operations a pixel of each branch runs in one step (the per-pixel code
+# of csrc/chain_branches.cuh; the per-step plan, made once per block, is
+# not counted).  Convention: add, subtract, multiply, min, max, abs,
+# compare, select, divide and a conversion count 1, an FMA 2, a library
+# transcendental (expf, exp2f, log2f, powf, cospif) 1.
+def _curve_ops(fast, steps):
+    # max form: max, mul; (steps - 1) x (max, FMA); max, FMA; add, mul.
+    # clip form: steps x (sub, max, min, FMA); mul
+    return 3 * steps + 4 if fast else 5 * steps + 1
+
+
+def branch_ops(name, fast, steps):
+    """Operations one pixel of filter ``name``'s branch runs in one step
+    (a curve step is 3 curves of ``steps`` knots)."""
+    curve = 3 * _curve_ops(fast, steps)
+    return {
+        'ExposureFilter': 3,                      # 3 mul
+        'GammaFilter': 12 if fast else 6,         # max, log2f, mul, exp2f
+        'ImprovedWhiteBalanceFilter': 3,          # 3 mul
+        'SaturationPlusFilter': 49 if fast else 48,   # HSV round trip
+        'ToneFilter': curve,
+        'ContrastFilter': 32 if fast else 25,     # lum, half-cos, divide
+        'WNBFilter': 14,                          # lum, 3 x (sub, FMA)
+        'ColorFilter': curve,
+        'LevelFilter': 12,                        # 3 x (sub, mul, max, min)
+        'VignetFilter': 17,                       # its own mask (masked only)
+    }[name]
+
+
+MASK_BLEND_OPS = 30   # lum, the mask's input, sigmoid, strength, 3 blends
+MASK_GRID_OPS = 6     # a pixel's gx, gy: 2 x (add, divide, sub)
+U8_IO_OPS = 6         # a u8 value: convert, mul in; min, max, mul, round out
+
+# Operations a value of each probe op (csrc/probes.cu: K4a mono_probe, K4b
+# fastmath_probe, K4c bf16_probe) runs in one step, in the convention above
+# (a bit operation counts 1 too).
+PROBE_OPS = {
+    'mono_probe': {'copy': 0, 'E': 1, 'G': 2},
+    'fastmath_probe': {
+        'copy': 0, 'pow_builtin': 2, 'pow_fast': 36, 'pow_exp2log2': 4,
+        'pow_explog': 4, 'cos_builtin': 6, 'cos_fast': 13, 'div_builtin': 2,
+        'div_fast': 12, 'curve_clip': 41, 'curve_relu': 28},
+    'bf16_probe': {'mul': 1, 'pow': 2, 'cos': 16, 'curve': 28},
+}
+
+
+def probe_cost(kernel, op, steps, n):
+    """``{'flops', 'bytes'}`` of probe ``kernel``'s op ``op`` run ``steps``
+    times on ``n`` u8 values: each value read and written once, its
+    ``PROBE_OPS`` per step and its u8 conversions."""
+    return {'flops': n * (steps * PROBE_OPS[kernel][op] + U8_IO_OPS),
+            'bytes': 2 * n}
+
+
+def chain_cost(ids, filters, h, w, dtype, fast, masked):
+    """``{'flops', 'bytes'}`` that a chain over these inputs needs.
+
+    ``ids``: the [K, n] filter ids of the n images replayed (any id outside
+    the bank, or an inactive step folded to one, is the identity and costs
+    nothing); ``dtype``: the image type, uint8 or float32.  Bytes count
+    each input read once (images, ids, the [K, n, P] parameters and, when
+    masking, 6 mask parameters a step) and each output written once;
+    operations are ``branch_ops`` per pixel of each step the ids run, the
+    mask blend and grid when masking, and the u8 conversions."""
+    ids = torch.as_tensor(ids).to(torch.int64).cpu()
+    k, n = ids.shape
+    steps = int(filters[0].cfg.curve_steps)
+    uses = torch.bincount(ids[(ids >= 0) & (ids < len(filters))].flatten(),
+                          minlength=len(filters)).tolist()
+    ops = 0   # a pixel's operations, summed over every image's steps
+    for f, used in zip(filters, uses):
+        name = type(f).__name__
+        ops += used * (branch_ops(name, fast, steps) + (
+            MASK_BLEND_OPS if masked and name != 'VignetFilter' else 0))
+    pixels = h * w
+    item = torch.empty((), dtype=dtype).element_size()
+    flops = ops * pixels + n * pixels * (
+        (MASK_GRID_OPS if masked else 0) +
+        (3 * U8_IO_OPS if dtype == torch.uint8 else 0))
+    p = max_filter_parameters(filters) + (6 if masked else 0)
+    nbytes = 2 * n * pixels * 3 * item + k * n * 4 + k * n * p * 4
+    return {'flops': int(flops), 'bytes': int(nbytes)}
 
 
 def _lum(r, g, b):
@@ -475,9 +577,7 @@ def apply_filter_chain_dynamic(img, filter_ids, packed_params, filters,
     codes = branch_codes(filters)
     if masking and width - packed_params.shape[-1] < 6:
         raise ValueError('the kernel reads 6 mask parameters per step')
-    if num_steps * (width + 1) * 4 > MAX_STATIC_SMEM:
-        raise ValueError('K x P too large for the kernel: %d x %d'
-                         % (num_steps, width))
+    check_plan_smem(num_steps, filters)
     out = torch.empty_like(img)
     from exposure_tpu_torch.kernels import dyn_chain_library
     lib = dyn_chain_library()

@@ -283,13 +283,14 @@ class GroupedChainRunner:
 
     # -- warm-up ---------------------------------------------------------
     def warmup(self, budget, img_shape, dtype, num_steps, max_p, mask_p=1,
-               merge_sizes=(), device='cpu'):
+               merge_sizes=(), device='cuda'):
         """Run each route a declared traffic budget will take once, on
         padded-only rows (``n_active`` 0, so no kernel is launched): one
         K3 call per (signature, bucket) pair and one K2 call per merge
         size.  Nothing is compiled per route; this builds and loads the
         kernel libraries ahead of traffic.  Returns the number of
-        distinct routes run."""
+        distinct routes run.  ``device``: where traffic will run, the
+        card unless the caller asks for the CPU."""
         img, params, mask, ids = self._zeros(img_shape, dtype, num_steps,
                                              max_p, mask_p, device)
         out = torch.empty_like(img)
@@ -306,7 +307,7 @@ class GroupedChainRunner:
         return len(routes)
 
     def warmup_superset(self, layout, img_shape, dtype, num_steps, max_p,
-                        mask_p=1, merge_sizes=(), device='cpu'):
+                        mask_p=1, merge_sizes=(), device='cuda'):
         """Run the frozen layout's slots and the leftover merges once on
         padded-only rows.  Returns the number of routes run: one for the
         layout, one per merge size."""

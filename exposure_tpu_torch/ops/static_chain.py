@@ -18,8 +18,8 @@ import torch
 from exposure_tpu_torch.ops.dyn_chain import (
     BRANCH_CODES,
     IDENTITY_CODE,
-    MAX_STATIC_SMEM,
     check_image,
+    check_plan_smem,
     check_params,
     check_rows,
     from_planes,
@@ -127,9 +127,7 @@ def apply_filter_chain_static(img, signature, packed_params, filters,
     batch, h, w = img.shape[0], img.shape[1], img.shape[2]
     pp = packed_params.shape[-1]
     m = mask_params.shape[-1] if masking else 0
-    if num_steps * (pp + m + 1) * 4 > MAX_STATIC_SMEM:
-        raise ValueError('K x P too large for the kernel: %d x %d'
-                         % (num_steps, pp + m))
+    check_plan_smem(num_steps, filters)
     params = packed_params.contiguous()
     mask = mask_params.contiguous() if masking else None
     rows_i32 = rows.to(torch.int32).contiguous() if rows is not None \

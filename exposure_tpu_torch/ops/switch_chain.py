@@ -17,6 +17,7 @@ from exposure_tpu_torch.ops.dyn_chain import (
     MAX_STATIC_SMEM,
     branch_codes,
     check_inputs,
+    check_plan_smem,
     check_rows,
     fold_active,
     from_planes,
@@ -127,9 +128,13 @@ def apply_filter_chain_switch(img, filter_ids, packed_params, filters,
     num_steps, batch = filter_ids.shape
     pp = packed_params.shape[-1]
     m = mask_params.shape[-1] if masking else 0
-    if num_steps * (pp + m + 1) * 4 > MAX_STATIC_SMEM:
-        raise ValueError('K x P too large for the kernel: %d x %d'
-                         % (num_steps, pp + m))
+    if compute_dtype == torch.bfloat16:
+        # the bf16 path stages K codes and K x P bf16 parameters
+        if num_steps * (4 + 2 * (pp + m)) > MAX_STATIC_SMEM:
+            raise ValueError('K x P too large for the kernel: %d x %d'
+                             % (num_steps, pp + m))
+    else:
+        check_plan_smem(num_steps, filters)
     ids = fold_active(filter_ids, active_steps, len(filters)) \
         .to(torch.int32).contiguous()
     params = packed_params.contiguous()

@@ -27,6 +27,25 @@ import time
 
 import torch
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W
+# limit): HBM bandwidth and float32 outside the tensor cores (an FMA is 2
+# operations).  A chain kernel's work has no matrix product, so the tensor
+# cores' rates do not apply.
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
+
+
+def bound_ms(flops, nbytes):
+    """``(ms, by)``: the least time an H100 could take for work of
+    ``flops`` float32 operations that moves ``nbytes`` (each input read once,
+    each output written once), the larger of the two times, and which of
+    ``'bytes'`` and ``'operations'`` sets it."""
+    t_bytes = nbytes / H100_BYTES_PER_S
+    t_ops = flops / H100_F32_OPS_PER_S
+    if t_ops > t_bytes:
+        return t_ops * 1e3, 'operations'
+    return t_bytes * 1e3, 'bytes'
+
 
 def median_seconds(fn, device, runs=7, warmup=2):
     """Median seconds of ``fn()`` over ``runs`` calls after ``warmup``:

@@ -7,7 +7,7 @@ Each op of ``OPS`` runs as K4b (``csrc/probes.cu``): 5 steps of the op on
 every value of a [B, 3, 512, 512] u8 batch.  The kernel's ops call the
 device functions the chain kernels run (``csrc/chain_branches.cuh``,
 ``csrc/fastmath.cuh``), and are built without ``--use_fast_math``: the
-"builtin" rows are the CUDA library's ``powf``, ``cosf``, IEEE divide,
+"builtin" rows are the CUDA library's ``powf``, ``cospif``, IEEE divide,
 ``exp2f(g * log2f(x))`` and ``expf(g * logf(x))``.  ``OPS`` below is the
 plain PyTorch version of each op.
 

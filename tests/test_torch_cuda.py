@@ -22,8 +22,13 @@ plain version, to at most 1e-3 of the values off by more than 1 LSB:
 both round after every operation, but their f32 exp, pow and cos may
 differ in the last bit, which moves a bf16 rounding now and then.
 
+The chain kernels' edges: the generic knot count, image bases that are not
+16-byte aligned (odd shapes, a storage offset), ragged runs, the masked
+bank with every branch, K3's shuffled rows below ``n_active``, and K1, K2
+and K3 equal bit for bit on one trajectory.
+
 The probes: K4a, K4b and K4c in f32 within 1 LSB of their plain versions
-(the CUDA library's powf, cosf, expf and logf may differ from torch's in the
+(the CUDA library's powf, cospif, expf and logf may differ from torch's in the
 last bit), K4c in bf16 with at most 1e-3 of the values more than 1 LSB
 apart, and its bf16_cast and bf16_splat styles equal bit for bit."""
 
@@ -271,6 +276,149 @@ def test_static_chain_matches_plain(cuda_device, config, fast, dtype):
         n_active=3)
     torch.cuda.synchronize()
     assert _outlier_fraction(got[:3], want[:3]) <= 1e-4
+
+
+# The edges of the chain kernels' design (csrc/chain_branches.cuh): the
+# generic knot count, image bases that are not 16-byte aligned, ragged runs,
+# the masked bank, K3's shuffled rows, and one copy of the math.
+
+def _chains(img, ids, params, filters, **kw):
+    """K1, K2-f32 and K3 (on the signature of image 0, which ``ids`` must
+    give every image) of one trajectory, each against its plain version."""
+    sig = tuple(int(x) for x in ids[:, 0].tolist())
+    runs = (
+        (apply_filter_chain_dynamic, apply_filter_chain_dynamic_reference,
+         (ids,)),
+        (apply_filter_chain_switch, apply_filter_chain_switch_reference,
+         (ids,)),
+        (apply_filter_chain_static, apply_filter_chain_static_reference,
+         (sig,)))
+    outs = []
+    for run, plain, lead in runs:
+        before = run.launches
+        got = run(img, *lead, params, filters, **kw)
+        assert run.launches == before + 1
+        want = plain(img, *lead, params, filters, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == img.dtype and got.shape == img.shape
+        assert _outlier_fraction(got, want) <= 1e-4, run.__name__
+        outs.append(got)
+    return outs
+
+
+def _one_signature(rng, filters, k, b, device):
+    sig = rng.randint(0, len(filters) + 1, k).astype(np.int32)
+    return torch.from_numpy(np.repeat(sig[:, None], b, axis=1)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('config', ['synthetic_explore', 'masked'])
+@pytest.mark.parametrize('fast', [False, True], ids=['exact', 'fast'])
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_generic_curve_steps(cuda_device, config, fast, dtype):
+    """A knot count other than 8 runs the generic instantiation (S = 0);
+    every step is a curve (T or C)."""
+    cfg = load_config(config)
+    cfg.curve_steps = 5
+    filters = build_filters(cfg)
+    names = [type(f).__name__ for f in filters]
+    rng = np.random.RandomState(6)
+    _, img, _, params, mask = _case(rng, config, dtype, cuda_device)
+    curves = [names.index('ToneFilter'), names.index('ColorFilter')]
+    ids = torch.from_numpy(np.repeat(np.array(
+        curves * 2 + curves[:1], np.int32)[:, None], 4, axis=1)).to(
+            cuda_device)
+    _chains(img, ids, params, filters, mask_params=mask, fast_math=fast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('config', ['synthetic_explore', 'masked'])
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_unaligned_image_bases(cuda_device, config, dtype):
+    """67x131 images (u8: each image's base at another offset mod 16) and
+    a batch sliced off a larger one (a storage offset: input and output
+    aligned differently, so every run takes the scalar path): the kernels
+    hold to their plain versions and give the slice the bits they give
+    the whole."""
+    rng = np.random.RandomState(7)
+    filters, img, _, params, mask = _case(rng, config, dtype, cuda_device,
+                                          b=5)
+    ids = _one_signature(rng, filters, 5, 5, cuda_device)
+    kw = dict(mask_params=mask, fast_math=True)
+    whole = _chains(img, ids, params, filters, **kw)
+    sub = img[1:]
+    assert sub.is_contiguous() and sub.storage_offset() > 0
+    part = _chains(sub, ids[:, 1:].contiguous(), params[:, 1:].contiguous(),
+                   filters, mask_params=None if mask is None else
+                   mask[:, 1:].contiguous(), fast_math=True)
+    for w, p in zip(whole, part):
+        assert torch.equal(w[1:], p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hw', [(1, 1), (3, 5), (5, 7), (4, 4), (7, 9)],
+                         ids=lambda s: '%dx%d' % s)
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_ragged_pixel_runs(cuda_device, hw, dtype):
+    """Images smaller than a run of 16 pixels, or with a ragged last run."""
+    rng = np.random.RandomState(8)
+    filters, img, _, params, _ = _case(rng, 'synthetic_explore', dtype,
+                                       cuda_device, b=3, h=hw[0], w=hw[1])
+    ids = _one_signature(rng, filters, 5, 3, cuda_device)
+    _chains(img, ids, params, filters, fast_math=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fast', [False, True], ids=['exact', 'fast'])
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_masked_bank_every_branch(cuda_device, fast, dtype):
+    """The masked bank with every filter, the vignette included, in one
+    trajectory on an odd shape."""
+    rng = np.random.RandomState(9)
+    k = len(build_filters(load_config('masked')))
+    filters, img, _, params, mask = _case(rng, 'masked', dtype, cuda_device,
+                                          b=2, k=k, h=45, w=77)
+    ids = torch.arange(k, dtype=torch.int32, device=cuda_device)
+    _chains(img, ids[:, None].repeat(1, 2).contiguous(), params, filters,
+            mask_params=mask, fast_math=fast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_static_chain_shuffled_rows(cuda_device, dtype):
+    """K3 with ``rows`` in a shuffled order and ``n_active`` below the slot
+    count: each active slot writes its own image, the others stay."""
+    rng = np.random.RandomState(10)
+    filters, img, _, params, _ = _case(rng, 'synthetic_explore', dtype,
+                                       cuda_device, b=9)
+    sig = tuple(int(x) for x in rng.randint(0, len(filters), 5))
+    rows = torch.from_numpy(rng.permutation(9)[:7].astype(np.int32)).to(
+        cuda_device)
+    out = torch.zeros_like(img)
+    apply_filter_chain_static(img, sig, params, filters, fast_math=True,
+                              rows=rows, out=out, n_active=5)
+    want = apply_filter_chain_static_reference(
+        img, sig, params, filters, fast_math=True, rows=rows,
+        out=torch.zeros_like(img), n_active=5)
+    torch.cuda.synchronize()
+    assert _outlier_fraction(out, want) <= 1e-4
+    idle = sorted(set(range(9)) - set(rows[:5].tolist()))
+    assert not out[idle].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('config', ['synthetic_explore', 'masked'])
+@pytest.mark.parametrize('fast', [False, True], ids=['exact', 'fast'])
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_k1_k2_k3_agree_bit_for_bit(cuda_device, config, fast, dtype):
+    """One trajectory through K1, K2-f32 and K3: one copy of the math, so
+    the three outputs are equal."""
+    rng = np.random.RandomState(11)
+    filters, img, _, params, mask = _case(rng, config, dtype, cuda_device)
+    ids = _one_signature(rng, filters, 5, 4, cuda_device)
+    k1, k2, k3 = _chains(img, ids, params, filters, mask_params=mask,
+                         fast_math=fast)
+    assert torch.equal(k1, k2) and torch.equal(k1, k3)
 
 
 # [B, H, W] of the probe inputs: 16-byte chunks only, and a ragged end

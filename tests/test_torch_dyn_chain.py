@@ -188,3 +188,81 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rng):
     with pytest.raises(ValueError):   # masking needs mask_params
         apply_filter_chain_dynamic(torch.zeros((1, 8, 8, 3)), ids, params,
                                    mf)
+
+
+# chain_cost: the bound's inputs.  synthetic_explore bank (8 filters, 24
+# parameters a row), K=3 steps on n=2 images of 4x8 pixels; id 8 is the
+# identity.  u8 conversions cost 3 x 6 operations a pixel.
+_COST_CASES = {
+    'identity': ([[8, 8], [8, 8], [8, 8]], False, 0),
+    'one_exposure_step': ([[0, 0], [8, 8], [8, 8]], False, 2 * 3),
+    'one_tone_step_fast': ([[8, 8], [4, 4], [8, 8]], True,
+                           2 * 3 * (3 * 8 + 4)),
+    'one_tone_step_exact': ([[8, 8], [4, 4], [8, 8]], False,
+                            2 * 3 * (5 * 8 + 1)),
+    # image 0: E, G, T; image 1: identity, S+, C (fast set)
+    'mixed_fast': ([[0, 8], [1, 3], [4, 7]], True,
+                   3 + 12 + 84 + 49 + 84),
+}
+
+
+@pytest.mark.parametrize('case', sorted(_COST_CASES))
+@pytest.mark.parametrize('dtype', ['uint8', 'float32'])
+def test_chain_cost(case, dtype):
+    from exposure_tpu_torch.ops.dyn_chain import chain_cost
+    ids, fast, ops_per_pixel = _COST_CASES[case]
+    tf = build_filters(t_load_config('synthetic_explore'))
+    tdt = getattr(torch, dtype)
+    cost = chain_cost(torch.tensor(ids, dtype=torch.int32), tf, 4, 8, tdt,
+                      fast, False)
+    pixels, item = 32, (1 if dtype == 'uint8' else 4)
+    io = 2 * pixels * 3 * 6 if dtype == 'uint8' else 0
+    assert cost['flops'] == ops_per_pixel * pixels + io
+    # images in and out, [3, 2] int32 ids, [3, 2, 24] f32 params
+    assert cost['bytes'] == 2 * 2 * pixels * 3 * item + 3 * 2 * 4 + \
+        3 * 2 * 24 * 4
+
+
+def test_chain_cost_masked():
+    """Each masked step adds the mask blend (30 operations a pixel, the
+    vignette excepted), and each pixel its grid position (6)."""
+    from exposure_tpu_torch.ops.dyn_chain import chain_cost
+    mf = build_filters(t_load_config('masked'))
+    names = [type(f).__name__ for f in mf]
+    ids = torch.tensor([[names.index('ExposureFilter')],
+                        [names.index('VignetFilter')]], dtype=torch.int32)
+    cost = chain_cost(ids, mf, 2, 2, torch.float32, True, True)
+    assert cost['flops'] == 4 * ((3 + 30) + 17 + 6)
+    assert cost['bytes'] == 2 * 4 * 3 * 4 + 2 * 4 + 2 * (24 + 6) * 4
+
+
+@pytest.mark.parametrize('kernel,tool,ops', [
+    ('mono_probe', 'bench_kernel_probe', 'MONO_OPS'),
+    ('fastmath_probe', 'bench_fastmath', 'OPS'),
+    ('bf16_probe', 'bench_bf16_probe', 'OPS'),
+])
+def test_probe_cost(kernel, tool, ops):
+    """Every op of a probe tool has its count; a u8 value costs the op's
+    count each step and its conversions, and moves 2 bytes."""
+    import importlib
+    from exposure_tpu_torch.ops.dyn_chain import PROBE_OPS, probe_cost
+    names = getattr(importlib.import_module(
+        'exposure_tpu_torch.tools.' + tool), ops)
+    assert set(PROBE_OPS[kernel]) == set(names)
+    for op, per_step in PROBE_OPS[kernel].items():
+        assert probe_cost(kernel, op, 5, 10) == {
+            'flops': 10 * (5 * per_step + 6), 'bytes': 20}
+
+
+def test_plan_shared_memory_bound():
+    """The kernels' per-step plans live in 48 KiB of shared memory: 32 steps
+    of 8-knot curves fit, 400 do not, and the wrapper says so before any
+    device is touched."""
+    from exposure_tpu_torch.ops.dyn_chain import (
+        MAX_STATIC_SMEM, check_plan_smem, plan_smem_bytes)
+    tf = build_filters(t_load_config('synthetic_explore'))
+    assert plan_smem_bytes(5, 8) == 5 * 4 * (1 + 33 + 6)
+    check_plan_smem(32, tf)
+    assert plan_smem_bytes(400, 8) > MAX_STATIC_SMEM
+    with pytest.raises(ValueError, match='shared memory'):
+        check_plan_smem(400, tf)

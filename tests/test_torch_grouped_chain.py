@@ -341,10 +341,11 @@ def test_warmup_superset(rng):
     runner = GroupedChainRunner(tf)
     layout = ((sig_a, 8), (sig_b, 8))
     n = runner.warmup_superset(layout, (12, 64, 128, 3), torch.float32, k,
-                               max_filter_parameters(jf), merge_sizes=(8,))
+                               max_filter_parameters(jf), merge_sizes=(8,),
+                               device='cpu')
     assert n == 2   # the layout + one merge
     assert runner.warmup([(sig_a, 8)], (12, 64, 128, 3), torch.float32, k,
-                         max_filter_parameters(jf)) == 1
+                         max_filter_parameters(jf), device='cpu') == 1
     cols = [sig_a] * 7 + [sig_b] * 3 + [(1, 1, 0)] * 2
     ids = np.asarray(cols, np.int32).T
     img = _image(rng, 12, 64, 128, 'float32')

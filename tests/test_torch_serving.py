@@ -214,7 +214,7 @@ def test_pipeline_matches_jax(models, dtype):
                       use_pallas=True, interpret=True, dynamic=True,
                       selected_plan=True)
     want = np.asarray(jpipe(imgs, seed=3))
-    tpipe = TPipeline(m.tcfg, m.policy, use_kernels=True)
+    tpipe = TPipeline(m.tcfg, m.policy, use_kernels=True, device='cpu')
     assert tpipe.dynamic and tpipe.selected_plan
     got = tpipe(imgs, seed=3)
     assert got.dtype == torch.from_numpy(imgs).dtype
@@ -242,7 +242,7 @@ def test_pipeline_matches_jax(models, dtype):
 def test_map_batches_is_the_per_batch_call():
     cfg = t_load_config('test')   # dropout on: keep 0.5
     torch.manual_seed(0)
-    pipe = TPipeline(cfg, build_policy(cfg, build_filters(cfg)))
+    pipe = TPipeline(cfg, build_policy(cfg, build_filters(cfg)), device='cpu')
     rng = np.random.RandomState(4)
     batches = [(rng.rand(2, 64, 64, 3) * 255).astype(np.uint8)
                for _ in range(2)]
@@ -252,6 +252,29 @@ def test_map_batches_is_the_per_batch_call():
         assert o.dtype == torch.uint8 and o.shape == b.shape
         assert torch.equal(o, pipe(b, 5, i))
     assert torch.equal(outs[0], pipe(batches[0], seed=5))
+
+
+def test_pipeline_defaults_to_the_card(monkeypatch):
+    """Serving runs on the card unless the caller asks for the CPU: every
+    entry point defaults to 'cuda', and without a GPU a pipeline built
+    with the default raises instead of serving on the host."""
+    import inspect
+    from exposure_tpu_torch.ops.grouped_chain import GroupedChainRunner
+    for fn in (TPipeline.__init__, TPipeline.from_artifact,
+               GroupedChainRunner.warmup, GroupedChainRunner.warmup_superset):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    cfg = t_load_config('test')
+    policy = build_policy(cfg, build_filters(cfg))
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        TPipeline(cfg, policy)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        TPipeline.from_artifact('synthetic_explore', os.path.join(
+            REPO, 'artifacts', 'serving',
+            'synthetic_explore--best.msgpack.gz'))
+    assert next(policy.parameters()).device.type == 'cpu'
+    pipe = TPipeline(cfg, policy, device='cpu')
+    assert pipe.device.type == 'cpu' and not pipe.use_kernels
 
 
 def test_port_imports_without_jax_or_flax():

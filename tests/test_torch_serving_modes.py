@@ -109,7 +109,7 @@ def jax_switch_out(models):
 def test_mode_matches_jax_switch_pipeline(models, jax_switch_out, mode):
     imgs, want, j_ids = jax_switch_out
     pipe = TPipeline(models.tcfg, models.policy, use_kernels=True,
-                     **MODES[mode])
+                     **MODES[mode], device='cpu')
     with torch.no_grad():
         t_ids = pipe.plan(pipe.proxy(torch.from_numpy(imgs)), None)[0]
     if mode == 'grouped_superset':
@@ -132,7 +132,7 @@ def test_branchless_matches_jax_no_kernel_pipeline(models):
     imgs = _images(6)
     want = np.asarray(JPipeline(models.jcfg, models.state,
                                 use_pallas=False)(imgs, seed=0))
-    pipe = TPipeline(models.tcfg, models.policy)
+    pipe = TPipeline(models.tcfg, models.policy, device='cpu')
     assert not (pipe.dynamic or pipe.grouped or pipe.use_kernels)
     got = pipe(imgs).numpy()
     with torch.no_grad():
@@ -150,7 +150,8 @@ def test_masked_serving(models):
     want = np.asarray(JPipeline(m.jcfg, m.state, use_pallas=False)(imgs))
     j_ids = _j_bank_ids(m, imgs)
     for kw in MODES.values():
-        pipe = TPipeline(m.tcfg, m.policy, use_kernels=True, **kw)
+        pipe = TPipeline(m.tcfg, m.policy, use_kernels=True, **kw,
+                         device='cpu')
         assert pipe.masking
         got = pipe(imgs).numpy()
         with torch.no_grad():
@@ -165,7 +166,7 @@ def test_bf16_plan(models):
     for kw in (dict(), dict(dynamic=True, selected_plan=False),
                dict(grouped=True)):
         pipe = TPipeline(models.tcfg, models.policy, use_kernels=True,
-                         bf16=True, **kw)
+                         bf16=True, **kw, device='cpu')
         out = pipe(imgs)
         assert out.dtype == torch.uint8 and out.shape == imgs.shape
         f32 = torch.from_numpy(imgs).float() / 255
@@ -177,14 +178,16 @@ def test_bf16_plan(models):
 
 def test_mode_resolution(models):
     m = models
-    assert TPipeline(m.tcfg, m.policy, use_kernels=True).dynamic
-    p = TPipeline(m.tcfg, m.policy, use_kernels=True, auto_superset=True)
+    assert TPipeline(m.tcfg, m.policy, use_kernels=True, device='cpu').dynamic
+    p = TPipeline(m.tcfg, m.policy, use_kernels=True, auto_superset=True,
+                  device='cpu')
     assert p.grouped and not p.dynamic and p._ss_auto
-    p = TPipeline(m.tcfg, m.policy, use_kernels=True, grouped=False)
+    p = TPipeline(m.tcfg, m.policy, use_kernels=True, grouped=False,
+                  device='cpu')
     assert p.dynamic and p.selected_plan
-    assert not TPipeline(m.tcfg, m.policy, grouped=True).grouped
+    assert not TPipeline(m.tcfg, m.policy, grouped=True, device='cpu').grouped
     with pytest.raises(ValueError, match='exclusive'):
-        TPipeline(m.tcfg, m.policy, dynamic=True, grouped=True)
+        TPipeline(m.tcfg, m.policy, dynamic=True, grouped=True, device='cpu')
 
 
 def _dropout_pipe(**kw):
@@ -192,7 +195,7 @@ def _dropout_pipe(**kw):
     cfg = t_load_config('test')
     torch.manual_seed(0)
     return TPipeline(cfg, build_policy(cfg, build_filters(cfg)),
-                     use_kernels=True, **kw)
+                     use_kernels=True, **kw, device='cpu')
 
 
 def test_map_batches_depth_invariant_and_per_batch():
@@ -223,7 +226,7 @@ def test_auto_superset_record_freeze_drift_logic(models):
     pipe = TPipeline(models.tcfg, models.policy, use_kernels=True,
                      grouped=True, fused_set_limit=0, auto_superset=True,
                      auto_record_batches=2, auto_drift_window=3,
-                     auto_drift_threshold=0.25)
+                     auto_drift_threshold=0.25, device='cpu')
     assert pipe._ss_auto
     k, b = models.tcfg.test_steps, 16
     ids_a = np.zeros((k, b), np.int32)
@@ -274,7 +277,7 @@ def test_warmup_superset_and_auto_stream(models):
     stream."""
     imgs = torch.from_numpy(_images(30, b=16))
     pipe = TPipeline(models.tcfg, models.policy, use_kernels=True,
-                     grouped=True, fused_set_limit=0)
+                     grouped=True, fused_set_limit=0, device='cpu')
     rep = pipe.warmup(imgs, probe_batches=2, seed=0, superset=True)
     assert rep['kind'] == 'grouped' and rep['superset'] is True
     for key in ('batch_shape', 'dtype', 'probe_batches', 'budget',
@@ -289,14 +292,14 @@ def test_warmup_superset_and_auto_stream(models):
     out = pipe.replay(imgs, ids, params, mask)
     assert pipe._runner.last_route['route'] == 'superset'
     plain = TPipeline(models.tcfg, models.policy, use_kernels=True,
-                      grouped=True, fused_set_limit=0)
+                      grouped=True, fused_set_limit=0, device='cpu')
     want = plain.replay(imgs, ids, params, mask)
     assert plain._runner.last_route['route'] == 'accumulate'
     assert torch.equal(out, want)
 
     auto = TPipeline(models.tcfg, models.policy, use_kernels=True,
                      grouped=True, fused_set_limit=0, auto_superset=True,
-                     auto_record_batches=2)
+                     auto_record_batches=2, device='cpu')
     outs_a = list(auto.map_batches([imgs] * 4, seed=0, depth=2))
     outs_p = list(plain.map_batches([imgs] * 4, seed=0, depth=2))
     assert auto._superset_layout is not None and auto._ss_refreezes == 0
@@ -308,20 +311,22 @@ def test_warmup_reports_and_warmed_replay(models):
     m = models
     imgs = torch.from_numpy(_images(40, b=16))
     pipe = TPipeline(m.tcfg, m.policy, use_kernels=True, grouped=True,
-                     fused_set_limit=0)
+                     fused_set_limit=0, device='cpu')
     rep = pipe.warmup(imgs, probe_batches=2, seed=0)
     assert rep['kind'] == 'grouped' and rep['programs_compiled'] >= 1
     cold = TPipeline(m.tcfg, m.policy, use_kernels=True, grouped=True,
-                     fused_set_limit=0)
+                     fused_set_limit=0, device='cpu')
     ids, params, mask = _planted(pipe, imgs)
     assert torch.equal(pipe.replay(imgs, ids, params, mask),
                        cold.replay(imgs, ids, params, mask))
     sig = tuple([0] * m.tcfg.test_steps)
     rep = TPipeline(m.tcfg, m.policy, use_kernels=True, grouped=True,
-                    fused_set_limit=0).warmup(imgs[:4], budget=[(sig, 8)])
+                    fused_set_limit=0, device='cpu').warmup(
+        imgs[:4], budget=[(sig, 8)])
     assert rep['probe_batches'] == 0 and rep['programs_compiled'] == 1
-    rep_d = TPipeline(m.tcfg, m.policy, use_kernels=True).warmup(imgs[:4])
+    rep_d = TPipeline(m.tcfg, m.policy, use_kernels=True,
+                      device='cpu').warmup(imgs[:4])
     assert rep_d['kind'] == 'dynamic' and rep_d['programs_compiled'] == 1
     rep_s = TPipeline(m.tcfg, m.policy, use_kernels=True, dynamic=False,
-                      grouped=False).warmup(imgs[:4])
+                      grouped=False, device='cpu').warmup(imgs[:4])
     assert rep_s['kind'] == 'switch' and rep_s['programs_compiled'] == 1
