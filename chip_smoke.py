@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``exposure_tpu_torch``) once on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --turns PARENT_CHECKOUT   # A/B of the serving path
+    python3 chip_smoke.py --turns PARENT_CHECKOUT   # A/B of two checkouts
+    python3 chip_smoke.py --turns PARENT_CHECKOUT --kernels   # kernels alone
 
 Phases, one line or a few each (a failing phase exits non-zero):
 
@@ -11,13 +12,18 @@ Phases, one line or a few each (a failing phase exits non-zero):
 2. build: compile the four CUDA kernel libraries from
    ``exposure_tpu_torch/csrc`` (the three chain kernels and the probes) at
    once, one nvcc each; each chain kernel variant's registers, stack frame
-   and spills from ptxas, the probes' ptxas lines;
+   and spills from ptxas (K2's bf16 variants too), the probes' ptxas lines;
+   then bf16_ops: the packed bf16 operations that K2's bf16 path and K4c run
+   (``csrc/fastmath.cuh``) against their scalar f32-then-round forms over all
+   2^32 pairs of operands, with the counts of differing results printed (any
+   in an operation a kernel runs fails the run);
 3. K1: the dynamic filter-chain kernel against its plain PyTorch version
    over the chain cases of the JAX package's kernel checks (f32 and u8,
    odd shapes, inactive steps, the all-identity trajectory, exact and fast
    branch sets, the masked bank) and at the two shapes the serving path
-   gives it, where it also times the kernel (median of 7 runs after
-   warm-up) and the plain version (median of 5) with CUDA events;
+   gives it, where it also times the kernel (median of 7 timings of 4
+   calls back to back, after warm-up) and the plain version (median of 5
+   calls) with CUDA events;
 4. K2: the switch-chain kernel against its plain version over the same
    kinds of case plus ``rows`` with ``n_active`` below the slot count, in
    f32 and in bf16, timed at [512, 512, 512, 3] u8 K=5 in both;
@@ -70,12 +76,20 @@ beside its plain version's, its H100 bound (``ops/dyn_chain.py::chain_cost``
 for the chains, ``probe_cost`` for the probes; ``tools.bound_ms``) and the
 time of the PyTorch call that computes the same function, where one does
 (``Tensor.copy_`` for the probes' 0-step copy; no single call computes a
-filter chain).  The last line is ``{"ok": true, "device": {...}}``.
+filter chain); K2's bf16 kernel has an entry of its own, and each probe
+entry lists its timed cases one by one under ``cases``.  The last line is
+``{"ok": true, "device": {...}}``.
 
 ``--turns PARENT`` runs the main path and the five modes of another
 checkout (``PARENT``, e.g. ``git archive`` of the parent commit) and of
 this one in turns, parent, change, change, parent, and compares the two
-trees' main-path outputs value by value.
+trees' main-path outputs value by value, and their kernels' outputs: one
+step of every branch of both banks through K1 and through K2 in bf16, K2 in
+f32 and bf16 on every case of phase 4, and every probe case.  A kernel
+output with a value that differs from the parent's fails the run, unless
+``TURNS_MAY_DIFFER`` names it.  Each turn also times every kernel, so the two
+trees' kernel times come from one card.
+``--kernels`` leaves the served path out (one turn a tree).
 """
 
 import json
@@ -118,6 +132,12 @@ PROBE_SIZES = {'small': (2, 64, 64), 'odd': (3, 37, 53)}
 PROBE_BATCH, BF16_PROBE_BATCH, BF16_PROBE_STEPS = 256, 64, 8
 PROBE_ITERS = 7      # bench_kernel_probe's timed calls (its CLI default: 20)
 PLAIN_RUNS = 3       # timed runs of the probes' plain versions
+KERNEL_CALLS = 4     # calls back to back in a timing (a kernel's, and
+                     # Tensor.copy_'s beside it): device time
+# kernel outputs of --turns (names of _kernel_outputs, by prefix) that a
+# deliberate change of the numbers lets differ from the parent's; any other
+# differing value fails the turns
+TURNS_MAY_DIFFER = ()
 # K4c in bf16 against its plain version, as K2-bf16
 PROBE_BF16_FRAC = 1e-3
 CHAIN_LIBS = ('dyn_chain', 'static_chain', 'switch_chain')
@@ -135,10 +155,29 @@ def say(msg):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, runs=7, warmup=2):
-    """Median milliseconds of ``fn()`` between CUDA events."""
-    from exposure_tpu_torch.tools import median_seconds
-    return median_seconds(fn, DEVICE, runs=runs, warmup=warmup) * 1e3
+def cuda_ms(fn, runs=7, warmup=2, calls=1):
+    """Median milliseconds of ``fn()`` between CUDA events; with ``calls``
+    above 1 a timing spans that many calls back to back after one more call
+    queued before the first event (``exposure_tpu_torch.tools.median_seconds``
+    says why; written out here so that ``--serve`` times an older checkout
+    the same way)."""
+    import statistics
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if calls > 1:
+            fn()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 def wrappers():
@@ -161,10 +200,15 @@ def wrappers():
 def reset_counts():
     for fn in wrappers().values():
         fn.launches = 0
+    wrappers()['switch_chain'].launches_bf16 = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Launches by wrapper; ``switch_chain_bf16`` is the part of
+    ``switch_chain``'s that ran the bf16 kernel."""
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    counts['switch_chain_bf16'] = wrappers()['switch_chain'].launches_bf16
+    return counts
 
 
 def phase_card():
@@ -375,6 +419,35 @@ PROXY_CASE = ('proxy_f32_512x64x64_k1', 'synthetic_explore', BATCH, 64, 64,
               1, 'f32', True, 'timed')
 
 
+# the packed operations the kernels run (csrc/fastmath.cuh): none may
+# differ from its scalar form; hmax and hmin, the native max.bf16x2 and
+# min.bf16x2, are counted beside them and run in no kernel
+PACKED_OPS_USED = ('add', 'sub', 'mul', 'max', 'min', 'ge', 'le', 'gt', 'abs',
+                   'neg')
+
+
+def phase_bf16_ops():
+    """The packed bf16 operations against their scalar f32-then-round forms
+    over every pair of bf16 bit patterns; returns the counts."""
+    import torch
+    from exposure_tpu_torch.tools.bench_bf16_probe import check_packed_ops
+    counts = check_packed_ops(DEVICE)
+    ms = cuda_ms(lambda: check_packed_ops(DEVICE), runs=1, warmup=0)
+    torch.cuda.synchronize()
+    for op, c in counts.items():
+        say('bf16_ops %-5s checked %d results: %d differ from the scalar '
+            'form (%d of them zeros of opposite sign); excluded: %d pairs of '
+            'NaNs with different bits' % (op, c['checked'], c['differ'],
+                                          c['zero_sign'], c['nan_payload']))
+    say('bf16_ops: all 2^32 operand pairs in %.1f ms' % ms)
+    bad = {op: counts[op]['differ'] for op in PACKED_OPS_USED
+           if counts[op]['differ']}
+    if bad:
+        fail('packed bf16 operations differ from their scalar forms: %s'
+             % bad)
+    return counts
+
+
 def phase_k1():
     import torch
     from exposure_tpu_torch.ops.dyn_chain import (
@@ -409,7 +482,7 @@ def phase_k1():
                     err if dt == 'u8' else '%.3e' % err, outliers))
         if variant == 'timed':
             ms = cuda_ms(lambda: apply_filter_chain_dynamic(
-                img, ids, params, filters, **kw))
+                img, ids, params, filters, **kw), calls=KERNEL_CALLS)
             plain = cuda_ms(lambda: apply_filter_chain_dynamic_reference(
                 img, ids, params, filters, **kw), runs=5, warmup=1)
             bound = _chain_bound(ids, filters, img, fast)
@@ -443,18 +516,16 @@ def _bf16_vs_plain(got, want):
     return float(((got - want).abs() > tol).float().mean())
 
 
-def phase_k2():
+def _k2_cases(dev):
+    """The switch-chain cases, seeded: ``(case, filters, img, ids, params,
+    kw)`` with ``case`` the tuple of CHAIN_CASES' layout and ``kw`` the
+    keyword arguments but ``compute_dtype`` (and ``out``, which a ``rows``
+    case needs zeroed for each call)."""
     import torch
-    from exposure_tpu_torch.ops.switch_chain import (
-        apply_filter_chain_switch, apply_filter_chain_switch_reference)
-    dev = torch.device(DEVICE)
     banks = _banks()
     g = torch.Generator().manual_seed(SEED + 2)
-    worst = {'f32': 0.0, 'u8': 0, 'bf16_vs_f32_lsb': 0,
-             'bf16_vs_plain_frac': 0.0}
-    timing = {}
-    for name, bank, b, h, w, k, dt, fast, variant in \
-            CHAIN_CASES + ROWS_CASES + [BF16_JAX_CASE, REPLAY_CASE]:
+    for case in CHAIN_CASES + ROWS_CASES + [BF16_JAX_CASE, REPLAY_CASE]:
+        _, bank, b, h, w, k, dt, fast, variant = case
         filters = banks[bank]
         img, ids, params, kw = _case_inputs(g, filters, b, h, w, k, dt,
                                             variant, dev)
@@ -465,15 +536,32 @@ def phase_k2():
             rows = torch.randperm(b, generator=g)[:b - 1].to(
                 torch.int32).to(dev)
             kw.update(rows=rows, n_active=b - 2)
+        yield case, filters, img, ids, params, kw
+
+
+def phase_k2():
+    import torch
+    from exposure_tpu_torch.ops.switch_chain import (
+        apply_filter_chain_switch, apply_filter_chain_switch_reference)
+    dev = torch.device(DEVICE)
+    worst = {'f32': 0.0, 'u8': 0, 'bf16_vs_f32_lsb': 0,
+             'bf16_vs_plain_frac': 0.0, 'bf16_vs_plain_f32': 0.0,
+             'bf16_vs_plain_u8': 0}
+    timing = {}
+    for case, filters, img, ids, params, kw in _k2_cases(dev):
+        name, _, b, h, w, k, dt, fast, variant = case
         results = {}
         for cdt in (torch.float32, torch.bfloat16):
             ck = dict(kw, compute_dtype=cdt)
             if variant == 'rows':
                 ck['out'] = torch.zeros_like(img)
-            before = apply_filter_chain_switch.launches
+            before = read_counts()
             got = apply_filter_chain_switch(img, ids, params, filters, **ck)
             torch.cuda.synchronize()
-            if apply_filter_chain_switch.launches != before + 1:
+            after = read_counts()
+            if after['switch_chain'] != before['switch_chain'] + 1 or \
+                    after['switch_chain_bf16'] - before['switch_chain_bf16'] \
+                    != int(cdt == torch.bfloat16):
                 fail('K2 %s: the wrapper did not launch the kernel' % name)
             if variant == 'rows':
                 ck['out'] = torch.zeros_like(img)
@@ -492,6 +580,8 @@ def phase_k2():
                 fail('K2 %s: rows past n_active were written' % name)
         got16, want16 = results[torch.bfloat16]
         plain_frac = _bf16_vs_plain(got16, want16)
+        key16 = 'bf16_vs_plain_' + dt
+        worst[key16] = max(worst[key16], _compare(got16, want16)[0])
         vs_f32 = (_as_u8(got16) - _as_u8(got)).abs()
         if variant == 'rows':   # only the replayed rows
             active = kw['rows'][:kw['n_active']].long()
@@ -512,9 +602,12 @@ def phase_k2():
                              (torch.bfloat16, 'bf16')):
                 ck = dict(kw, compute_dtype=cdt)
                 ms = cuda_ms(lambda: apply_filter_chain_switch(
-                    img, ids, params, filters, **ck))
+                    img, ids, params, filters, **ck), calls=KERNEL_CALLS)
                 plain = cuda_ms(lambda: apply_filter_chain_switch_reference(
                     img, ids, params, filters, **ck), runs=5, warmup=1)
+                # one bound for both compute types: the bf16 path may not
+                # fuse a multiply into an add, so packed bf16 (two values an
+                # instruction, no FMA) has the f32 rate (an FMA counted 2)
                 bound = _chain_bound(ids, filters, img, fast)
                 timing[tag] = (ms, plain, bound)
                 line += '  %s kernel %.4f ms plain %.4f ms bound %.4f ms' % (
@@ -600,7 +693,7 @@ def phase_k3():
                     err if dt == 'u8' else '%.3e' % err, outliers))
         if variant == 'timed':
             ms = cuda_ms(lambda: apply_filter_chain_static(
-                img, sig, params, filters, **kw))
+                img, sig, params, filters, **kw), calls=KERNEL_CALLS)
             plain = cuda_ms(lambda: apply_filter_chain_static_reference(
                 img, sig, params, filters, **kw), runs=5, warmup=1)
             bound = _chain_bound(ids, filters, img, fast)
@@ -761,13 +854,23 @@ def phase_probe_tools():
                                         reference(*args))
         library = None
         if op == 'copy':   # the one probe op with a PyTorch call
-            library = cuda_ms(lambda: got.copy_(img))
+            # Tensor.copy_ and the kernel on the same tensors, calls back to
+            # back (device time alone), and both one call a timing, where
+            # the events also enclose the host's work before the launch
+            library = cuda_ms(lambda: got.copy_(img), calls=KERNEL_CALLS)
+            copies[name] = {
+                'kernel_ms': cuda_ms(lambda: wrapper(*args),
+                                     calls=KERNEL_CALLS),
+                'copy__ms': library,
+                'kernel_one_call_ms': cuda_ms(lambda: wrapper(*args)),
+                'copy__one_call_ms': cuda_ms(lambda: got.copy_(img))}
         del got
         bound = _bound(probe_cost(name, op, steps, img.numel()))
         timing[name][key] = (ms, cuda_ms(lambda: reference(*args),
                                          runs=PLAIN_RUNS, warmup=1),
                              bound, library)
 
+    copies = {}
     img = k4a.make_input(PROBE_BATCH, RES).to(dev)
     for key, steps, op in k4a.SECTION_A:
         hold('mono_probe', key, rep_a[key + '_ms'], k4a.mono_chain,
@@ -799,12 +902,19 @@ def phase_probe_tools():
                 v[0], v[1], v[2]['bound_ms'], v[2]['bound_by'],
                 'none' if v[3] is None else '%.4f' % v[3])
             for k, v in rows.items()}))
+    for name, c in copies.items():
+        say('%s 0-step copy against Tensor.copy_ on the same tensors: kernel '
+            '%.4f ms, copy_ %.4f ms (%.3fx; %d calls back to back a timing); '
+            'one call a timing: kernel %.4f ms, copy_ %.4f ms' % (
+                name, c['kernel_ms'], c['copy__ms'],
+                c['kernel_ms'] / c['copy__ms'], KERNEL_CALLS,
+                c['kernel_one_call_ms'], c['copy__one_call_ms']))
     copy_ms = rep_a['pallas_copy_0step_ms']
     nbytes = 2 * PROBE_BATCH * RES * RES * 3
     say('u8 round trip (K4a copy, 0 steps, [%d, %d, %d, 3]): %d bytes read '
         'and written in %.4f ms = %.1f GB/s' % (
             PROBE_BATCH, RES, RES, nbytes, copy_ms, nbytes / copy_ms / 1e6))
-    return counts, timing, worst, nbytes / copy_ms / 1e6
+    return counts, timing, worst, nbytes / copy_ms / 1e6, copies
 
 
 def phase_tools():
@@ -1027,7 +1137,7 @@ def phase_modes(batches):
     returns the launches per kernel summed over the modes' runs."""
     import torch
     dev = torch.device(DEVICE)
-    totals = {name: 0 for name in wrappers()}
+    totals = {name: 0 for name in read_counts()}
     ref = None
     rows = []
     for mode, kw in MODES:
@@ -1207,11 +1317,13 @@ def main():
     card = phase_card()
     sys.path.insert(0, REPO)
     variants = phase_build()
+    packed = phase_bf16_ops()
     k1_worst, k1_timing, k1_errors = phase_k1()
     k2_worst, k2_timing = phase_k2()
     k3_worst, k3_timing = phase_k3()
     probe_worst = phase_probes()
-    probe_counts, probe_timing, tool_worst, floor_gb_s = phase_probe_tools()
+    probe_counts, probe_timing, tool_worst, floor_gb_s, copies = \
+        phase_probe_tools()
     for key, v in tool_worst.items():   # the largest over both phases
         probe_worst[key] = max(probe_worst[key], v)
     tool_counts, _ = phase_tools()
@@ -1266,11 +1378,13 @@ def main():
             # Tensor.copy_ on the 0-step copy's buffers: the one case that
             # a PyTorch call computes
             'library_ms': sum(library.values()) if library else None,
-            'library_ms_by_case': library,
-            'ms_by_case': {k: v[0] for k, v in rows.items()},
-            'plain_ms_by_case': {k: v[1] for k, v in rows.items()},
-            'bound_ms_by_case': {k: v[2]['bound_ms']
-                                 for k, v in rows.items()},
+            # every timed case with its own numbers: a case of library
+            # calls (the bound counts a call as one operation) is not to be
+            # read as a slow kernel
+            'cases': {k: {'ms': v[0], 'plain_ms': v[1],
+                          'bound_ms': v[2]['bound_ms'],
+                          'bound_by': v[2]['bound_by'], 'library_ms': v[3]}
+                      for k, v in rows.items()},
             'shape': shape, 'card': card}, **extra)
 
     proxy = PROXY_CASE[0]
@@ -1294,13 +1408,21 @@ def main():
         chain_entry('switch_chain', 'exposure_tpu_torch/csrc/switch_chain.cu',
                     'exposure_tpu/ops/pallas_chain.py:345',
                     k2_timing['f32'], k2_worst, totals['switch_chain'],
-                    'switch_chain', 'switch_chain_f32',
-                    bf16_max_lsb_vs_f32_jax_case=k2_worst['bf16_vs_f32_lsb'],
-                    bf16_frac_off_plain=k2_worst['bf16_vs_plain_frac'],
-                    ms_bf16=k2_timing['bf16'][0],
-                    plain_ms_bf16=k2_timing['bf16'][1],
-                    ptxas_worst_variant_bf16=ptxas('switch_chain',
-                                                   'switch_chain_bf16')),
+                    'switch_chain', 'switch_chain_f32'),
+        # the same wrapper's bf16 kernel; nothing in the package asks for
+        # it (direct callers only), so no path launches it
+        chain_entry('switch_chain_bf16',
+                    'exposure_tpu_torch/csrc/switch_chain.cu',
+                    'exposure_tpu/ops/pallas_chain.py:345',
+                    k2_timing['bf16'],
+                    {'f32': k2_worst['bf16_vs_plain_f32'],
+                     'u8': k2_worst['bf16_vs_plain_u8']},
+                    totals['switch_chain_bf16'], 'switch_chain',
+                    'switch_chain_bf16',
+                    frac_off_plain=k2_worst['bf16_vs_plain_frac'],
+                    max_lsb_vs_f32_jax_case=k2_worst['bf16_vs_f32_lsb'],
+                    packed_ops_differing={
+                        op: c['differ'] for op, c in packed.items()}),
         chain_entry('static_chain', 'exposure_tpu_torch/csrc/static_chain.cu',
                     'exposure_tpu/ops/pallas_chain.py:417',
                     k3_timing['replay'], k3_worst, totals['static_chain'],
@@ -1310,7 +1432,8 @@ def main():
                     'exposure_tpu/tools/bench_kernel_probe.py:41',
                     probe_worst['mono_probe'],
                     '[%d, %d, %d, 3] u8' % (PROBE_BATCH, RES, RES),
-                    u8_round_trip_gb_s=floor_gb_s),
+                    u8_round_trip_gb_s=floor_gb_s,
+                    copy_against_copy_=copies['mono_probe']),
         probe_entry('fastmath_probe',
                     'exposure_tpu/tools/bench_fastmath.py:117',
                     probe_worst['fastmath_probe'],
@@ -1336,13 +1459,15 @@ def _digest(tensors):
     return h.hexdigest()[:16]
 
 
-def _branch_outputs(dev):
-    """K1 on one step of each filter of the ``synthetic_explore`` and the
+def _branch_outputs(dev, run=None, prefix=''):
+    """One step of each filter of the ``synthetic_explore`` and the
     ``masked`` banks, exact and fast, f32 and u8, on seeded [16, 256, 256,
-    3] images: the kernels' math branch by branch, with and without the
-    mask blend, ``{name: numpy array}``."""
+    3] images, through ``run(img, ids, params, filters, **kw)`` (K1 by
+    default): the kernels' math branch by branch, with and without the mask
+    blend, ``{name: numpy array}``."""
     import torch
     from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
+    run = run or apply_filter_chain_dynamic
     g = torch.Generator().manual_seed(SEED + 11)
     b = 16
     x = torch.rand((b, 256, 256, 3), generator=g) * 1.05
@@ -1361,24 +1486,125 @@ def _branch_outputs(dev):
                     dev)
             for fast in (False, True):
                 for dt, img in imgs.items():
-                    y = apply_filter_chain_dynamic(img, ids, params, filters,
-                                                   fast_math=fast, **kw)
-                    out['%s%s_%s_%s' % ('masked_' if masked else '',
-                                        f.get_short_name(),
-                                        'fast' if fast else 'exact', dt)] = \
+                    y = run(img, ids, params, filters, fast_math=fast, **kw)
+                    out['%s%s%s_%s_%s' % (prefix,
+                                          'masked_' if masked else '',
+                                          f.get_short_name(),
+                                          'fast' if fast else 'exact', dt)] = \
                         y.cpu().numpy()
     return out
 
 
-def serve(tree, work, tag, first):
-    """``--serve TREE WORK TAG [--first]``: the main path and the five
-    modes with the package of the checkout ``TREE`` (its kernels built from
-    its own sources), and that tree's replay of one fixed plan (batch 0's,
-    planned by the first turn and kept in ``WORK``).  A tree's first turn
-    saves its main-path outputs, fixed-plan replay and one-step outputs of
-    each branch (``_branch_outputs``) in ``WORK``.  The last line is
-    ``{"tree", "main_img_s", "modes": {mode: img/s}, "main_digest",
-    "replay_digest"}``."""
+def _switch_bf16(img, ids, params, filters, **kw):
+    import torch
+    from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
+    return apply_filter_chain_switch(img, ids, params, filters,
+                                     compute_dtype=torch.bfloat16, **kw)
+
+
+TURN_PROBE_SIZES = dict(PROBE_SIZES, mid=(8, 256, 256))
+
+
+def _kernel_outputs(dev):
+    """What ``--turns`` compares between two trees beside the served
+    outputs, ``{name: numpy array}``: one step of each branch of both banks
+    through K1 and through K2 in bf16 (``_branch_outputs``), K2 in f32 and
+    in bf16 on every case of ``phase_k2``, and every probe case (K4a's ops x
+    0, 1 and 5 steps, K4b's ops, K4c's ops x styles) on a small, an odd and
+    a middle size."""
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
+    from exposure_tpu_torch.tools import bench_bf16_probe as k4c
+    from exposure_tpu_torch.tools import bench_fastmath as k4b
+    from exposure_tpu_torch.tools import bench_kernel_probe as k4a
+    out = _branch_outputs(dev)
+    out.update(_branch_outputs(dev, _switch_bf16, 'k2bf16_'))
+    for case, filters, img, ids, params, kw in _k2_cases(dev):
+        for cdt, tag in ((torch.float32, 'k2f32'), (torch.bfloat16, 'k2bf16')):
+            ck = dict(kw, compute_dtype=cdt)
+            if case[8] == 'rows':
+                ck['out'] = torch.zeros_like(img)
+            out['%s_case_%s' % (tag, case[0])] = apply_filter_chain_switch(
+                img, ids, params, filters, **ck).cpu().numpy()
+    rng = np.random.RandomState(SEED + 4)
+    for size, (b, h, w) in TURN_PROBE_SIZES.items():
+        def u8(*shape):
+            return torch.from_numpy((rng.rand(*shape) * 255).astype(
+                np.uint8)).to(dev)
+        nhwc, planar, mono = u8(b, h, w, 3), u8(b, 3, h, w), u8(b, 1, h, w)
+        for op in k4a.MONO_OPS:
+            for steps in (0, 1, 5):
+                out['k4a_%s_%s%d' % (size, op, steps)] = k4a.mono_chain(
+                    nhwc, steps, op).cpu().numpy()
+        for op in k4b.OPS:
+            out['k4b_%s_%s' % (size, op)] = k4b.run_op(planar,
+                                                       op).cpu().numpy()
+        for op in k4c.OPS:
+            for style in k4c.STYLES:
+                out['k4c_%s_%s_%s' % (size, op, style)] = k4c.run_probe(
+                    mono, k4c.PARAMS, op, style,
+                    BF16_PROBE_STEPS).cpu().numpy()
+    return out
+
+
+def _kernel_times(dev):
+    """ms of each chain kernel at [512, 512, 512, 3] u8 K=5 (``phase_k2``'s
+    timed inputs; K3 on the served signature) and of every probe case at the
+    tools' shapes, 4 calls back to back a timing: ``{name: ms}`` of the tree
+    this process imports."""
+    import torch
+    from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
+    from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
+    from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
+    from exposure_tpu_torch.tools import bench_bf16_probe as k4c
+    from exposure_tpu_torch.tools import bench_fastmath as k4b
+    from exposure_tpu_torch.tools import bench_kernel_probe as k4a
+    ms = {}
+    for case, filters, img, ids, params, kw in _k2_cases(dev):
+        if case[8] != 'timed':
+            continue
+        sig = _signature_of(filters, SERVED_SIGNATURE)
+        runs = {
+            'K1': lambda: apply_filter_chain_dynamic(img, ids, params,
+                                                     filters, **kw),
+            'K2_f32': lambda: apply_filter_chain_switch(img, ids, params,
+                                                        filters, **kw),
+            'K2_bf16': lambda: _switch_bf16(img, ids, params, filters, **kw),
+            'K3': lambda: apply_filter_chain_static(img, sig, params,
+                                                    filters, **kw)}
+        for name, fn in runs.items():
+            ms[name] = cuda_ms(fn, calls=KERNEL_CALLS)
+    img = k4a.make_input(PROBE_BATCH, RES).to(dev)
+    for key, steps, op in k4a.SECTION_A:
+        ms['K4a_' + key] = cuda_ms(lambda: k4a.mono_chain(img, steps, op),
+                                   calls=KERNEL_CALLS)
+    out = torch.empty_like(img)
+    ms['Tensor.copy_'] = cuda_ms(lambda: out.copy_(img), calls=KERNEL_CALLS)
+    del out
+    img = k4b.make_input(PROBE_BATCH, RES).to(dev)
+    for op in k4b.OPS:
+        ms['K4b_' + op] = cuda_ms(lambda: k4b.run_op(img, op),
+                                  calls=KERNEL_CALLS)
+    img = k4c.make_input(BF16_PROBE_BATCH, RES).to(dev)
+    for op in k4c.OPS:
+        for style in k4c.STYLES:
+            ms['K4c_%s/%s' % (op, style)] = cuda_ms(
+                lambda: k4c.run_probe(img, k4c.PARAMS, op, style,
+                                      BF16_PROBE_STEPS), calls=KERNEL_CALLS)
+    return ms
+
+
+def serve(tree, work, tag, first, kernels_only):
+    """``--serve TREE WORK TAG [--first] [--kernels]``: the main path and
+    the five modes with the package of the checkout ``TREE`` (its kernels
+    built from its own sources), that tree's replay of one fixed plan
+    (batch 0's, planned by the first turn and kept in ``WORK``) and its
+    kernels' times (``_kernel_times``).  A tree's first turn saves its
+    main-path outputs, fixed-plan replay and kernel outputs
+    (``_kernel_outputs``) in ``WORK``.  ``--kernels`` leaves the served
+    path out.  The last line is ``{"tree", "kernel_ms", "main_img_s",
+    "modes": {mode: img/s}, "main_digest", "replay_digest"}``."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.abspath(tree))
@@ -1386,6 +1612,14 @@ def serve(tree, work, tag, first):
     phase_card()
     phase_build()
     dev = torch.device(DEVICE)
+    result = {'tree': tree}
+    if first:
+        np.savez(os.path.join(work, tag + '_kernels.npz'),
+                 **_kernel_outputs(dev))
+    result['kernel_ms'] = _kernel_times(dev)
+    if kernels_only:
+        print(json.dumps(result), flush=True)
+        return
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
                for _ in range(MAIN_BATCHES)]
@@ -1407,13 +1641,11 @@ def serve(tree, work, tag, first):
     replay_digest = _digest([replay])
     if first:
         np.save(os.path.join(work, tag + '_replay.npy'), replay.cpu().numpy())
-        np.savez(os.path.join(work, tag + '_branches.npz'),
-                 **_branch_outputs(dev))
     del replay, pipe
     _, rows = phase_modes(batches)
-    print(json.dumps({'tree': tree, 'main_img_s': img_s,
-                      'modes': dict(rows), 'main_digest': main_digest,
-                      'replay_digest': replay_digest}), flush=True)
+    print(json.dumps(dict(result, main_img_s=img_s, modes=dict(rows),
+                          main_digest=main_digest,
+                          replay_digest=replay_digest)), flush=True)
 
 
 def _lsb_diff(a, b):
@@ -1426,15 +1658,35 @@ def _lsb_diff(a, b):
     return max_lsb, n_diff
 
 
-def turns(parent):
-    """``--turns PARENT``: the main path and modes of the checkout PARENT
-    and of this one, in turns (parent, change, change, parent), each turn a
-    process of its own (``--serve``) on the same card; then the two trees'
-    main-path outputs compared value by value, their replays of one fixed
-    plan (the kernels alone: the plan feeds back through the proxy chain,
-    so a last-bit difference there can move a plan), and their one-step
-    outputs of each branch (values differing, per branch).  Each turn's
-    outputs are also hashed, to show a tree repeats itself."""
+def _values_differing(a, b):
+    """``{name: values of a[name] that differ from b[name]}`` over the
+    arrays of ``a``; NaNs at the same places do not differ (a masked f32
+    case can hold one)."""
+    return {k: int((~((a[k] == b[k]) | ((a[k] != a[k]) &
+                                        (b[k] != b[k])))).sum())
+            for k in a.keys()}
+
+
+def _moved_outputs(differing, may_differ=None):
+    """The entries of ``differing`` with a count above 0 whose names
+    ``may_differ`` (default ``TURNS_MAY_DIFFER``) does not cover."""
+    allowed = tuple(TURNS_MAY_DIFFER if may_differ is None else may_differ)
+    return {k: v for k, v in differing.items()
+            if v and not k.startswith(allowed)}
+
+
+def turns(parent, kernels_only=False):
+    """``--turns PARENT [--kernels]``: the main path and modes of the
+    checkout PARENT and of this one, in turns (parent, change, change,
+    parent), each turn a process of its own (``--serve``) on the same card;
+    then the two trees' main-path outputs compared value by value, their
+    replays of one fixed plan (the kernels alone: the plan feeds back
+    through the proxy chain, so a last-bit difference there can move a
+    plan), and their kernel outputs (``_kernel_outputs``: values differing,
+    per output; any fails the run unless ``TURNS_MAY_DIFFER`` names the
+    output).  Each turn's outputs are also hashed, to show a tree
+    repeats itself, and each turn times the kernels (``_kernel_times``).
+    ``--kernels`` compares and times the kernels alone, one turn a tree."""
     import numpy as np
     phase_card()
     work = os.path.join(REPO, 'exposure_tpu_torch', 'build', 'turns')
@@ -1443,11 +1695,15 @@ def turns(parent):
         os.remove(os.path.join(work, name))
     trees = {'parent': os.path.abspath(parent), 'change': REPO}
     results = []
-    for tag in ('parent', 'change', 'change', 'parent'):
+    order = ('parent', 'change') if kernels_only else \
+        ('parent', 'change', 'change', 'parent')
+    for tag in order:
         cmd = [sys.executable, os.path.abspath(__file__), '--serve',
                trees[tag], work, tag]
         if not any(r['tag'] == tag for r in results):
             cmd.append('--first')
+        if kernels_only:
+            cmd.append('--kernels')
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=1200)
         for ln in proc.stdout.splitlines():
@@ -1460,7 +1716,7 @@ def turns(parent):
                             tag=tag))
         say('turn %s: %s' % (tag, json.dumps(results[-1])))
     compare = {}
-    for what in ('main', 'replay'):
+    for what in () if kernels_only else ('main', 'replay'):
         a = np.load(os.path.join(work, 'parent_%s.npy' % what),
                     mmap_mode='r')
         b = np.load(os.path.join(work, 'change_%s.npy' % what),
@@ -1468,23 +1724,37 @@ def turns(parent):
         max_lsb, n_diff = _lsb_diff(a, b)
         compare[what] = {'shape': list(a.shape), 'max_lsb': max_lsb,
                          'values_differing': n_diff}
-    a = np.load(os.path.join(work, 'parent_branches.npz'))
-    b = np.load(os.path.join(work, 'change_branches.npz'))
-    compare['branches'] = {k: int((a[k] != b[k]).sum()) for k in a.files}
-    repeats = {tag: len({(r['main_digest'], r['replay_digest'])
+    a = np.load(os.path.join(work, 'parent_kernels.npz'))
+    b = np.load(os.path.join(work, 'change_kernels.npz'))
+    differing = _values_differing(a, b)
+    compare['kernels'] = {'outputs': len(differing),
+                          'values': int(sum(a[k].size for k in a.files)),
+                          'differing': {k: v for k, v in differing.items()
+                                        if v}}
+    say('kernel ms, parent / change by turn: %s' % json.dumps({
+        k: ['%s %.4f' % (r['tag'], r['kernel_ms'][k]) for r in results
+            if k in r['kernel_ms']]
+        for k in results[-1]['kernel_ms']}))
+    repeats = {tag: len({(r.get('main_digest'), r.get('replay_digest'))
                          for r in results if r['tag'] == tag}) == 1
                for tag in trees}
     say(json.dumps({'turns': results, 'parent_vs_change': compare,
                     'each_tree_repeats_its_outputs': repeats}))
-    if compare['main']['max_lsb'] > 1 or compare['replay']['max_lsb'] > 1:
+    if any(c['max_lsb'] > 1 for k, c in compare.items() if k != 'kernels'):
         fail('the two trees differ by more than 1 LSB: %s' % compare)
+    moved = _moved_outputs(differing)
+    if moved:
+        fail('kernel outputs differ from the parent\'s (values differing, '
+             'by output; TURNS_MAY_DIFFER lists none of them): %s' % moved)
 
 
 if __name__ == '__main__':
-    if len(sys.argv) > 4 and sys.argv[1] == '--serve':
-        serve(sys.argv[2], sys.argv[3], sys.argv[4],
-              sys.argv[5:6] == ['--first'])
-    elif len(sys.argv) > 2 and sys.argv[1] == '--turns':
-        turns(sys.argv[2])
+    flags = [a for a in sys.argv[1:] if a in ('--first', '--kernels')]
+    args = [a for a in sys.argv[1:] if a not in flags]
+    if len(args) > 3 and args[0] == '--serve':
+        serve(args[1], args[2], args[3], '--first' in flags,
+              '--kernels' in flags)
+    elif len(args) > 1 and args[0] == '--turns':
+        turns(args[1], '--kernels' in flags)
     else:
         main()

@@ -1,7 +1,7 @@
 // The filter-chain core shared by the three chain kernels (dyn_chain.cu,
-// switch_chain.cu's f32 path, static_chain.cu), so that the dynamic,
-// switch and grouped replays of one plan run one copy of each filter's f32
-// math.
+// switch_chain.cu, static_chain.cu), so that the dynamic, switch and
+// grouped replays of one plan run one copy of each filter's f32 math, and
+// the switch kernel's bf16 path one copy of the frame around it.
 //
 // Counterpart of the planar branch set of exposure_tpu/ops/pallas_chain.py
 // (`_PLANAR_IMPL`, `_PLANAR_IMPL_FAST`, `_with_mask`, `_vignet_masked`);
@@ -33,7 +33,12 @@
 //   storage offset), so the runs start at the image's first aligned pixel;
 //   the pixels before it (the head) and after the last full run (the tail)
 //   take the scalar path in the kernel, as does a whole image whose input
-//   and output disagree in alignment.
+//   and output disagree in alignment.  The u8 conversions run on the f32
+//   pipe (load_px, quantize_bits below).
+// - The frame takes the arithmetic as a parameter: `chain_image` does the
+//   run mapping, the I/O and the staging of the plans, and a `Math` (ChainF32
+//   here, ChainBf16 in switch_chain.cu) makes a step's plan and applies the
+//   K steps to the pixels.
 // - Arguments by value: every kernel takes ChainArgs and its code table as
 //   __grid_constant__ parameters, read in place, with no local copy.
 // - No __launch_bounds__ on the f32 chain kernels: with
@@ -496,13 +501,31 @@ __device__ __forceinline__ void run_step(int code, const float* q,
 // pixel I/O: a thread's run of kRun pixels
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float load_px(const uint8_t v) {
-  return (float)v * (1.0f / 255.0f);
+// u8 conversions on the f32 pipe.  An int-to-float or float-to-int
+// conversion issues at a fraction of the f32 rate, and a chain converts
+// every value twice, so both are done with the 2^23 trick, which is exact
+// for a byte: 0x4B000000 | v is the float 2^23 + v, and x + 1.5 * 2^23 for
+// x in [0, 255] rounds x half to even into the sum's low mantissa byte.
+
+// v * (1/255) for byte `k` of the word `w`
+__device__ __forceinline__ float load_px(uint32_t w, int k) {
+  const uint32_t bits = __byte_perm(w, 0x4B000000u, 0x7440u | (uint32_t)k);
+  return (__uint_as_float(bits) - 8388608.0f) * (1.0f / 255.0f);
 }
 
-// u8: round half to even of clip(x, 0, 1) * 255, as jnp.round.
+__device__ __forceinline__ float load_px(const uint8_t v) {
+  return load_px((uint32_t)v, 0);
+}
+
+// round half to even of clip(x, 0, 1) * 255, as jnp.round, in the low byte
+// of the returned word (the other bytes are not zero).  The product is
+// rounded before the add (an FMA would round once, not twice).
+__device__ __forceinline__ uint32_t quantize_bits(float x) {
+  return __float_as_uint(__fadd_rn(clamp01(x) * 255.0f, 12582912.0f));
+}
+
 __device__ __forceinline__ uint8_t quantize_px(float x) {
-  return (uint8_t)__float2int_rn(clamp01(x) * 255.0f);
+  return (uint8_t)quantize_bits(x);
 }
 
 template <typename T>
@@ -532,11 +555,20 @@ struct Run<uint8_t> {
     }
   }
   __device__ __forceinline__ float get(int j) const {
-    return load_px((uint8_t)(w[j / 4] >> (8 * (j % 4))));
+    return load_px(w[j / 4], j % 4);
   }
+  // Values are set in ascending j, every one of a word that is stored:
+  // byte 0 replaces the whole word (the input's bits are dead from there,
+  // which frees their registers; the sum's upper bytes are overwritten by
+  // the next three values), bytes 1 to 3 are inserted.
   __device__ __forceinline__ void set(int j, float x) {
-    const int sh = 8 * (j % 4);
-    w[j / 4] = (w[j / 4] & ~(0xFFu << sh)) | ((uint32_t)quantize_px(x) << sh);
+    const uint32_t q = quantize_bits(x);
+    if (j % 4 == 0) {
+      w[j / 4] = q;
+    } else {
+      const uint32_t keep = 0x3210u & ~(0xFu << (4 * (j % 4)));
+      w[j / 4] = __byte_perm(w[j / 4], q, keep | (4u << (4 * (j % 4))));
+    }
   }
   __device__ __forceinline__ void store(uint8_t* dst, int count,
                                         bool full) const {
@@ -631,55 +663,34 @@ inline unsigned chain_blocks(int H, int W) {
   return (unsigned)((runs + kThreads - 1) / kThreads);
 }
 
-// The K-step chain over one image, the body of every chain kernel: each
-// thread reads its run of kRun pixels (16-byte loads where aligned), the
-// block makes its per-step plans (`stage(k, s_code, plan)` for each step k,
-// on threads k < K, while the pixels are in flight), and each thread applies
-// step k's plan with branch code s_code[k] to N pixels at a time (all kRun
-// unmasked; a quarter with masking, which also holds each pixel's grid
-// position and mask), then writes its run once.  A block whose runs all
-// lie past the image's returns before it loads anything.
-template <typename T, bool FAST, bool MASKED, int S, typename Stage>
-__device__ __forceinline__ void chain_image(const T* __restrict__ src,
-                                            T* __restrict__ dst,
-                                            const ChainArgs& a,
-                                            const Stage& stage) {
-  constexpr int N = MASKED ? kRun / 4 : kRun;
-  const RunMap m = run_map(src, dst, a);
-  if ((long long)blockIdx.x * kThreads >= m.runs) return;
-  extern __shared__ float smem[];
-  int* s_code = reinterpret_cast<int*>(smem);
-  float* s_plan = smem + a.K;
-  const int stride = plan_floats(S ? S : a.curve_steps);
+// The f32 arithmetic of a chain, as `chain_image` takes it: the plan's
+// scalar type Q (4 bytes), the compiled knot count S, the N pixels a thread
+// holds at a time (all kRun unmasked; a quarter with masking, which also
+// holds each pixel's grid position and mask), `plan` (a step's plan from its
+// raw parameters) and `pixels` (the K steps on group h of a thread's run).
+// kMasked: the bank masks, so `pixels` reads the grid position.
+template <bool FAST, bool MASKED, int S_>
+struct ChainF32 {
+  typedef float Q;
+  static constexpr int S = S_;
+  static constexpr bool kMasked = MASKED;
+  static constexpr int N = MASKED ? kRun / 4 : kRun;
 
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  const bool live = t < m.runs;
-  const int has_head = m.head > 0;
-  long long start = 0;
-  int count = 0;
-  if (t < has_head) {
-    count = m.head;
-  } else if (live) {
-    start = m.head + (t - has_head) * kRun;
-    count = (int)(m.hw - start < kRun ? m.hw - start : kRun);
+  __device__ __forceinline__ static void plan(int code, const float* p,
+                                              const float* mp,
+                                              const ChainArgs& a, float* q) {
+    plan_step<FAST, MASKED>(code, p, mp, a, q);
   }
-  const bool full = m.vec && count == kRun;
-  Run<T> run;
-  if (live) run.load(src + start * 3, count, full);
 
-  for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
-    stage(k, s_code, s_plan + k * stride);
-  }
-  __syncthreads();
-  if (!live) return;
-
-  int row = 0, col = 0;
-  if (MASKED) {
-    row = (int)(start / a.W);
-    col = (int)(start - (long long)row * a.W);
-  }
-#pragma unroll
-  for (int h = 0; h < kRun / N; ++h) {
+  // `row`, `col`: the grid position of the group's first pixel, advanced
+  // past the group (read only when masking)
+  template <typename T>
+  __device__ __forceinline__ static void pixels(Run<T>& run, int h,
+                                                const int* s_code,
+                                                const float* s_plan,
+                                                int stride, int& row,
+                                                int& col,
+                                                const ChainArgs& a) {
     float r[N], g[N], b[N], gx[N], gy[N];
 #pragma unroll
     for (int n = 0; n < N; ++n) {
@@ -707,6 +718,60 @@ __device__ __forceinline__ void chain_image(const T* __restrict__ src,
       run.set(j + 1, g[n]);
       run.set(j + 2, b[n]);
     }
+  }
+};
+
+// The K-step chain over one image, the body of every chain kernel, in the
+// arithmetic `Math` (ChainF32 above; switch_chain.cu's ChainBf16): each
+// thread reads its run of kRun pixels (16-byte loads where aligned), the
+// block makes its per-step plans (`stage(k, s_code, plan)` for each step k,
+// on threads k < K, while the pixels are in flight), and each thread applies
+// the K steps, branch code s_code[k] on step k's plan, to Math::N pixels at
+// a time (`Math::pixels`), then writes its run once.  A block whose runs all
+// lie past the image's returns before it loads anything.
+template <typename T, typename Math, typename Stage>
+__device__ __forceinline__ void chain_image(const T* __restrict__ src,
+                                            T* __restrict__ dst,
+                                            const ChainArgs& a,
+                                            const Stage& stage) {
+  typedef typename Math::Q Q;
+  static_assert(sizeof(Q) == sizeof(float), "a plan entry is 4 bytes");
+  const RunMap m = run_map(src, dst, a);
+  if ((long long)blockIdx.x * kThreads >= m.runs) return;
+  extern __shared__ float smem[];
+  int* s_code = reinterpret_cast<int*>(smem);
+  Q* s_plan = reinterpret_cast<Q*>(smem + a.K);
+  const int stride = plan_floats(Math::S ? Math::S : a.curve_steps);
+
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const bool live = t < m.runs;
+  const int has_head = m.head > 0;
+  long long start = 0;
+  int count = 0;
+  if (t < has_head) {
+    count = m.head;
+  } else if (live) {
+    start = m.head + (t - has_head) * kRun;
+    count = (int)(m.hw - start < kRun ? m.hw - start : kRun);
+  }
+  const bool full = m.vec && count == kRun;
+  Run<T> run;
+  if (live) run.load(src + start * 3, count, full);
+
+  for (int k = threadIdx.x; k < a.K; k += blockDim.x) {
+    stage(k, s_code, s_plan + k * stride);
+  }
+  __syncthreads();
+  if (!live) return;
+
+  int row = 0, col = 0;
+  if (Math::kMasked) {   // the run's first grid position
+    row = (int)(start / a.W);
+    col = (int)(start - (long long)row * a.W);
+  }
+#pragma unroll
+  for (int h = 0; h < kRun / Math::N; ++h) {
+    Math::pixels(run, h, s_code, s_plan, stride, row, col, a);
   }
   run.store(dst + start * 3, count, full);
 }

@@ -52,7 +52,7 @@ __global__ void dyn_chain_kernel(const T* __restrict__ img, T* __restrict__ out,
                  const __grid_constant__ BranchTable table,
                  const __grid_constant__ ChainArgs a) {
   const int b = blockIdx.y + b0;
-  chain_image<T, FAST, MASKED, S>(
+  chain_image<T, ChainF32<FAST, MASKED, S>>(
       img + image_offset(b, a), out + image_offset(b, a), a,
       [&](int k, int* s_code, float* plan) {
         const int id = ids[(size_t)b * a.K + k];

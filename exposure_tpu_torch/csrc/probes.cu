@@ -37,10 +37,20 @@
 //
 // What the design does about it: each thread loads 16 consecutive bytes
 // with one uint4 load, keeps the 16 values in registers through all the
-// steps (the 16 independent chains give the scheduler work to overlap),
-// and stores 16 bytes with one uint4 store; the thread holding the ragged
-// end of a buffer whose length is not a multiple of 16 loads and stores it
-// byte by byte.  The buffers must be 16-byte aligned (the wrappers check).
+// steps (16 independent chains for the scheduler to overlap; in the bf16
+// styles 8 registers of two values each, on fastmath.cuh's packed
+// arithmetic) and stores 16 bytes with one uint4 store.  With calls back to
+// back the 0-step copy takes Tensor.copy_'s time; more chunks a thread and
+// streaming loads and stores were timed and bought nothing.  The u8
+// conversions run on the f32 pipe (load_px, quantize_bits), which shows in
+// the short ops and in the chain kernels.  The thread holding the ragged end
+// of a buffer whose length is not a multiple of 16 loads and stores it byte
+// by byte.  The buffers must be 16-byte aligned (the wrappers check).  What
+// depends on an op's parameters alone (the bf16 curve's plan) is made once
+// per thread, before the loops.
+//
+// Besides the probes, `packed_bf16_check` holds fastmath.cuh's packed bf16
+// operations to their scalar f32-then-round forms over every operand pair.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (exposure_tpu_torch/kernels/__init__.py).
@@ -54,7 +64,7 @@
 
 namespace {
 
-constexpr int kBytes = 16;   // bytes per thread: one uint4 load and store
+constexpr int kBytes = 16;   // bytes a thread: one uint4 load and store
 
 // Op codes; the wrappers' tuples keep the same order
 // (bench_kernel_probe.MONO_OPS, bench_fastmath.OPS,
@@ -93,18 +103,55 @@ __device__ __forceinline__ float knot_curve(float x,
   return Curve<FAST, kCurveKnots>(plan, kCurveKnots)(x);
 }
 
-// How a value enters and leaves the op: f32, or bf16 rounded from the f32
-// dequantized value and quantized from its f32 value.
+// four quantized values' low bytes in one word
+__device__ __forceinline__ uint32_t pack_bytes(uint32_t q0, uint32_t q1,
+                                               uint32_t q2, uint32_t q3) {
+  return __byte_perm(__byte_perm(q0, q1, 0x0040u),
+                     __byte_perm(q2, q3, 0x0040u), 0x5410u);
+}
+
+// How a thread's 16 values enter and leave an op: 16 f32 registers, or 8
+// registers of two bf16 values rounded from the f32 dequantized values and
+// quantized from their f32 values.  `prepare` is what a thread makes of the
+// op's parameters before its loops (nothing, by default).
 struct F32Pixels {
   typedef float T;
-  __device__ static float load(uint8_t v) { return load_px(v); }
-  __device__ static float value(float x) { return x; }
+  static constexpr int kCount = kBytes;
+  __device__ void prepare() {}
+  __device__ static void load(const uint32_t (&w)[4], float (&x)[kCount]) {
+#pragma unroll
+    for (int j = 0; j < kBytes; ++j) x[j] = load_px(w[j / 4], j % 4);
+  }
+  __device__ static void store(const float (&x)[kCount], uint32_t (&q)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      q[i] = pack_bytes(quantize_bits(x[4 * i]), quantize_bits(x[4 * i + 1]),
+                        quantize_bits(x[4 * i + 2]),
+                        quantize_bits(x[4 * i + 3]));
+    }
+  }
 };
 
 struct Bf16Pixels {
-  typedef bf T;
-  __device__ static bf load(uint8_t v) { return R(load_px(v)); }
-  __device__ static float value(bf x) { return F(x); }
+  typedef bf2 T;
+  static constexpr int kCount = kBytes / 2;
+  __device__ void prepare() {}
+  __device__ static void load(const uint32_t (&w)[4], bf2 (&x)[kCount]) {
+#pragma unroll
+    for (int m = 0; m < kCount; ++m) {
+      x[m] = pack2(load_px(w[m / 2], (2 * m) % 4),
+                   load_px(w[m / 2], (2 * m + 1) % 4));
+    }
+  }
+  __device__ static void store(const bf2 (&x)[kCount], uint32_t (&q)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      q[i] = pack_bytes(quantize_bits(lo(x[2 * i])),
+                        quantize_bits(hi(x[2 * i])),
+                        quantize_bits(lo(x[2 * i + 1])),
+                        quantize_bits(hi(x[2 * i + 1])));
+    }
+  }
 };
 
 // K4a
@@ -154,19 +201,36 @@ struct FastMath : F32Pixels {
 
 // K4c: parameters p0, p1 and the curve's norm = 8 / (sum of the knots
 // [p0, p1, p0, ...] + 1e-30), all taken in f32 on the host; bf16_cast
-// holds them rounded to bf16, bf16_splat rounds them at each use.
+// holds them rounded to bf16, bf16_splat rounds them at each use.  The bf16
+// styles run on the packed arithmetic, and their curve on a plan made by
+// `prepare`.
+struct NoPlan {};
+struct CurvePlanBf {
+  bf2 q[kCurveKnots + 2];
+};
+
 template <int OP, int STYLE>
 struct Scalar
     : std::conditional_t<STYLE == kF32, F32Pixels, Bf16Pixels> {
-  typedef std::conditional_t<STYLE == kF32, float, bf> T;
+  typedef std::conditional_t<STYLE == kF32, float, bf2> T;
   typedef std::conditional_t<STYLE == kBf16Cast, bf, float> P;
+  static constexpr bool kPlanned = OP == kScCurve && STYLE != kF32;
   P p0, p1, norm;
+  std::conditional_t<kPlanned, CurvePlanBf, NoPlan> plan;
 
   __device__ bf use(P p) const {
     if constexpr (STYLE == kBf16Cast) {
       return p;
     } else {
       return R(p);
+    }
+  }
+
+  __device__ void prepare() {
+    if constexpr (kPlanned) {
+      curve_relu_plan_bf<kCurveKnots>(
+          [&](int i) { return use(i % 2 == 0 ? p0 : p1); }, kCurveKnots,
+          plan.q);
     }
   }
 
@@ -185,65 +249,77 @@ struct Scalar
     } else {
       const bf g = use(p0);
       if constexpr (OP == kScMul) {
-        return mul(x, g);
+        return mul2(x, both(g));
       } else if constexpr (OP == kScPow) {
-        return R(powf(F(bmax(x, C(0.001f))), F(g)));
+        const float gf = F(g);
+        return lanes(bmax2(x, C2(0.001f)),
+                     [&](float v) { return powf(v, gf); });
       } else if constexpr (OP == kScCos) {
-        const bf lum = bclamp(x, C(0.0f), C(1.0f));
-        return add(x, mul(sub(fast_half_cos_pi_bf(lum), x), g));
+        const bf2 lum = bclamp2(x, C2(0.0f), C2(1.0f));
+        return add2(x, mul2(sub2(fast_half_cos_pi_bf2(lum), x), both(g)));
       } else {
-        const bf h = use(p1);
-        const bf t[kCurveKnots] = {g, h, g, h, g, h, g, h};
-        return curve_relu_bf(x, t, kCurveKnots, use(norm));
+        const bf2 xs[1] = {x};
+        bf2 ys[1];
+        curve_relu_bf2<kCurveKnots, 1>(xs, ys, plan.q, kCurveKnots,
+                                       both(use(norm)));
+        return ys[0];
       }
     }
   }
 };
 
-__device__ __forceinline__ uint8_t byte_of(const uint32_t* w, int j) {
-  return (uint8_t)(w[j / 4] >> (8 * (j % 4)));
+// A thread's 16 bytes at `start` into w: one 16-byte load, or byte by byte
+// at the buffer's ragged end (nothing past it).
+__device__ __forceinline__ void load_chunk(const uint8_t* __restrict__ in,
+                                           long long start, long long n,
+                                           uint32_t (&w)[4]) {
+  if (n - start >= kBytes) {
+    const uint4 v = *reinterpret_cast<const uint4*>(in + start);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    return;
+  }
+  w[0] = w[1] = w[2] = w[3] = 0u;
+#pragma unroll
+  for (int j = 0; j < kBytes; ++j) {
+    if (start + j < n) w[j / 4] |= (uint32_t)in[start + j] << (8 * (j % 4));
+  }
+}
+
+__device__ __forceinline__ void store_chunk(uint8_t* __restrict__ out,
+                                            long long start, long long n,
+                                            const uint32_t (&q)[4]) {
+  if (n - start >= kBytes) {
+    *reinterpret_cast<uint4*>(out + start) = make_uint4(q[0], q[1], q[2], q[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kBytes; ++j) {
+    if (start + j < n) out[start + j] = (uint8_t)(q[j / 4] >> (8 * (j % 4)));
+  }
 }
 
 // The skeleton: 16 bytes a thread, the op `steps` times on each value.
 template <typename Op>
 __global__ void __launch_bounds__(kThreads)
 probe_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
-             long long n, int steps, Op op) {
+             long long n, int steps, const Op op_in) {
   typedef typename Op::T T;
   const long long start =
       ((long long)blockIdx.x * kThreads + threadIdx.x) * kBytes;
   if (start >= n) return;
-  const bool full = n - start >= kBytes;
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  if (full) {
-    const uint4 v = *reinterpret_cast<const uint4*>(in + start);
-    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kBytes; ++j) {
-      if (start + j < n) w[j / 4] |= (uint32_t)in[start + j] << (8 * (j % 4));
-    }
-  }
-  T x[kBytes];
-#pragma unroll
-  for (int j = 0; j < kBytes; ++j) x[j] = op.load(byte_of(w, j));
+  uint32_t w[4];
+  load_chunk(in, start, n, w);
+  Op op = op_in;
+  op.prepare();
+  T x[Op::kCount];
+  Op::load(w, x);
   for (int s = 0; s < steps; ++s) {
 #pragma unroll
-    for (int j = 0; j < kBytes; ++j) x[j] = op.step(x[j]);
+    for (int j = 0; j < Op::kCount; ++j) x[j] = op.step(x[j]);
   }
-  uint32_t q[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int j = 0; j < kBytes; ++j) {
-    q[j / 4] |= (uint32_t)quantize_px(op.value(x[j])) << (8 * (j % 4));
-  }
-  if (full) {
-    *reinterpret_cast<uint4*>(out + start) = make_uint4(q[0], q[1], q[2], q[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kBytes; ++j) {
-      if (start + j < n) out[start + j] = byte_of(q, j);
-    }
-  }
+  uint32_t q[4];
+  Op::store(x, q);
+  store_chunk(out, start, n, q);
 }
 
 template <typename Op>
@@ -296,6 +372,95 @@ cudaError_t launch_style(const void* in, void* out, long long n, int op,
                                             s);
     default:
       return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the packed bf16 operations against their scalar forms, exhaustively
+// ---------------------------------------------------------------------------
+
+// The order of bench_bf16_probe.PACKED_OPS.  Max and Min are the
+// comparison-and-select forms the kernels run (bmax2, bmin2); Hmax and Hmin
+// the native max.bf16x2 and min.bf16x2, counted to show where they differ.
+enum PackedOp : int {
+  kPkAdd, kPkSub, kPkMul, kPkMax, kPkMin, kPkGe, kPkLe, kPkGt, kPkHmax,
+  kPkHmin, kPkAbs, kPkNeg, kPkOps
+};
+// per op: results whose bits differ (two NaNs aside), those among them that
+// are zeros of either sign, and pairs of NaNs with different bits
+enum PackedCount : int { kDiffer, kZeroSign, kNanPayload, kPkCounts };
+
+__device__ __forceinline__ bool is_nan_bits(unsigned v) {
+  return (v & 0x7FFFu) > 0x7F80u;
+}
+
+template <int OP>
+__device__ __forceinline__ void tally(unsigned (&local)[kPkOps][kPkCounts],
+                                      unsigned got, unsigned want) {
+  got &= 0xFFFFu;
+  want &= 0xFFFFu;
+  if (got == want) return;
+  if (is_nan_bits(got) && is_nan_bits(want)) {
+    ++local[OP][kNanPayload];
+    return;
+  }
+  ++local[OP][kDiffer];
+  if (((got | want) & 0x7FFFu) == 0u) ++local[OP][kZeroSign];
+}
+
+// Both lanes of a packed result against the scalar form on each lane.
+template <int OP>
+__device__ __forceinline__ void tally2(unsigned (&local)[kPkOps][kPkCounts],
+                                       bf2 got, bf want_lo, bf want_hi) {
+  tally<OP>(local, bits2(got), __bfloat16_as_ushort(want_lo));
+  tally<OP>(local, bits2(got) >> 16, __bfloat16_as_ushort(want_hi));
+}
+
+template <int OP>
+__device__ __forceinline__ void tally_mask(
+    unsigned (&local)[kPkOps][kPkCounts], unsigned got, bool want_lo,
+    bool want_hi) {
+  tally<OP>(local, got, want_lo ? 0xFFFFu : 0u);
+  tally<OP>(local, got >> 16, want_hi ? 0xFFFFu : 0u);
+}
+
+// Thread (x, y): the operand pair b = (2x, 2x + 1) as bit patterns against
+// the 256 values a = 256 y .. 256 y + 255 in both lanes; the grid covers all
+// 2^32 (a, b).  The unary operations see every b once (y == 0).
+__global__ void __launch_bounds__(kThreads)
+packed_bf16_check_kernel(unsigned long long* __restrict__ counts) {
+  const unsigned pair = blockIdx.x * kThreads + threadIdx.x;
+  const bf b0 = __ushort_as_bfloat16((unsigned short)(2u * pair));
+  const bf b1 = __ushort_as_bfloat16((unsigned short)(2u * pair + 1u));
+  const bf2 b = from_bits2(2u * pair | (2u * pair + 1u) << 16);
+  unsigned local[kPkOps][kPkCounts] = {};
+  for (unsigned i = 0; i < 256u; ++i) {
+    const bf a = __ushort_as_bfloat16((unsigned short)(blockIdx.y * 256u + i));
+    const bf2 a2 = both(a);
+    tally2<kPkAdd>(local, add2(a2, b), add(a, b0), add(a, b1));
+    tally2<kPkSub>(local, sub2(a2, b), sub(a, b0), sub(a, b1));
+    tally2<kPkMul>(local, mul2(a2, b), mul(a, b0), mul(a, b1));
+    tally2<kPkMax>(local, bmax2(a2, b), bmax(a, b0), bmax(a, b1));
+    tally2<kPkMin>(local, bmin2(a2, b), bmin(a, b0), bmin(a, b1));
+    tally2<kPkHmax>(local, __hmax2(a2, b), bmax(a, b0), bmax(a, b1));
+    tally2<kPkHmin>(local, __hmin2(a2, b), bmin(a, b0), bmin(a, b1));
+    tally_mask<kPkGe>(local, ge2(a2, b), F(a) >= F(b0), F(a) >= F(b1));
+    tally_mask<kPkLe>(local, le2(a2, b), F(a) <= F(b0), F(a) <= F(b1));
+    tally_mask<kPkGt>(local, gt2(a2, b), F(a) > F(b0), F(a) > F(b1));
+  }
+  if (blockIdx.y == 0) {
+    tally2<kPkAbs>(local, abs2(b), babs(b0), babs(b1));
+    tally2<kPkNeg>(local, neg2(b), bneg(b0), bneg(b1));
+  }
+#pragma unroll
+  for (int op = 0; op < kPkOps; ++op) {
+#pragma unroll
+    for (int c = 0; c < kPkCounts; ++c) {
+      if (local[op][c]) {
+        atomicAdd(&counts[op * kPkCounts + c],
+                  (unsigned long long)local[op][c]);
+      }
+    }
   }
 }
 
@@ -366,6 +531,20 @@ int bf16_probe_launch(const void* in, void* out, long long n, int op,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The packed bf16 operations of fastmath.cuh against their scalar forms
+// over all 2^32 operand pairs (abs and neg over all 2^16 values): adds to
+// counts[op * 3 + {0: results that differ, 1: those that are zeros of
+// either sign, 2: NaN pairs with different bits}], 12 ops in PackedOp's
+// order, 36 zeroed 64-bit integers on the device.
+int packed_bf16_check_launch(void* counts, void* stream) {
+  if (!counts) return (int)cudaErrorInvalidValue;
+  const dim3 grid(32768 / kThreads, 256);
+  packed_bf16_check_kernel<<<grid, kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(counts));
+  return (int)cudaGetLastError();
 }
 
 const char* probes_error_string(int code) {

@@ -59,7 +59,7 @@ __global__ void static_chain_kernel(const T* __restrict__ img, T* __restrict__ o
   if (i >= n_active) return;   // padded slot: no load, no math, no store
   const int row = rows ? rows[i] : i;
   const int pp = a.mask_offset;   // packed filter-parameter width
-  chain_image<T, FAST, MASKED, S>(
+  chain_image<T, ChainF32<FAST, MASKED, S>>(
       img + image_offset(row, a), out + image_offset(row, a), a,
       [&](int k, int* s_code, float* plan) {
         const int code = sig.code[k];

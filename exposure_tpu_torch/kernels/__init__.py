@@ -165,6 +165,8 @@ def _bind_probes(lib):
         vp, vp, n, i, i, i,        # in, out, n, op, style, steps
         f, f, vp]                  # p0, p1, stream
     lib.bf16_probe_launch.restype = i
+    lib.packed_bf16_check_launch.argtypes = [vp, vp]   # counts, stream
+    lib.packed_bf16_check_launch.restype = i
     lib.probes_error_string.argtypes = [i]
     lib.probes_error_string.restype = ctypes.c_char_p
 

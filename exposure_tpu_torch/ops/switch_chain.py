@@ -14,7 +14,6 @@ batch in place.
 import torch
 
 from exposure_tpu_torch.ops.dyn_chain import (
-    MAX_STATIC_SMEM,
     branch_codes,
     check_inputs,
     check_plan_smem,
@@ -128,13 +127,9 @@ def apply_filter_chain_switch(img, filter_ids, packed_params, filters,
     num_steps, batch = filter_ids.shape
     pp = packed_params.shape[-1]
     m = mask_params.shape[-1] if masking else 0
-    if compute_dtype == torch.bfloat16:
-        # the bf16 path stages K codes and K x P bf16 parameters
-        if num_steps * (4 + 2 * (pp + m)) > MAX_STATIC_SMEM:
-            raise ValueError('K x P too large for the kernel: %d x %d'
-                             % (num_steps, pp + m))
-    else:
-        check_plan_smem(num_steps, filters)
+    bf16 = compute_dtype == torch.bfloat16
+    # both compute types stage K codes and K per-step plans of 4-byte entries
+    check_plan_smem(num_steps, filters)
     ids = fold_active(filter_ids, active_steps, len(filters)) \
         .to(torch.int32).contiguous()
     params = packed_params.contiguous()
@@ -155,15 +150,18 @@ def apply_filter_chain_switch(img, filter_ids, packed_params, filters,
             rows_i32.data_ptr() if rows_i32 is not None else None,
             codes, len(filters), n, n_active, batch, h, w, num_steps, pp, m,
             int(img.dtype == torch.uint8),
-            int(compute_dtype == torch.bfloat16), int(bool(fast_math)),
+            int(bf16), int(bool(fast_math)),
             int(masking), *kernel_scalars(filters, h, w),
             kernel_stream(img.device))
     if err != 0:
         raise RuntimeError('switch_chain kernel launch failed: %s'
                            % lib.switch_chain_error_string(err).decode())
     apply_filter_chain_switch.launches += 1
+    apply_filter_chain_switch.launches_bf16 += int(bf16)
     return out
 
 
-# Kernel launches by apply_filter_chain_switch (CPU calls do not count).
+# Kernel launches by apply_filter_chain_switch (CPU calls do not count), and
+# those among them in bfloat16.
 apply_filter_chain_switch.launches = 0
+apply_filter_chain_switch.launches_bf16 = 0

@@ -47,9 +47,17 @@ def bound_ms(flops, nbytes):
     return t_bytes * 1e3, 'bytes'
 
 
-def median_seconds(fn, device, runs=7, warmup=2):
-    """Median seconds of ``fn()`` over ``runs`` calls after ``warmup``:
-    between CUDA events on a CUDA device, on the host clock on the CPU."""
+def median_seconds(fn, device, runs=7, warmup=2, calls=1):
+    """Median seconds of ``fn()`` over ``runs`` timings after ``warmup``
+    calls: between CUDA events on a CUDA device, on the host clock on the
+    CPU.  With one call a timing the events also enclose the host's work
+    between the first event and the launch (a wrapper's checks, its
+    allocation, the ctypes call: tens of microseconds, which a kernel of 0.15
+    ms shows).  With ``calls`` above 1 a timing spans that many calls back
+    to back, divided by their number, and one more call is queued before the
+    first event, so that the device is still busy while the host prepares
+    each timed call and the events see device time alone (as long as the
+    host queues a call faster than the device runs one)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -57,15 +65,19 @@ def median_seconds(fn, device, runs=7, warmup=2):
         if torch.device(device).type == 'cuda':
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if calls > 1:
+                fn()
             start.record()
-            fn()
+            for _ in range(calls):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end) / 1e3)
+            times.append(start.elapsed_time(end) / 1e3 / calls)
         else:
             t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
+            for _ in range(calls):
+                fn()
+            times.append((time.perf_counter() - t0) / calls)
     return statistics.median(times)
 
 

@@ -103,6 +103,44 @@ def run_probe(img, params, op, style, steps):
 run_probe.launches = 0
 
 
+# The packed bf16 operations of csrc/fastmath.cuh, in the order of
+# csrc/probes.cu's enum PackedOp: max and min are the comparison-and-select
+# forms the kernels run, hmax and hmin the native instructions.
+PACKED_OPS = ('add', 'sub', 'mul', 'max', 'min', 'ge', 'le', 'gt', 'hmax',
+              'hmin', 'abs', 'neg')
+PACKED_COUNTS = ('differ', 'zero_sign', 'nan_payload')
+
+
+def check_packed_ops(device='cuda'):
+    """Hold each packed bf16 operation of ``csrc/fastmath.cuh`` to its
+    scalar f32-then-round form on the card, over all 2^32 pairs of bf16 bit
+    patterns (abs and neg over all 2^16 patterns).
+
+    Returns ``{op: {'checked', 'differ', 'zero_sign', 'nan_payload'}}``:
+    the results checked, those whose bits differ (a pair of NaNs aside),
+    those among them where both forms give a zero (of opposite signs), and
+    the excluded pairs of NaNs with different bits.  There is no plain
+    version: the check is of the card's instructions."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        raise ValueError('the packed operations exist only on the card, '
+                         'got device %s' % device)
+    counts = torch.zeros(len(PACKED_OPS) * len(PACKED_COUNTS),
+                         dtype=torch.int64, device=device)
+    from exposure_tpu_torch.kernels import probes_library
+    lib = probes_library()
+    with torch.cuda.device(device):
+        err = lib.packed_bf16_check_launch(
+            counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError('packed_bf16_check_launch failed: %s'
+                           % lib.probes_error_string(err).decode())
+    table = counts.view(len(PACKED_OPS), len(PACKED_COUNTS)).tolist()
+    return {op: dict(zip(PACKED_COUNTS, row),
+                     checked=2 ** 16 if op in ('abs', 'neg') else 2 ** 32)
+            for op, row in zip(PACKED_OPS, table)}
+
+
 def make_input(batch, res):
     """The tool's seeded [batch, 1, res, res] u8 input."""
     rng = np.random.RandomState(0)
@@ -115,7 +153,7 @@ def probe(op, style, batch, res, steps, device='cuda'):
     on a seeded [batch, 1, res, res] u8 input."""
     img = make_input(batch, res).to(device)
     ms = median_seconds(lambda: run_probe(img, PARAMS, op, style, steps),
-                        device) * 1e3
+                        device, calls=4) * 1e3
     return {'op': op, 'style': style, 'ok': True, 'ms': ms}
 
 

@@ -37,10 +37,10 @@ STEPS = 5
 
 
 def serialized_time(fn, x0):
-    """Seconds per call of ``fn(x0)``: the median of event-timed calls
-    (``tools.median_seconds``), under the JAX tool's name and signature, so
-    that the two packages' tools read alike."""
-    return median_seconds(lambda: fn(x0), x0.device)
+    """Seconds per call of ``fn(x0)``: the median of event-timed runs of 4
+    calls back to back (``tools.median_seconds``), under the JAX tool's name
+    and signature, so that the two packages' tools read alike."""
+    return median_seconds(lambda: fn(x0), x0.device, calls=4)
 
 
 # ---- candidate per-channel ops (applied 5x to each value) ----------------

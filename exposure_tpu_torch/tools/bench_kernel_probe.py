@@ -12,16 +12,26 @@ C. the branchless plain chain (``ops/chain.py::apply_filter_chain``) in
    f32, 5 steps, all E;
 D. K2 on the same f32 input.
 
+``--sass`` adds what the compiler made of the 0-step copy kernel, its
+instructions by opcode (``cuobjdump -sass`` of the built library): one
+``LDG.E.128`` and one ``STG.E.128`` a thread, and the u8 conversions on the
+f32 pipe (``PRMT``, ``FADD``, ``FMUL``; a conversion instruction would read
+``I2F`` or ``F2I``).
+
 Usage: python -m exposure_tpu_torch.tools.bench_kernel_probe [--batch 256]
-       [--res 512] [--iters 20]
+       [--res 512] [--iters 20] [--sass]
 """
 
 import argparse
 import json
+import os
+import re
+import subprocess
 
 import numpy as np
 import torch
 
+from exposure_tpu_torch import kernels
 from exposure_tpu_torch.ops.chain import apply_filter_chain
 from exposure_tpu_torch.ops.filters import build_filters, max_filter_parameters
 from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
@@ -41,12 +51,16 @@ MONO_OPS = ('copy', 'E', 'G')
 
 
 def serialized_time(fn, x, iters, *args):
-    """Seconds per call of ``fn(x, *args)``: the median of ``iters`` calls
-    (``tools.median_seconds``).  The calls run in order on one stream, so
-    the JAX tool's chaining of each output into the next call is not
-    needed; the JAX tool's name and signature are kept, so that the two
+    """Seconds per call of ``fn(x, *args)`` over about ``iters`` calls: the
+    median of 3 event-timed runs of ``iters // 3`` calls back to back
+    (``tools.median_seconds``), so that the host's work before a launch
+    overlaps the call before it, as the JAX tool's slope between a short
+    and a long run cancelled its fixed costs.  The calls run in order on
+    one stream, so the JAX tool's chaining of each output into the next
+    call is not needed; its name and signature are kept, so that the two
     packages' tools read alike."""
-    return median_seconds(lambda: fn(x, *args), x.device, runs=iters)
+    return median_seconds(lambda: fn(x, *args), x.device, runs=3,
+                          calls=max(1, iters // 3))
 
 
 def _check(img, op):
@@ -102,6 +116,32 @@ SECTION_A = (('pallas_copy_0step', 0, 'copy'),
              ('pallas_G_5step', 5, 'G'))
 
 
+# an instruction line of ``cuobjdump -sass``: /*0040*/  [@P0] OPCODE.MOD ...
+_SASS_LINE = re.compile(
+    r'/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[0-9T]+\s+)?([A-Z][A-Z0-9_.]*)')
+# what the mangled name of probe_kernel<Mono<kMonoCopy>> contains
+COPY_KERNEL = ('probe_kernel', 'MonoILi0E')
+
+
+def sass_opcodes(path, name_parts=COPY_KERNEL):
+    """``{opcode: count}`` over the instructions of the functions of the
+    library ``path`` whose mangled names contain every one of
+    ``name_parts``, from ``cuobjdump -sass`` (the CUDA toolkit's, beside
+    nvcc)."""
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), 'cuobjdump')
+    text = subprocess.run([tool, '-sass', path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, inside = {}, False
+    for line in text.splitlines():
+        if 'Function :' in line:
+            inside = all(part in line for part in name_parts)
+        elif inside:
+            found = _SASS_LINE.search(line)
+            if found:
+                counts[found.group(1)] = counts.get(found.group(1), 0) + 1
+    return counts
+
+
 def report(batch=256, res=512, iters=20, device='cuda'):
     """The JAX tool's report, sections A-D, timed on ``device``."""
     b = batch
@@ -147,9 +187,13 @@ def main():
     parser.add_argument('--batch', type=int, default=256)
     parser.add_argument('--res', type=int, default=512)
     parser.add_argument('--iters', type=int, default=20)
+    parser.add_argument('--sass', action='store_true')
     args = parser.parse_args()
     device = tool_device()
-    print(json.dumps(report(args.batch, args.res, args.iters, device)))
+    out = report(args.batch, args.res, args.iters, device)
+    if args.sass:
+        out['copy_kernel_sass'] = sass_opcodes(kernels.probes_kernel().path)
+    print(json.dumps(out))
 
 
 if __name__ == '__main__':

@@ -27,6 +27,10 @@ The chain kernels' edges: the generic knot count, image bases that are not
 bank with every branch, K3's shuffled rows below ``n_active``, and K1, K2
 and K3 equal bit for bit on one trajectory.
 
+K2 in bf16 runs the same edges against its plain version, and the packed
+bf16 operations it and K4c run are held to their scalar f32-then-round forms
+over every pair of operands.
+
 The probes: K4a, K4b and K4c in f32 within 1 LSB of their plain versions
 (the CUDA library's powf, cospif, expf and logf may differ from torch's in the
 last bit), K4c in bf16 with at most 1e-3 of the values more than 1 LSB
@@ -421,6 +425,135 @@ def test_k1_k2_k3_agree_bit_for_bit(cuda_device, config, fast, dtype):
     assert torch.equal(k1, k2) and torch.equal(k1, k3)
 
 
+# K2 in bf16 on the same edges, against its plain version.
+
+def _bf16_holds(img, ids, params, filters, **kw):
+    """K2 in bf16 against its bf16 plain version: at most 1e-3 of the values
+    more than 1 LSB (u8) or 2 bf16 ulps (f32) apart.  Returns the kernel's
+    output."""
+    before = (apply_filter_chain_switch.launches,
+              apply_filter_chain_switch.launches_bf16)
+    got = apply_filter_chain_switch(img, ids, params, filters,
+                                    compute_dtype=torch.bfloat16, **kw)
+    assert (apply_filter_chain_switch.launches,
+            apply_filter_chain_switch.launches_bf16) == (before[0] + 1,
+                                                         before[1] + 1)
+    if 'out' in kw:
+        kw = dict(kw, out=torch.zeros_like(img))
+    want = apply_filter_chain_switch_reference(
+        img, ids, params, filters, compute_dtype=torch.bfloat16, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == img.dtype and got.shape == img.shape
+    if got.dtype == torch.uint8:
+        off = (got.int() - want.int()).abs() > 1
+    else:
+        off = (got - want).abs() > 2.0 ** -7 * torch.clamp(want.abs(), min=1.0)
+    assert float(off.float().mean()) <= 1e-3
+    return got
+
+
+def _bf16_case(rng, config, dtype, device, **shape):
+    filters, img, ids, _, mask = _case(rng, config, dtype, device, **shape)
+    return filters, img, ids, _regressed(rng, filters, ids).to(device), mask
+
+
+@pytest.mark.cuda
+def test_packed_bf16_ops_match_scalar_forms(cuda_device):
+    """Every packed bf16 operation the kernels run gives the bits of its
+    scalar f32-then-round form on all 2^32 operand pairs (a pair of NaNs
+    aside); the native max and min, which no kernel runs, do not (a NaN
+    second operand, zeros of opposite sign)."""
+    counts = bf16_probe.check_packed_ops(cuda_device)
+    assert set(counts) == set(bf16_probe.PACKED_OPS)
+    for op in ('add', 'sub', 'mul', 'max', 'min', 'ge', 'le', 'gt', 'abs',
+               'neg'):
+        assert counts[op]['differ'] == 0, (op, counts[op])
+        assert counts[op]['checked'] == (2 ** 16 if op in ('abs', 'neg')
+                                         else 2 ** 32)
+    for op in ('hmax', 'hmin'):
+        assert counts[op]['differ'] > 0 and counts[op]['zero_sign'] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('config', ['synthetic_explore', 'masked'])
+@pytest.mark.parametrize('fast', [False, True], ids=['exact', 'fast'])
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_switch_bf16_generic_curve_steps(cuda_device, config, fast, dtype):
+    cfg = load_config(config)
+    cfg.curve_steps = 5
+    filters = build_filters(cfg)
+    names = [type(f).__name__ for f in filters]
+    rng = np.random.RandomState(12)
+    _, img, _, _, mask = _case(rng, config, dtype, cuda_device)
+    curves = [names.index('ToneFilter'), names.index('ColorFilter')]
+    ids = torch.from_numpy(np.repeat(np.array(
+        curves * 2 + curves[:1], np.int32)[:, None], 4, axis=1)).to(
+            cuda_device)
+    params = _regressed(rng, filters, ids).to(cuda_device)
+    _bf16_holds(img, ids, params, filters, mask_params=mask, fast_math=fast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('config', ['synthetic_explore', 'masked'])
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_switch_bf16_unaligned_image_bases(cuda_device, config, dtype):
+    """Odd shapes and a storage offset (every run on the scalar path): the
+    slice gets the bits the whole batch gets."""
+    rng = np.random.RandomState(13)
+    filters, img, ids, params, mask = _bf16_case(rng, config, dtype,
+                                                 cuda_device, b=5)
+    whole = _bf16_holds(img, ids, params, filters, mask_params=mask,
+                        fast_math=True)
+    sub = img[1:]
+    assert sub.is_contiguous() and sub.storage_offset() > 0
+    part = _bf16_holds(sub, ids[:, 1:].contiguous(),
+                       params[:, 1:].contiguous(), filters,
+                       mask_params=None if mask is None else
+                       mask[:, 1:].contiguous(), fast_math=True)
+    assert torch.equal(whole[1:], part)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hw', [(1, 1), (3, 5), (5, 7), (4, 4), (7, 9)],
+                         ids=lambda s: '%dx%d' % s)
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_switch_bf16_ragged_pixel_runs(cuda_device, hw, dtype):
+    rng = np.random.RandomState(14)
+    filters, img, ids, params, _ = _bf16_case(
+        rng, 'synthetic_explore', dtype, cuda_device, b=3, h=hw[0], w=hw[1])
+    _bf16_holds(img, ids, params, filters, fast_math=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fast', [False, True], ids=['exact', 'fast'])
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_switch_bf16_masked_bank_every_branch(cuda_device, fast, dtype):
+    rng = np.random.RandomState(15)
+    k = len(build_filters(load_config('masked')))
+    filters, img, _, _, mask = _case(rng, 'masked', dtype, cuda_device, b=2,
+                                     k=k, h=45, w=77)
+    ids = torch.arange(k, dtype=torch.int32, device=cuda_device)[:, None] \
+        .repeat(1, 2).contiguous()
+    params = _regressed(rng, filters, ids).to(cuda_device)
+    _bf16_holds(img, ids, params, filters, mask_params=mask, fast_math=fast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_switch_bf16_shuffled_rows(cuda_device, dtype):
+    """``rows`` in a shuffled order and ``n_active`` below the slot count:
+    each active slot writes its own image, the others stay."""
+    rng = np.random.RandomState(16)
+    filters, img, ids, params, _ = _bf16_case(rng, 'synthetic_explore', dtype,
+                                              cuda_device, b=9)
+    rows = torch.from_numpy(rng.permutation(9)[:7].astype(np.int32)).to(
+        cuda_device)
+    out = _bf16_holds(img, ids, params, filters, fast_math=True, rows=rows,
+                      out=torch.zeros_like(img), n_active=5)
+    idle = sorted(set(range(9)) - set(rows[:5].tolist()))
+    assert not out[idle].any()
+
+
 # [B, H, W] of the probe inputs: 16-byte chunks only, and a ragged end
 PROBE_SIZES = {'small': (2, 64, 64), 'odd': (3, 37, 53)}
 
@@ -486,6 +619,24 @@ def test_bf16_probe_matches_plain(cuda_device, size):
                 assert float(off.float().mean()) <= 1e-3, (op, style)
             outs[style] = got
         assert torch.equal(outs['bf16_cast'], outs['bf16_splat']), op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('length', [1, 15, 17, 4097, 16 * 1024 + 5,
+                                    3 * 16 * 1024 + 16 * 255 + 9])
+def test_bf16_probe_odd_lengths(cuda_device, length):
+    """Odd byte counts: below a thread's 16 bytes, a ragged end in the first
+    block and in later ones, and past a block's 4 KiB."""
+    rng = np.random.RandomState(17)
+    img = torch.from_numpy(rng.randint(0, 256, (1, 1, 1, length)).astype(
+        np.uint8)).to(cuda_device)
+    for op in bf16_probe.OPS:
+        for style in bf16_probe.STYLES:
+            got = bf16_probe.run_probe(img, bf16_probe.PARAMS, op, style, 8)
+            want = bf16_probe.run_probe_reference(img, bf16_probe.PARAMS, op,
+                                                  style, 8)
+            torch.cuda.synchronize()
+            assert _max_lsb(got, want) <= 1, (op, style)
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ includes it, directly or through another header."""
 import os
 import shutil
 
+from exposure_tpu_torch import kernels
 from exposure_tpu_torch.kernels import CSRC_DIR, source_digest
 
 KERNELS = ('dyn_chain', 'switch_chain', 'static_chain', 'probes')
@@ -33,6 +34,19 @@ def test_digest_follows_included_headers(tmp_path):
         for k in KERNELS:
             assert after[k] != before[k], (header, k)
         before = after
+
+
+def test_build_all_covers_every_kernel_source(monkeypatch):
+    """``build_all`` builds one library for each ``.cu`` of ``csrc/``, each
+    once, so a source added there without an accessor shows here."""
+    built = []
+    monkeypatch.setattr(kernels, 'build',
+                        lambda name, bind: built.append(name) or name)
+    libs = kernels.build_all()
+    sources = sorted(f[:-3] for f in os.listdir(CSRC_DIR)
+                     if f.endswith('.cu'))
+    assert sorted(built) == sources == sorted(KERNELS)
+    assert libs == {name: name for name in KERNELS}
 
 
 def test_digest_of_a_header_chain_and_of_the_source(tmp_path):

@@ -2,8 +2,9 @@
 the kernels' plain versions (as tests/test_tools.py::TestVerifyKernel runs
 the JAX tool in interpret mode), its numpy draws against the JAX tool's,
 the per-filter table and the probe reports at a tiny size with ``--cpu``,
-and the rule that a tool without a CUDA device and without ``--cpu``
-exits non-zero."""
+the rule that a tool without a CUDA device and without ``--cpu``
+exits non-zero, the back-to-back timing, the SASS opcode reader on a canned
+listing and the refusal of the packed-operation check off the card."""
 
 import json
 import os
@@ -21,6 +22,7 @@ from exposure_tpu_torch.tools import bench_bf16_probe as t_bf16
 from exposure_tpu_torch.tools import bench_fastmath as t_fastmath
 from exposure_tpu_torch.tools import bench_filters as t_filters
 from exposure_tpu_torch.tools import bench_kernel_probe as t_probe
+from exposure_tpu_torch.tools import median_seconds
 from exposure_tpu_torch.tools import verify_kernel as t_verify
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -184,3 +186,84 @@ def test_bench_filters_cli_with_cpu():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out['dtype'] == 'f32' and out['device'] == 'cpu'
     assert out['sum_all_branches_ms'] > 0
+
+
+@pytest.mark.parametrize('calls', [1, 4])
+def test_median_seconds_times_calls_back_to_back(calls):
+    """``runs`` timings of ``calls`` calls each after ``warmup`` calls, the
+    time divided by the calls."""
+    seen = []
+    per_call = median_seconds(lambda: seen.append(1), 'cpu', runs=3,
+                              warmup=2, calls=calls)
+    assert len(seen) == 2 + 3 * calls   # the CPU takes no lead-in call
+    assert 0.0 <= per_call < 1.0
+
+
+@pytest.mark.parametrize('iters', [1, 20])
+def test_serialized_time_runs_calls_back_to_back(iters):
+    """The probe tool's timing: 2 warm-up calls, then 3 timings of
+    ``iters // 3`` calls each (at least one)."""
+    seen = []
+    x = torch.zeros(1)
+    dt = t_probe.serialized_time(lambda t, k: seen.append(k), x, iters, 7)
+    assert seen == [7] * (2 + 3 * max(1, iters // 3))
+    assert 0.0 <= dt < 1.0
+
+
+def test_packed_op_check_needs_the_card():
+    with pytest.raises(ValueError):
+        t_bf16.check_packed_ops('cpu')
+    assert len(t_bf16.PACKED_OPS) == 12
+
+
+def test_sass_opcodes_counts_one_kernel(monkeypatch):
+    """The opcode table reads the instruction lines of the named kernel
+    alone, predicated ones too, and skips the encoding-only lines."""
+    text = '\n'.join([
+        '\t\tFunction : _ZN3foo12probe_kernelINS_4MonoILi1EEEEEvPKhPhxiT_',
+        '        /*0000*/                   I2F.U8 R0, R2 ;   /* 0x01 */',
+        '\t\tFunction : _ZN3foo12probe_kernelINS_4MonoILi0EEEEEvPKhPhxiT_',
+        '        /*0000*/                   LDG.E.128 R4, [R2.64] ;  /* 0x02 */',
+        '                                                   /* 0x000fe2 */',
+        '        /*0010*/              @!P0 PRMT R0, R4, 0x7440, R5 ;  /* 0x03 */',
+        '        /*0020*/                   PRMT R1, R4, 0x7441, R5 ;  /* 0x04 */',
+        '        /*0030*/               @P1 EXIT ;   /* 0x05 */',
+        '\t\tFunction : other',
+        '        /*0000*/                   F2I.NTZ R0, R2 ;  /* 0x06 */'])
+    monkeypatch.setattr(t_probe.kernels, '_nvcc', lambda: '/cuda/bin/nvcc')
+    calls = []
+
+    def run(cmd, **kw):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout=text, stderr='')
+    monkeypatch.setattr(t_probe.subprocess, 'run', run)
+    assert t_probe.sass_opcodes('lib.so') == {
+        'LDG.E.128': 1, 'PRMT': 2, 'EXIT': 1}
+    assert calls == [['/cuda/bin/cuobjdump', '-sass', 'lib.so']]
+
+
+def test_turns_judge_any_differing_kernel_value():
+    """``chip_smoke.py --turns`` counts, by kernel output, the values that
+    differ from the parent's (NaNs at the same places aside) and lets none
+    pass that is not listed as a deliberate change."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(REPO, 'chip_smoke.py'))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    nan = np.float32('nan')
+    parent = {'k1_E_exact_u8': np.arange(6, dtype=np.uint8),
+              'k2f32_case_masked': np.array([0.5, nan, 1.0], np.float32),
+              'k4c_small_cos_bf16_cast': np.zeros(4, np.uint8)}
+    change = {'k1_E_exact_u8': np.arange(6, dtype=np.uint8),
+              'k2f32_case_masked': np.array([0.5, nan, nan], np.float32),
+              'k4c_small_cos_bf16_cast': np.array([0, 1, 0, 1], np.uint8)}
+    differing = smoke._values_differing(parent, change)
+    assert differing == {'k1_E_exact_u8': 0, 'k2f32_case_masked': 1,
+                         'k4c_small_cos_bf16_cast': 2}
+    assert smoke.TURNS_MAY_DIFFER == ()
+    assert smoke._moved_outputs(differing) == {
+        'k2f32_case_masked': 1, 'k4c_small_cos_bf16_cast': 2}
+    assert smoke._moved_outputs(differing, ('k4c_',)) == {
+        'k2f32_case_masked': 1}
+    assert smoke._moved_outputs(smoke._values_differing(parent, parent)) == {}
