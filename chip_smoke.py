@@ -46,6 +46,17 @@ Phases, one line or a few each (a failing phase exits non-zero):
    B=256 u8, with the fast branch set and without;
 9. small: the whole dynamic path on the card against the CPU pipeline
    (the plain versions throughout) on a small input;
+9b. evaluate: the PNG codec writes the evaluation inputs (the three sample
+   inputs and two seeded images at odd sizes) and reads them back byte for
+   byte; K1 against its plain version at the evaluator's shapes (B=1 f32 at
+   each size, the u8 group of three, stopped rows, exact set), timed at
+   [1, 512, 512, 3] f32 K=5; ``Evaluator`` on the trained artifact:
+   ``eval_batched`` in f32 and u8 and ``eval`` step by step, their files
+   decoded, their K1 launches counted (one per resolution group, one per
+   applied step) and no plain version reached; step by step against the
+   one-launch replay; u8 within 1 LSB of f32 on the u8 grid; the card
+   against the CPU evaluator with dropout off; ``quality_report`` (n=256)
+   and ``edit_sequence``; the plan, replay and PNG milliseconds per image;
 10. main path: the trained ``synthetic_explore`` policy served from the
    in-repo artifact at full width on B=512 batches of seeded 512x512 u8
    images through ``RetouchPipeline.map_batches`` (dynamic, selected
@@ -156,28 +167,24 @@ def say(msg):
 
 
 def cuda_ms(fn, runs=7, warmup=2, calls=1):
-    """Median milliseconds of ``fn()`` between CUDA events; with ``calls``
-    above 1 a timing spans that many calls back to back after one more call
-    queued before the first event (``exposure_tpu_torch.tools.median_seconds``
-    says why; written out here so that ``--serve`` times an older checkout
-    the same way)."""
-    import statistics
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if calls > 1:
-            fn()
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+    """Median milliseconds of ``fn()`` between CUDA events
+    (``exposure_tpu_torch.tools.median_seconds``, of the checkout this
+    process imports: with ``calls`` above 1 a timing spans that many calls
+    back to back after one more call queued before the first event)."""
+    from exposure_tpu_torch.tools import median_seconds
+    return 1e3 * median_seconds(fn, DEVICE, runs=runs, warmup=warmup,
+                                calls=calls)
+
+
+def _on_card(fn):
+    """The keyword that keeps the output of a pipeline's ``__call__`` or
+    ``map_batches`` on the card, so that no timing or count gains a copy to
+    the host; none for a ``--serve`` checkout from before ``device_out``,
+    whose pipeline returns device tensors always."""
+    import inspect
+    if 'device_out' in inspect.signature(fn).parameters:
+        return {'device_out': True}
+    return {}
 
 
 def wrappers():
@@ -997,7 +1004,8 @@ def _timed_stream(pipe, batches, trap):
             torch.cuda.set_sync_debug_mode('error' if trap else 'warn')
             try:
                 start.record()
-                for _ in pipe.map_batches(batches, seed=SEED + 1 + n):
+                for _ in pipe.map_batches(batches, seed=SEED + 1 + n,
+                                          **_on_card(pipe.map_batches)):
                     pass
                 end.record()
             finally:
@@ -1049,7 +1057,8 @@ def phase_main_path(batches):
 
     stages = _count_k1_by_stage(pipe)
     reset_counts()
-    outs = list(pipe.map_batches(batches, seed=SEED))
+    outs = list(pipe.map_batches(batches, seed=SEED,
+                                 **_on_card(pipe.map_batches)))
     torch.cuda.synchronize()
     counts = read_counts()
     launches = counts['dyn_chain']
@@ -1154,7 +1163,8 @@ def phase_modes(batches):
         reset_counts()
         if pipe.grouped:
             pipe._runner.launches.clear()
-        outs = list(pipe.map_batches(batches, seed=SEED))
+        outs = list(pipe.map_batches(batches, seed=SEED,
+                                     **_on_card(pipe.map_batches)))
         torch.cuda.synchronize()
         counts = read_counts()
         must, must_not = MODE_KERNELS[mode]
@@ -1266,7 +1276,7 @@ def phase_bf16_plan(batches):
         total += float((a == b).all(dim=0).float().mean())
     step1 /= len(batches)
     total /= len(batches)
-    out = b16(batches[0], SEED, 0)
+    out = b16(batches[0], SEED, 0, device_out=True)
     torch.cuda.synchronize()
     say('bf16 plan: step-1 ids agree with the f32 plan on %.4f of the '
         'images, all 5 steps on %.4f (%d batches of %d); bf16-planned '
@@ -1296,7 +1306,7 @@ def phase_small_reference():
     for dev, pipe in pipes.items():
         with torch.no_grad():
             plans[dev] = pipe.plan(pipe.proxy(imgs.to(dev)), None)[0].cpu()
-        outs[dev] = pipe(imgs).cpu()
+        outs[dev] = torch.from_numpy(pipe(imgs))
     same = (plans['cpu'] == plans[DEVICE]).all(dim=0)
     if int(same.sum()) < 4:
         fail('small input: CPU and GPU plans agree on %d of 8 rows'
@@ -1308,6 +1318,362 @@ def phase_small_reference():
         % (int(same.sum()), lsb))
     if lsb > 1:
         fail('small input: GPU output off the CPU reference by %d LSB' % lsb)
+
+
+EVAL_ODD_SIZES = ((300, 452), (640, 333))    # H x W of the two seeded files
+EVAL_TIMED = ('eval_f32_1x512x512_k5', 'synthetic_explore', 1, RES, RES, 5,
+              'f32', False, 'timed')
+# K1 at the shapes evaluation gives it: B=1 f32 at each file size (exact
+# set, K=5 and the K=1 of a step-by-step replay), the u8 group of three, and
+# rows stopped early ('stopped': inactive steps after a row's stop)
+EVAL_K1_CASES = [
+    EVAL_TIMED,
+    ('eval_f32_1x300x452_k5', 'synthetic_explore', 1, 300, 452, 5, 'f32',
+     False, None),
+    ('eval_f32_1x640x333_k5', 'synthetic_explore', 1, 640, 333, 5, 'f32',
+     False, None),
+    ('eval_f32_1x640x333_k1', 'synthetic_explore', 1, 640, 333, 1, 'f32',
+     False, None),
+    ('eval_u8_3x512x512_stopped', 'synthetic_explore', 3, RES, RES, 5, 'u8',
+     False, 'stopped'),
+    ('eval_f32_1x300x452_stopped', 'synthetic_explore', 1, 300, 452, 5,
+     'f32', False, 'stopped'),
+]
+EVAL_ARTIFACTS = ('.linear.png', '.input_tone_mapped.png', '.retouched.png')
+EVAL_STEP_ARTIFACTS = EVAL_ARTIFACTS + ('.steps.png', '_debug.pkl')
+
+
+def _eval_inputs(tmp):
+    """The evaluation inputs, written with the port's PNG writer and read
+    back (any differing byte fails): the three sample inputs and two seeded
+    images at odd sizes.  Returns the files and the read and write
+    milliseconds per 512x512 image (host clock, the median of the
+    three)."""
+    import statistics
+    import numpy as np
+    from exposure_tpu_torch.utils.image_io import read_png, write_png
+    rng = np.random.default_rng(SEED + 21)
+    arrays, read_ms = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        arrays.append(read_png(os.path.join(
+            REPO, 'docs', 'sample_inputs', 'masked%d.png' % i)))
+        read_ms.append(1e3 * (time.perf_counter() - t0))
+    for h, w in EVAL_ODD_SIZES:
+        big = _images(rng, 1, 8 * (h // 8 + 1), 8 * (w // 8 + 1))[0]
+        arrays.append(np.ascontiguousarray(big[:h, :w]))
+    files, write_ms = [], []
+    for i, arr in enumerate(arrays):
+        if arr.dtype != np.uint8 or arr.ndim != 3 or arr.shape[2] != 3:
+            fail('evaluate: input %d decodes to %s %s' % (i, arr.dtype,
+                                                          arr.shape))
+        files.append(os.path.join(tmp, 'input%d_%dx%d.png' % (
+            i, arr.shape[0], arr.shape[1])))
+        t0 = time.perf_counter()
+        write_png(files[-1], arr)
+        write_ms.append(1e3 * (time.perf_counter() - t0))
+        back = read_png(files[-1])
+        if back.shape != arr.shape or back.dtype != arr.dtype or \
+                not np.array_equal(back, arr):
+            fail('evaluate: %s does not read back as written' % files[-1])
+    say('evaluate: wrote and read back %d PNG files byte for byte: %s'
+        % (len(files), [os.path.basename(f) for f in files]))
+    return (files, statistics.median(read_ms),
+            statistics.median(write_ms[:3]))
+
+
+def _eval_k1_cases():
+    """K1 against its plain version at the evaluator's shapes, and its
+    time at [1, 512, 512, 3] f32 K=5 beside the plain version's and the
+    bound.  Returns (worst errors by dtype, (ms, plain ms, bound))."""
+    import torch
+    from exposure_tpu_torch.ops.dyn_chain import (
+        apply_filter_chain_dynamic, apply_filter_chain_dynamic_reference)
+    dev = torch.device(DEVICE)
+    banks = _banks()
+    g = torch.Generator().manual_seed(SEED + 22)
+    worst, timed = {'f32': 0.0, 'u8': 0}, None
+    for name, bank, b, h, w, k, dt, fast, variant in EVAL_K1_CASES:
+        filters = banks[bank]
+        img, ids, params, kw = _case_inputs(g, filters, b, h, w, k, dt,
+                                            variant, dev)
+        kw['fast_math'] = fast
+        if variant == 'stopped':
+            active = torch.ones((k, b))
+            active[2:, b - 1] = 0.0     # the last row stops after step 2
+            kw['active_steps'] = active.to(dev)
+        before = apply_filter_chain_dynamic.launches
+        got = apply_filter_chain_dynamic(img, ids, params, filters, **kw)
+        torch.cuda.synchronize()
+        if apply_filter_chain_dynamic.launches != before + 1:
+            fail('K1 %s: the wrapper did not launch the kernel' % name)
+        want = apply_filter_chain_dynamic_reference(img, ids, params,
+                                                    filters, **kw)
+        err, outliers = _compare(got, want)
+        line = ('evaluate: K1 %-28s exact %-3s B=%d %dx%d K=%d  max_%s=%s '
+                'outlier_frac=%.2e' % (
+                    name, dt, b, h, w, k,
+                    'lsb' if dt == 'u8' else 'abs_err',
+                    err if dt == 'u8' else '%.3e' % err, outliers))
+        if variant == 'timed':
+            ms = cuda_ms(lambda: apply_filter_chain_dynamic(
+                img, ids, params, filters, **kw), calls=KERNEL_CALLS)
+            plain = cuda_ms(lambda: apply_filter_chain_dynamic_reference(
+                img, ids, params, filters, **kw), runs=5, warmup=1)
+            bound = _chain_bound(ids, filters, img, fast)
+            timed = (ms, plain, bound)
+            line += '  kernel %.4f ms  plain %.4f ms  bound %.4f ms (%s)' % (
+                ms, plain, bound['bound_ms'], bound['bound_by'])
+        say(line)
+        if not _ok(fast, outliers):
+            fail('K1 %s disagrees with its plain version' % name)
+        worst[dt] = max(worst[dt], err)
+    return worst, timed
+
+
+class _NoPlainVersions:
+    """While active, reaching a plain version of the chain from the
+    evaluator's card path fails the run: K1's plain version, and the
+    branchless chain and step the CPU evaluator replays with."""
+
+    def __enter__(self):
+        from exposure_tpu_torch.core import evaluator
+        from exposure_tpu_torch.ops import dyn_chain
+        self.saved = [
+            (dyn_chain, 'apply_filter_chain_dynamic_reference'),
+            (evaluator, 'apply_filter_chain'),
+            (evaluator, 'apply_filter_step')]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        for module, name, _ in self.saved:
+            setattr(module, name, lambda *a, _n=name, **kw: fail(
+                'evaluate: the card path reached the plain version %s'
+                % _n))
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def _decoded(path, shape):
+    from exposure_tpu_torch.utils.image_io import read_png
+    if not os.path.exists(path):
+        fail('evaluate: %s was not written' % path)
+    img = read_png(path)
+    if shape is not None and img.shape != shape:
+        fail('evaluate: %s decodes to %s, expected %s' % (path, img.shape,
+                                                          shape))
+    return img
+
+
+def phase_evaluate():
+    """Evaluation on the card: the PNG codec's round trip, K1 at the
+    evaluator's shapes, ``Evaluator`` on the trained artifact
+    (``eval_batched`` in f32 and u8, ``eval`` step by step) with its files
+    and K1 launches checked, the card against the CPU with dropout off,
+    ``quality_report`` and ``edit_sequence``.  Returns what the summary
+    line reports of it."""
+    import contextlib
+    import random
+    import tempfile
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.core.evaluator import (
+        Evaluator, downsample_to_proxy, load_linear_image)
+    from exposure_tpu_torch.core.serving import batch_generator
+    from exposure_tpu_torch.tools import edit_sequence, quality_report
+    from exposure_tpu_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+
+    def config(keep=None):
+        cfg = load_config('synthetic_explore')
+        cfg.name = 'synthetic_explore/best'
+        if keep is not None:
+            cfg.dropout_keep_prob = keep
+        return cfg
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(REPO):
+        files, read_ms, write_ms = _eval_inputs(tmp)
+        k1_worst, k1_timed = _eval_k1_cases()
+        models = os.path.join(tmp, 'models')    # no checkpoint: the artifact
+        ev = Evaluator(config(), model_root=models, device=DEVICE)
+
+        # the entry points, with the counts set to 0 before and read after
+        reset_counts()
+        outs = {}
+        with _NoPlainVersions():
+            for tag, u8 in (('f32', False), ('u8', True)):
+                outs[tag] = os.path.join(tmp, 'out_' + tag)
+                before = read_counts()['dyn_chain']
+                res = ev.eval_batched(files, output_dir=outs[tag], seed=SEED,
+                                      u8=u8)
+                groups = 1 + len(EVAL_ODD_SIZES)
+                if read_counts()['dyn_chain'] - before != groups:
+                    fail('evaluate: eval_batched(u8=%s) launched K1 %d times '
+                         'for %d resolution groups' % (
+                             u8, read_counts()['dyn_chain'] - before, groups))
+                for r in res:
+                    if not np.isfinite(r['retouched']).all() or \
+                            r['retouched'].dtype != np.float32:
+                        fail('evaluate: %s retouched is not finite float32'
+                             % r['file'])
+            ev.seconds.clear()      # time a second, warm pass
+            ev.eval_batched(files, output_dir=outs['f32'], seed=SEED)
+            per_image = {k: 1e3 * v / len(files)
+                         for k, v in ev.seconds.items()}
+            before = read_counts()['dyn_chain']
+            outs['steps'] = os.path.join(tmp, 'out_steps')
+            step_res = ev.eval(files[:1], output_dir=outs['steps'],
+                               step_by_step=True, seed=SEED)[0]
+            n_applied = sum(s['applied'] for s in step_res['debug'])
+            if read_counts()['dyn_chain'] - before != n_applied:
+                fail('evaluate: step by step launched K1 %d times for %d '
+                     'applied steps' % (read_counts()['dyn_chain'] - before,
+                                        n_applied))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts['switch_chain'] or counts['static_chain']:
+            fail('evaluate launched %s' % counts)
+
+        # every file of the artifact set exists and decodes
+        for tag in ('f32', 'u8'):
+            for f in files:
+                shape = _decoded(f, None).shape
+                for suffix in EVAL_ARTIFACTS:
+                    _decoded(os.path.join(
+                        outs[tag], os.path.basename(f) + suffix), shape)
+        base = os.path.join(outs['steps'], os.path.basename(files[0]))
+        for suffix in EVAL_STEP_ARTIFACTS:
+            if suffix.endswith('.png'):
+                _decoded(base + suffix,
+                         None if suffix == '.steps.png' else (RES, RES, 3))
+        for i in range(n_applied - 1):
+            _decoded(base + '.intermediate%02d.png' % i, (RES, RES, 3))
+        debug = edit_sequence.load_debug(base + '_debug.pkl')
+        if [s['filter_id'] for s in debug] != \
+                [s['filter_id'] for s in step_res['debug']]:
+            fail('evaluate: the debug pickle does not hold the decisions')
+
+        # step by step (K=1 launches) against the one-launch replay of the
+        # recorded decisions
+        image = load_linear_image(files[0])
+        one = edit_sequence.replay(image, debug, ev.filters, device=DEVICE)
+        err, outliers = _compare(
+            torch.from_numpy(np.clip(step_res['retouched'], 0, 1)),
+            torch.from_numpy(one))
+        say('evaluate: eval(step_by_step=True) on %s: %d applied steps, %d '
+            'K1 launches of K=1; against the one-launch replay max_abs_err='
+            '%.3e outlier_frac=%.2e' % (os.path.basename(files[0]),
+                                        n_applied, n_applied, err, outliers))
+        if outliers > 0.0:
+            fail('evaluate: step by step disagrees with the one-launch '
+                 'replay')
+
+        # u8 within 1 LSB of the f32 replay of the quantized input, on one
+        # plan (dropout on)
+        images = [load_linear_image(f) for f in files]
+        proxies = np.stack([downsample_to_proxy(im, 64) for im in images])
+        traj, applied = ev.plan_trajectory(
+            proxies, batch_generator(SEED, 0, ev.device))
+        with _NoPlainVersions():
+            got_u8 = ev.replay_images(images, traj, u8=True)
+            grid = [(np.clip(im, 0, 1) * 255.0 + 0.5).astype(np.uint8)
+                    .astype(np.float32) / 255.0 for im in images]
+            ref = ev.replay_images(grid, traj)
+        lsb = [np.abs(np.round(np.clip(r, 0, 1) * 255) - np.round(g * 255))
+               for r, g in zip(ref, got_u8)]
+        u8_max = max(float(d.max()) for d in lsb)
+        u8_frac = max(float((d > 1).mean()) for d in lsb)
+        say('evaluate: u8 replay against the f32 replay of the quantized '
+            'input, %d files, steps applied %s: max_lsb=%d, at most %.2e of '
+            'a file\'s values more than 1 LSB off' % (
+                len(files), applied.tolist(), u8_max, u8_frac))
+        if u8_frac > MAX_OUTLIER_FRAC:
+            fail('evaluate: u8 is not within 1 LSB of f32 on the u8 grid')
+        eval_launches = read_counts()['dyn_chain']
+
+        # the card against the CPU, dropout off
+        plans, res = {}, {}
+        for dev in ('cpu', DEVICE):
+            e = Evaluator(config(keep=1.0), model_root=models, device=dev)
+            plans[dev] = e.plan_trajectory(proxies)[0].filter_ids.cpu()
+            for tag, u8 in (('f32', False), ('u8', True)):
+                res[dev, tag] = e.eval_batched(
+                    files, output_dir=os.path.join(tmp, 'cmp_%s_%s' % (
+                        dev, tag)), seed=SEED, u8=u8)
+        same = (plans['cpu'] == plans[DEVICE]).all(dim=0).tolist()
+        if sum(same) * 2 < len(files):
+            fail('evaluate: CPU and GPU plans agree on %d of %d files'
+                 % (sum(same), len(files)))
+        worst = {'f32': 0.0, 'u8': 0.0}
+        for a, b in zip(res['cpu', 'f32'], res[DEVICE, 'f32']):
+            # eval_batched lists its results by resolution group
+            if not same[files.index(a['file'])]:
+                continue
+            err, outliers = _compare(torch.from_numpy(b['retouched']),
+                                     torch.from_numpy(a['retouched']))
+            worst['f32'] = max(worst['f32'], err)
+            if outliers > MAX_OUTLIER_FRAC:
+                fail('evaluate: %s f32 on the card is off the CPU: max %.3e, '
+                     'outliers %.2e' % (a['file'], err, outliers))
+        for a, b in zip(res['cpu', 'u8'], res[DEVICE, 'u8']):
+            if not same[files.index(a['file'])]:
+                continue
+            d = np.abs(np.round(a['retouched'] * 255) -
+                       np.round(b['retouched'] * 255))
+            worst['u8'] = max(worst['u8'], float(d.max()))
+            if (d > 1).mean() > MAX_OUTLIER_FRAC:
+                fail('evaluate: %s u8 on the card is %d LSB off the CPU'
+                     % (a['file'], d.max()))
+        say('evaluate: card against CPU, dropout off: plans agree on %d/%d '
+            'files; on those f32 max_abs_err=%.3e (outliers <= %g), u8 '
+            'max_lsb=%d' % (sum(same), len(files), worst['f32'],
+                            MAX_OUTLIER_FRAC, worst['u8']))
+
+        # the white-box tools (the providers draw from the global random
+        # module)
+        random.seed(SEED)
+        quality = quality_report.quality_report(
+            config(), n=256, model_root=models, seed=SEED, device=DEVICE)
+        say('evaluate: quality_report %s' % json.dumps(quality))
+        if not quality['avg_after'] > quality['avg_before']:
+            fail('evaluate: retouching did not move the outputs toward the '
+                 'targets: %s' % quality)
+        before = read_counts()['dyn_chain']
+        with _NoPlainVersions():
+            record = edit_sequence.main([
+                '--config', 'synthetic_explore', '--debug',
+                base + '_debug.pkl', '--image', files[0], '--step', '0',
+                '--scale', '0.5', '--out-dir', os.path.join(tmp, 'edit'),
+                '--device', DEVICE])
+        if read_counts()['dyn_chain'] - before != 2:
+            fail('evaluate: edit_sequence launched K1 %d times, expected 2'
+                 % (read_counts()['dyn_chain'] - before))
+        say('evaluate: edit_sequence %s' % json.dumps(record))
+        for name in ('before.png', 'after.png'):
+            _decoded(os.path.join(tmp, 'edit', name), (RES, RES, 3))
+        if not record['mean_abs_change'] > 0:
+            fail('evaluate: the edit changed nothing')
+        eval_launches += 2
+
+    ms, plain, bound = k1_timed
+    say('evaluate: K1 launches %d on the evaluation path (eval_batched f32 '
+        'and u8, eval step by step, the u8 check, edit_sequence; the '
+        'comparisons apart); K1 at [1, %d, %d, 3] f32 K=5 exact %.4f ms '
+        '(plain %.4f, bound %.4f by %s)' % (
+            eval_launches, RES, RES, ms, plain, bound['bound_ms'],
+            bound['bound_by']))
+    say('evaluate: ms per image, eval_batched of %d files in f32, second '
+        'pass, host clock: plan %.3f, replay %.3f, PNG read %.3f, PNG write '
+        '%.3f (3 files an image); PNG codec alone on a 512x512 image: read '
+        '%.3f, write %.3f' % (
+            len(files), per_image['plan'], per_image['replay'],
+            per_image['read'], per_image['write'], read_ms, write_ms))
+    say('evaluate: avg_before %.4f avg_after %.4f (%.1f s)' % (
+        quality['avg_before'], quality['avg_after'],
+        time.perf_counter() - t_phase))
+    return {'launches': eval_launches, 'timed': k1_timed, 'worst': k1_worst,
+            'per_image_ms': per_image, 'png_read_ms': read_ms,
+            'png_write_ms': write_ms, 'quality': quality}
 
 
 def main():
@@ -1328,6 +1694,7 @@ def main():
         probe_worst[key] = max(probe_worst[key], v)
     tool_counts, _ = phase_tools()
     phase_small_reference()
+    evaluation = phase_evaluate()
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
                for _ in range(MAIN_BATCHES)]
@@ -1394,10 +1761,24 @@ def main():
         chain_entry('dyn_chain', 'exposure_tpu_torch/csrc/dyn_chain.cu',
                     'exposure_tpu/ops/pallas_chain.py:479',
                     k1_timing[REPLAY_CASE[0]], k1_worst,
-                    k1_main['replay'] + totals['dyn_chain'], 'dyn_chain',
-                    'dyn_chain_kernel',
+                    k1_main['replay'] + totals['dyn_chain'] +
+                    evaluation['launches'], 'dyn_chain', 'dyn_chain_kernel',
                     launches_main_path_replay=k1_main['replay'],
-                    launches_other_paths=totals['dyn_chain']),
+                    launches_other_paths=totals['dyn_chain'],
+                    launches_evaluation=evaluation['launches']),
+        # the same kernel on one full-resolution image, the evaluator's
+        # replay: every launch of the evaluation path (its sizes vary; the
+        # time is this shape's)
+        chain_entry('dyn_chain_evaluate',
+                    'exposure_tpu_torch/csrc/dyn_chain.cu',
+                    'exposure_tpu/ops/pallas_chain.py:479',
+                    evaluation['timed'], evaluation['worst'],
+                    evaluation['launches'], 'dyn_chain', 'dyn_chain_kernel',
+                    shape='[1, %d, %d, 3] f32, K=5, exact set' % (RES, RES),
+                    eval_ms_per_image=evaluation['per_image_ms'],
+                    png_ms_512={'read': evaluation['png_read_ms'],
+                                'write': evaluation['png_write_ms']},
+                    quality_report=evaluation['quality']),
         # the same kernel on the plan's proxy: 5 of its 6 launches a batch,
         # counted by stage on the main path; its error is its own case's
         chain_entry('dyn_chain_proxy', 'exposure_tpu_torch/csrc/dyn_chain.cu',

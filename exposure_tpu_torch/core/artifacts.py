@@ -8,9 +8,19 @@ array as msgpack ext type 1 whose payload is itself msgpack
 needed here: ``msgpack_restore`` decodes the subset such files use in
 pure Python.  ``flax_to_state_dict`` maps the flax ``gen_params`` tree
 onto ``models.networks.PolicyNet``.
+
+``restore_for_serving`` is the by-run lookup the evaluator uses
+(``exposure_tpu/core/artifacts.py::restore_for_serving``): the artifact of
+``<config>/<run>`` under ``artifacts/serving/``.  The JAX package prefers a
+training checkpoint under ``models/<config>/<run>`` when there is one; the
+port cannot read those yet (``ROADMAP.md`` item 9c), so a run that has
+checkpoints raises instead of quietly serving the artifact's weights in
+their place.  The artifact writer waits for 9c too.
 """
 
 import gzip
+import os
+import re
 import struct
 
 import numpy as np
@@ -18,6 +28,53 @@ import torch
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
+
+ARTIFACT_ROOT = 'artifacts/serving'
+_CHECKPOINT_FILE = re.compile(r'model\.ckpt-\d+\.msgpack$')
+
+
+def artifact_path(run, root=ARTIFACT_ROOT):
+    """Where the artifact of ``<config>/<run>`` lives (the '/' is flattened
+    so that the artifact directory stays one level deep)."""
+    return os.path.join(root, run.replace('/', '--') + '.msgpack.gz')
+
+
+def has_checkpoint(run, model_root='models'):
+    """True when ``<model_root>/<run>`` holds a training checkpoint
+    (``model.ckpt-<step>.msgpack``, as the JAX trainer writes them)."""
+    directory = os.path.join(model_root, run)
+    return os.path.isdir(directory) and any(
+        _CHECKPOINT_FILE.match(p) for p in os.listdir(directory))
+
+
+def has_trained_params(run, model_root='models'):
+    """True when either a checkpoint or a serving artifact exists."""
+    return has_checkpoint(run, model_root) or \
+        os.path.exists(artifact_path(run))
+
+
+def restore_for_serving(run, model_root='models', ckpt=None):
+    """The trained policy weights of ``<config>/<run>``: ``(PolicyNet
+    state_dict, step, 'artifact')``.
+
+    Raises ``NotImplementedError`` when a checkpoint step is asked for
+    (``ckpt``) or the run has checkpoints, which the JAX package would
+    restore and the port cannot read yet; ``FileNotFoundError`` when there
+    is no artifact."""
+    if ckpt is not None or has_checkpoint(run, model_root):
+        raise NotImplementedError(
+            'restoring a training checkpoint (%s, step %s) is not ported '
+            'yet: ROADMAP.md item 9c; move the checkpoints away to serve '
+            'the artifact %s'
+            % (os.path.join(model_root, run), ckpt, artifact_path(run)))
+    path = artifact_path(run)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            'no checkpoint under %s and no artifact at %s'
+            % (os.path.join(model_root, run), path))
+    payload = load_artifact(path)
+    return (flax_to_state_dict(payload['gen_params']), int(payload['step']),
+            'artifact')
 
 
 class _Reader:
@@ -119,33 +176,49 @@ def load_artifact(path):
         return msgpack_restore(f.read())
 
 
+def _put(sd, prefix, leaf, conv):
+    """One flax layer into ``sd``: conv kernels go from HWIO to OIHW and
+    Dense kernels from [in, out] to [out, in]."""
+    kernel = np.asarray(leaf['kernel'], np.float32)
+    kernel = kernel.transpose(3, 2, 0, 1) if conv else kernel.T
+    sd[prefix + '.weight'] = torch.from_numpy(np.array(kernel, order='C'))
+    sd[prefix + '.bias'] = torch.from_numpy(
+        np.asarray(leaf['bias'], np.float32).copy())
+
+
 def flax_to_state_dict(gen_params):
     """Map a flax ``PolicyNet`` parameter tree (numpy leaves, with or
-    without the top-level ``params`` key) to a ``PolicyNet`` state_dict.
-
-    Conv kernels go from HWIO to OIHW and Dense kernels from [in, out] to
-    [out, in]."""
+    without the top-level ``params`` key) to a ``PolicyNet`` state_dict."""
     tree = gen_params.get('params', gen_params)
     sd = {}
-
-    def put(prefix, leaf, conv):
-        kernel = np.asarray(leaf['kernel'], np.float32)
-        kernel = kernel.transpose(3, 2, 0, 1) if conv else kernel.T
-        sd[prefix + '.weight'] = torch.from_numpy(
-            np.ascontiguousarray(kernel))
-        sd[prefix + '.bias'] = torch.from_numpy(
-            np.asarray(leaf['bias'], np.float32).copy())
-
     for name, leaf in tree.items():
         if name in ('shared_extractor', 'selector_extractor'):
             for conv_name, conv_leaf in leaf.items():
                 index = int(conv_name.split('_')[1])   # Conv_<i>
-                put('%s.convs.%d' % (name, index), conv_leaf, conv=True)
+                _put(sd, '%s.convs.%d' % (name, index), conv_leaf, conv=True)
         elif name.startswith('filter_'):
             _, j, layer = name.split('_')               # filter_<j>_fc<n>
-            put('filter_%s.%d' % (layer, int(j)), leaf, conv=False)
+            _put(sd, 'filter_%s.%d' % (layer, int(j)), leaf, conv=False)
         elif name in ('selector_fc1', 'selector_fc2'):
-            put(name, leaf, conv=False)
+            _put(sd, name, leaf, conv=False)
         else:
             raise KeyError('unexpected policy parameter %r' % name)
+    return sd
+
+
+def flax_critic_to_state_dict(params):
+    """Map a flax ``CriticNet`` parameter tree to a ``CriticNet``
+    state_dict.  The flax layers are anonymous, so they map by index:
+    ``Conv_<i>`` to ``convs.<i>``, ``Dense_0`` and ``Dense_1`` to ``fc1``
+    and ``fc2``."""
+    tree = params.get('params', params)
+    sd = {}
+    for name, leaf in tree.items():
+        kind, index = name.split('_')
+        if kind == 'Conv':
+            _put(sd, 'convs.%d' % int(index), leaf, conv=True)
+        elif kind == 'Dense' and index in ('0', '1'):
+            _put(sd, 'fc%d' % (int(index) + 1), leaf, conv=False)
+        else:
+            raise KeyError('unexpected critic parameter %r' % name)
     return sd

@@ -63,7 +63,7 @@ def rollout(policy, images, generator, *, cfg, filters, is_train=0,
 
 
 def serve_rollout(policy, images, generator, *, cfg, filters,
-                  fast_math=True):
+                  num_steps=None, fast_math=True):
     """Plan a trajectory for a batch of proxies.
 
     Args:
@@ -72,9 +72,12 @@ def serve_rollout(policy, images, generator, *, cfg, filters,
       generator: ``torch.Generator`` on the images' device, for dropout.
 
     Returns ``(filter_ids [K, B] int32, params [K, B, max_p],
-    mask_params [K, B, max_m])`` for K = ``cfg.test_steps``.  The proxy
-    advances through the branch set the replay uses (``fast_math``).
+    mask_params [K, B, max_m])`` for K = ``num_steps`` (default
+    ``cfg.test_steps``).  The proxy advances through the branch set the
+    replay uses (``fast_math``).
     """
+    if num_steps is None:
+        num_steps = cfg.test_steps
     batch = images.shape[0]
     num_filters = len(filters)
     masking = any(f.use_masking() for f in filters)
@@ -83,7 +86,7 @@ def serve_rollout(policy, images, generator, *, cfg, filters,
                         images.device)
     rows = torch.arange(batch, device=images.device)
     ids, params, masks = [], [], []
-    for _ in range(cfg.test_steps):
+    for _ in range(num_steps):
         enriched = enrich_image_input(cfg, img, st)
         raw_list, logits = policy(enriched, generator)
 

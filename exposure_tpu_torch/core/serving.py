@@ -42,7 +42,8 @@ every mode.
 >>> pipe = RetouchPipeline.from_artifact(
 ...     'synthetic_explore',
 ...     'artifacts/serving/synthetic_explore--best.msgpack.gz')
->>> out_u8 = pipe(images_u8)           # [B, H, W, 3] uint8, on the card
+>>> out_u8 = pipe(images_u8)           # [B, H, W, 3] uint8 numpy array
+>>> on_card = pipe(images_u8, device_out=True)   # the tensor, no copy
 >>> cpu = RetouchPipeline.from_artifact(
 ...     'synthetic_explore',
 ...     'artifacts/serving/synthetic_explore--best.msgpack.gz',
@@ -89,6 +90,12 @@ def proxy_resize(images, size):
     x = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size),
                       mode='bilinear', antialias=True, align_corners=False)
     return x.permute(0, 2, 3, 1).contiguous()
+
+
+def _deliver(out, device_out):
+    """A replay's output as the caller asked for it: the device tensor, or
+    a numpy array on the host."""
+    return out if device_out else out.cpu().numpy()
 
 
 class RetouchPipeline:
@@ -315,13 +322,16 @@ class RetouchPipeline:
                             ids_host=ids_host)
 
     @torch.no_grad()
-    def __call__(self, images, seed=0, index=0):
+    def __call__(self, images, seed=0, index=0, device_out=False):
         """Retouch one [B, H, W, 3] batch, drawing dropout from the stream
-        of (seed, index); returns a tensor on the pipeline's device."""
+        of (seed, index).  Returns a numpy array on the host, as the JAX
+        pipeline does; ``device_out=True`` returns the tensor on the
+        pipeline's device without the copy (and without waiting for the
+        device), so the caller decides when and what to transfer."""
         images = self._to_device(images)
         ids, params, mask = self.plan(
             self.proxy(images), batch_generator(seed, index, self.device))
-        return self.replay(images, ids, params, mask)
+        return _deliver(self.replay(images, ids, params, mask), device_out)
 
     def _ids_to_host(self, ids):
         """Start the copy of a plan's ids to the host: (host tensor, event
@@ -335,9 +345,11 @@ class RetouchPipeline:
         return host, event
 
     @torch.no_grad()
-    def map_batches(self, batches, seed=0, depth=8):
+    def map_batches(self, batches, seed=0, depth=8, device_out=False):
         """Retouch a stream of batches in order; batch i uses the dropout
-        stream of (seed, i).
+        stream of (seed, i).  Yields numpy arrays on the host unless
+        ``device_out=True`` (tensors on the pipeline's device: only then
+        does the stream never wait for the device).
 
         The dynamic, switch and branchless modes never wait for the
         device: each batch's work is queued behind the last.  The grouped
@@ -348,7 +360,7 @@ class RetouchPipeline:
         only.  ``depth`` changes when work is queued, never the output."""
         if not self.grouped:
             for i, images in enumerate(batches):
-                yield self(images, seed, i)
+                yield self(images, seed, i, device_out=device_out)
             return
         it = iter(batches)
         pending = collections.deque()  # (images, plan, (host ids, event))
@@ -370,8 +382,9 @@ class RetouchPipeline:
                     pending.popleft()
                 if event is not None:
                     event.synchronize()
-                yield self.replay(images, ids, params, mask,
-                                  ids_host=host.numpy())
+                yield _deliver(self.replay(images, ids, params, mask,
+                                           ids_host=host.numpy()),
+                               device_out)
         finally:
             pending.clear()
 
@@ -397,7 +410,7 @@ class RetouchPipeline:
         report = {'batch_shape': list(images.shape),
                   'dtype': str(images.dtype).replace('torch.', '')}
         if not self.grouped:
-            self(images, seed, 0)
+            self(images, seed, 0, device_out=True)
             if self.device.type == 'cuda':
                 torch.cuda.synchronize(self.device)
             report.update(kind='dynamic' if self.dynamic else 'switch',

@@ -1,4 +1,6 @@
-"""Policy network (torch counterpart of ``exposure_tpu/models/networks.py``).
+"""Policy, critic and value networks (torch counterpart of
+``exposure_tpu/models/networks.py``, and of ``build_models`` in
+``exposure_tpu/core/trainer.py``).
 
 Inputs keep the JAX package's NHWC layout; the modules permute to NCHW for
 the convolutions.  Three details carry the flax semantics over:
@@ -11,6 +13,12 @@ the convolutions.  Three details carry the flax semantics over:
   explicitly from a caller's ``torch.Generator`` (``nn.Dropout`` would
   follow ``train()``/``eval()`` instead); with keep probability 1 it is
   the identity, as flax ``Dropout(rate=0)`` is.
+
+``CriticNet`` is the WGAN critic and, given ``states``, the value network:
+hand-made statistics channels (``critic_stats``) and the optional state
+vector are broadcast over the image as constant channels, then a strided
+conv stack without normalization and two dense layers give one logit.  It
+is forward only here; the losses that train it are not ported yet.
 """
 
 import torch
@@ -126,3 +134,85 @@ def build_policy(cfg, filters):
         dropout_keep_prob=cfg.dropout_keep_prob,
         input_size=cfg.source_img_size)
 
+
+
+def critic_stats(images):
+    """[B, H, W, 3] -> [B, 3]: luminance mean, luminance variance (the
+    population variance, as ``jnp.var``) and mean saturation."""
+    lum = (images[..., 0] * 0.27 + images[..., 1] * 0.67 +
+           images[..., 2] * 0.06 + 1e-5)
+    luminance = lum.mean(dim=(1, 2))
+    contrast = lum.var(dim=(1, 2), unbiased=False)
+    clipped = torch.clamp(images, 0.0, 1.0)
+    i_max = clipped.max(dim=3).values
+    i_min = clipped.min(dim=3).values
+    sat = (i_max - i_min) / (torch.minimum(i_max + i_min,
+                                           2.0 - i_max - i_min) + 1e-2)
+    saturation = sat.mean(dim=(1, 2))
+    return torch.stack([luminance, contrast, saturation], dim=1)
+
+
+class CriticNet(nn.Module):
+    """WGAN critic / value network with statistics (+ state) channels.
+
+    ``in_channels`` counts the image's channels, the state vector's
+    entries when the net is called with ``states`` (the value network) and
+    the three statistics."""
+
+    def __init__(self, in_channels, base_channels=32, fc1_size=128,
+                 input_size=64):
+        super().__init__()
+        self.in_channels = in_channels
+        self.input_size = input_size
+        widths = [base_channels]
+        size = input_size // 2
+        while size > MIN_FEATURE_MAP_SIZE:
+            widths.append(widths[-1] * 2)
+            size //= 2
+        ins = [in_channels] + widths[:-1]
+        self.convs = nn.ModuleList(
+            nn.Conv2d(c_in, c_out, 4, stride=2, padding=1)
+            for c_in, c_out in zip(ins, widths))
+        self.flat_dim = MIN_FEATURE_MAP_SIZE ** 2 * widths[-1]
+        self.fc1 = nn.Linear(self.flat_dim, fc1_size)
+        self.fc2 = nn.Linear(fc1_size, 1)
+
+    def forward(self, images, states=None):
+        """[B, S, S, C] NHWC (and [B, D] states) -> [B, 1] logit."""
+        if images.shape[1] != self.input_size or \
+                images.shape[2] != self.input_size:
+            raise ValueError('expected %dx%d input, got %s'
+                             % (self.input_size, self.input_size,
+                                tuple(images.shape)))
+        stat = critic_stats(images)
+        states = stat if states is None else torch.cat([states, stat], dim=1)
+        if images.shape[3] + states.shape[1] != self.in_channels:
+            raise ValueError(
+                'built for %d input channels, got %d image channels and %d '
+                'state and statistics entries'
+                % (self.in_channels, images.shape[3], states.shape[1]))
+        bcast = states[:, None, None, :].expand(
+            -1, images.shape[1], images.shape[2], -1)
+        x = (torch.cat([images, bcast], dim=3) - 0.5).permute(0, 3, 1, 2)
+        for conv in self.convs:
+            if x.shape[-1] % 2 or x.shape[-2] % 2:
+                raise ValueError('SAME padding equals padding=1 only at '
+                                 'even sizes, got %s' % (tuple(x.shape),))
+            x = lrelu(conv(x))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], self.flat_dim)
+        return self.fc2(lrelu(self.fc1(x)))
+
+
+def build_models(cfg):
+    """``(filters, policy, critic, value)`` for a config, as the JAX
+    ``build_models``: the critic sees the image and its statistics, the
+    value network the state vector as well."""
+    from exposure_tpu_torch.ops.filters import build_filters
+    filters = build_filters(cfg)
+    policy = build_policy(cfg, filters)
+    channels = cfg.real_img_channels
+    critic = CriticNet(channels + 3, cfg.base_channels, cfg.fc1_size,
+                       cfg.source_img_size)
+    value = CriticNet(channels + cfg.num_state_dim + 3, cfg.base_channels,
+                      cfg.fc1_size, cfg.source_img_size)
+    return filters, policy, critic, value

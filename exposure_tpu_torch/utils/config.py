@@ -1,10 +1,14 @@
-"""Serving configs as a table of knobs.
+"""Configs as a table of knobs.
 
 The JAX package's configs are Python modules that import ``exposure_tpu``
 (and with it ``jax``) to name their filter classes, so the port cannot
-load them.  It keeps its own table of the knobs serving and ``agent_step``
-read, for the chain ``example`` -> ``synthetic`` -> ``synthetic_explore``
-and the ``test`` and ``masked`` configs the tests use.  The knobs that the
+load them.  It keeps its own table of the knobs serving, ``agent_step``,
+the evaluator and ``build_models`` read, for the chain ``example`` ->
+``synthetic`` -> ``synthetic_explore`` and the ``test`` and ``masked``
+configs the tests use.  The procedural configs (all but ``example``, whose
+providers read the FiveK files) also carry their three data providers,
+with the arguments of ``configs/config_synthetic.py`` and
+``configs/config_test.py``.  The knobs that the
 JAX ``agent_step`` reads with ``cfg.get`` and a default (``replay_inject_*``,
 ``entropy_respike*``) are in the table with those defaults.  Filters are named by the
 JAX class ``__name__``; ``ops.filters.build_filters`` maps each name to
@@ -67,8 +71,32 @@ def _example():
         dropout_keep_prob=0.5,
         fc1_size=128,
         feature_extractor_dims=4096,
+        real_img_channels=3,
+        # evaluation and the data providers
+        supervised=False,
+        batch_size=64,
+        vis_step_test=False,
     )
     cfg.num_state_dim = 3 + len(cfg.filters)
+    return cfg
+
+
+def _synthetic_providers(cfg, n_train, n_test):
+    """The three procedural providers of a config: un-retouched inputs for
+    training and for testing, and the retouched targets."""
+    from exposure_tpu_torch.data.synthetic import SyntheticDataProvider
+    cfg.fake_data_provider = lambda: SyntheticDataProvider(
+        n=n_train, size=80, style='raw', seed=0,
+        output_size=64, augmentation=0.3,
+        default_batch_size=cfg.batch_size)
+    cfg.fake_data_provider_test = lambda: SyntheticDataProvider(
+        n=n_test, size=80, style='raw', seed=1,
+        output_size=64, augmentation=0.0,
+        default_batch_size=cfg.batch_size)
+    cfg.real_data_provider = lambda: SyntheticDataProvider(
+        n=n_train, size=64, style='retouched', seed=2,
+        output_size=64, augmentation=1.0,
+        default_batch_size=cfg.batch_size)
     return cfg
 
 
@@ -77,17 +105,22 @@ def _test():
     cfg.base_channels = 16
     cfg.feature_extractor_dims = 1024
     cfg.fc1_size = 32
-    return cfg
+    cfg.batch_size = 16
+    return _synthetic_providers(cfg, n_train=64, n_test=32)
+
+
+def _synthetic():
+    return _synthetic_providers(_example(), n_train=2048, n_test=256)
 
 
 def _synthetic_explore():
-    cfg = _example()
+    cfg = _synthetic()
     cfg.exploration_penalty = 0.2
     return cfg
 
 
 def _masked():
-    cfg = _example()
+    cfg = _synthetic()
     cfg.masking = True
     cfg.filters = tuple(cfg.filters) + ('VignetFilter', 'LevelFilter')
     cfg.num_state_dim = 3 + len(cfg.filters)
@@ -98,7 +131,7 @@ def _masked():
 # config_synthetic_explore.py only exploration_penalty
 CONFIGS = {
     'example': _example,
-    'synthetic': _example,
+    'synthetic': _synthetic,
     'synthetic_explore': _synthetic_explore,
     'test': _test,
     'masked': _masked,
@@ -106,11 +139,11 @@ CONFIGS = {
 
 
 def load_config(config_name):
-    """A fresh copy of the named config's serving knobs."""
+    """A fresh copy of the named config's knobs."""
     try:
         make = CONFIGS[config_name]
     except KeyError:
-        raise KeyError('no serving config %r; known: %s'
+        raise KeyError('no config %r; known: %s'
                        % (config_name, sorted(CONFIGS))) from None
     cfg = make()
     cfg.name = config_name

@@ -645,3 +645,115 @@ def test_probes_refuse_unaligned_buffers(cuda_device):
     img = flat[1:].view(1, 1, 64, 64)     # 1 byte past an aligned start
     with pytest.raises(ValueError):
         bf16_probe.run_probe(img, bf16_probe.PARAMS, 'mul', 'f32', 1)
+
+
+# -- evaluation on the card --------------------------------------------------
+
+def _random_policy_evaluator(device, name='test', seed=0):
+    """An evaluator of config ``name`` on seeded random weights, dropout
+    off, so that the card and the CPU plan from the same numbers."""
+    from exposure_tpu_torch.core.evaluator import Evaluator
+    from exposure_tpu_torch.models.networks import build_models
+    cfg = load_config(name)
+    cfg.dropout_keep_prob = 1.0
+    cfg.name = name + '/none'
+    torch.manual_seed(seed)
+    _, policy, _, _ = build_models(cfg)
+    return Evaluator(cfg, policy=policy, device=device)
+
+
+def _seeded_photo(path, h, w, seed):
+    from exposure_tpu_torch.utils.image_io import write_png
+    rng = np.random.RandomState(seed)
+    coarse = rng.rand(h // 8 + 1, w // 8 + 1, 3)
+    img = np.kron(coarse, np.ones((8, 8, 1)))[:h, :w] * 200 + \
+        rng.randint(0, 40, (h, w, 3))
+    write_png(path, img.astype(np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('config', ['test', 'masked'])
+def test_evaluator_replays_through_k1_and_matches_the_cpu(cuda_device,
+                                                          config, tmp_path):
+    """``eval_batched`` (f32 and u8) and ``eval`` step by step on the card:
+    one K1 launch per resolution group and per applied step, no plain
+    version reached, and the outputs equal the CPU evaluator's on the rows
+    whose plans agree (f32 atol 3e-5 / rtol 1e-4 with at most 1e-4 of the
+    values outside, u8 within 1 LSB)."""
+    import exposure_tpu_torch.core.evaluator as tev
+    import exposure_tpu_torch.ops.dyn_chain as dyn
+    files = [str(tmp_path / n) for n in ('a.png', 'b.png', 'c.png')]
+    _seeded_photo(files[0], 300, 452, 1)
+    _seeded_photo(files[1], 131, 67, 2)
+    _seeded_photo(files[2], 300, 452, 3)
+    card = _random_policy_evaluator(cuda_device, config)
+    cpu = _random_policy_evaluator('cpu', config)
+    proxies = np.stack([tev.downsample_to_proxy(tev.load_linear_image(f))
+                        for f in files])
+    same = (card.plan_trajectory(proxies)[0].filter_ids.cpu() ==
+            cpu.plan_trajectory(proxies)[0].filter_ids).all(dim=0).tolist()
+    assert sum(same) >= 2, same
+    saved = (dyn.apply_filter_chain_dynamic_reference,
+             tev.apply_filter_chain, tev.apply_filter_step)
+
+    def refuse(*a, **kw):
+        raise AssertionError('the card path reached a plain version')
+
+    for u8 in (False, True):
+        want = cpu.eval_batched(files, output_dir=str(tmp_path / 'cpu'),
+                                u8=u8)
+        dyn.apply_filter_chain_dynamic_reference = refuse
+        tev.apply_filter_chain = tev.apply_filter_step = refuse
+        try:
+            before = apply_filter_chain_dynamic.launches
+            got = card.eval_batched(files, output_dir=str(tmp_path / 'gpu'),
+                                    u8=u8)
+            assert apply_filter_chain_dynamic.launches == before + 2
+            if not u8:
+                before = apply_filter_chain_dynamic.launches
+                steps = card.eval(files[:1], output_dir=str(tmp_path / 's'),
+                                  step_by_step=True)[0]
+                n = sum(s['applied'] for s in steps['debug'])
+                assert apply_filter_chain_dynamic.launches == before + n
+        finally:
+            (dyn.apply_filter_chain_dynamic_reference,
+             tev.apply_filter_chain, tev.apply_filter_step) = saved
+        for a, b in zip(got, want):
+            assert a['file'] == b['file']
+            if not same[files.index(a['file'])]:
+                continue
+            x, y = (torch.from_numpy(r['retouched']) for r in (a, b))
+            if u8:
+                x, y = ((t * 255).round().to(torch.uint8) for t in (x, y))
+            assert _outlier_fraction(x, y) <= 1e-4
+        if not u8 and same[0]:
+            assert _outlier_fraction(
+                torch.from_numpy(steps['retouched']),
+                torch.from_numpy(want[0]['retouched'])) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_edit_sequence_replays_through_k1(cuda_device):
+    from exposure_tpu_torch.tools import edit_sequence
+    filters = build_filters(load_config('masked'))
+    rng = np.random.RandomState(4)
+    names = [f.get_short_name() for f in filters]
+    debug = []
+    for i in range(4):
+        fid = int(rng.randint(0, len(filters)))
+        f = filters[fid]
+        raw = torch.from_numpy(rng.randn(
+            1, f.get_num_filter_parameters()).astype(np.float32))
+        debug.append({
+            'step': i, 'filter_id': fid, 'short_name': names[fid],
+            'filter_parameters': f.filter_param_regressor(raw).numpy()[0],
+            'mask_parameters': rng.randn(
+                f.get_num_mask_parameters()).astype(np.float32),
+            'applied': i != 2})
+    image = (rng.rand(97, 131, 3) * 0.8).astype(np.float32)
+    before = apply_filter_chain_dynamic.launches
+    got = edit_sequence.replay(image, debug, filters, device=cuda_device)
+    assert apply_filter_chain_dynamic.launches == before + 1
+    want = edit_sequence.replay(image, debug, filters, device='cpu')
+    assert _outlier_fraction(torch.from_numpy(got),
+                             torch.from_numpy(want)) <= 1e-4

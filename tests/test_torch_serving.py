@@ -63,6 +63,13 @@ def test_config_table_matches_load_config(name):
     for knob, value in tcfg.items():
         if knob in ('filters', 'name'):
             continue
+        if callable(value):
+            # a data provider factory: tests/test_torch_eval_tools.py holds
+            # what it builds equal to the JAX config's
+            assert knob.endswith('_data_provider') or \
+                knob.endswith('_data_provider_test')
+            assert callable(jcfg[knob])
+            continue
         want = jcfg.get(knob, AGENT_STEP_DEFAULTS.get(knob, KeyError))
         assert want == value, knob
     if name == 'synthetic_explore':
@@ -217,9 +224,8 @@ def test_pipeline_matches_jax(models, dtype):
     tpipe = TPipeline(m.tcfg, m.policy, use_kernels=True, device='cpu')
     assert tpipe.dynamic and tpipe.selected_plan
     got = tpipe(imgs, seed=3)
-    assert got.dtype == torch.from_numpy(imgs).dtype
+    assert got.dtype == imgs.dtype
     assert got.shape == imgs.shape
-    got = got.numpy()
     # which rows planned the same trajectory on both sides
     src = jnp.asarray(imgs).astype(jnp.float32)
     if dtype == 'uint8':
@@ -249,9 +255,72 @@ def test_map_batches_is_the_per_batch_call():
     outs = list(pipe.map_batches(batches, seed=5))
     assert len(outs) == 2
     for i, (b, o) in enumerate(zip(batches, outs)):
-        assert o.dtype == torch.uint8 and o.shape == b.shape
-        assert torch.equal(o, pipe(b, 5, i))
-    assert torch.equal(outs[0], pipe(batches[0], seed=5))
+        assert o.dtype == np.uint8 and o.shape == b.shape
+        assert np.array_equal(o, pipe(b, 5, i))
+    assert np.array_equal(outs[0], pipe(batches[0], seed=5))
+
+
+@pytest.mark.parametrize('mode', ['dynamic', 'grouped'])
+def test_device_out_chooses_the_return_type(mode):
+    """``__call__`` and ``map_batches`` return host arrays, as the JAX
+    pipeline does (exposure_tpu/core/serving.py:550-565), and tensors on
+    the pipeline's device with ``device_out=True``; both hold the same
+    values."""
+    import inspect
+    for fn in (TPipeline.__call__, TPipeline.map_batches, JPipeline.__call__,
+               JPipeline.map_batches):
+        assert inspect.signature(fn).parameters['device_out'].default \
+            is False
+    cfg = t_load_config('test')
+    torch.manual_seed(0)
+    pipe = TPipeline(cfg, build_policy(cfg, build_filters(cfg)),
+                     use_kernels=True, grouped=(mode == 'grouped'),
+                     device='cpu')
+    imgs = (np.random.RandomState(6).rand(2, 64, 64, 3) * 255).astype(
+        np.uint8)
+    host = pipe(imgs, seed=2)
+    dev = pipe(imgs, seed=2, device_out=True)
+    assert isinstance(host, np.ndarray) and host.dtype == np.uint8
+    assert torch.is_tensor(dev) and dev.device == pipe.device
+    np.testing.assert_array_equal(host, dev.numpy())
+    streamed = list(pipe.map_batches([imgs, imgs], seed=2))
+    on_dev = list(pipe.map_batches([imgs, imgs], seed=2, device_out=True))
+    assert all(isinstance(o, np.ndarray) for o in streamed)
+    assert all(torch.is_tensor(o) for o in on_dev)
+    for a, b in zip(streamed, on_dev):
+        np.testing.assert_array_equal(a, b.numpy())
+    np.testing.assert_array_equal(streamed[0], host)
+
+
+def test_serve_rollout_num_steps_matches_jax(models):
+    """``num_steps`` defaults to ``cfg.test_steps`` on both sides; K=3
+    gives the first three steps of the JAX plan: ids equal at step 0 and
+    wherever the trajectories agree, params within 1e-5 there."""
+    import inspect
+    m = models
+    assert inspect.signature(t_serve_rollout).parameters[
+        'num_steps'].default is None
+    proxy = np.random.RandomState(5).rand(6, 64, 64, 3).astype(np.float32)
+    ref_ids, ref_params, _ = j_serve_rollout(
+        m.jpolicy, m.gen_params, jnp.asarray(proxy), jax.random.PRNGKey(0),
+        cfg=m.jcfg, filters=m.jfilters, num_steps=3, interpret=True,
+        fast_math=True)
+    ref_ids, ref_params = np.array(ref_ids), np.array(ref_params)
+    with torch.no_grad():
+        ids, params, mask = t_serve_rollout(
+            m.policy, torch.from_numpy(proxy), None, cfg=m.tcfg,
+            filters=m.tfilters, num_steps=3)
+        full = t_serve_rollout(m.policy, torch.from_numpy(proxy), None,
+                               cfg=m.tcfg, filters=m.tfilters)
+    assert ids.shape == ref_ids.shape == (3, 6)
+    assert params.shape == ref_params.shape and mask.shape[:2] == (3, 6)
+    assert full[0].shape == (m.tcfg.test_steps, 6)
+    assert torch.equal(full[0][:3], ids)
+    np.testing.assert_array_equal(ids[0].numpy(), ref_ids[0])
+    live = (ids.numpy() == ref_ids).all(axis=0)
+    assert live.sum() >= 3, 'plans agree on %d of 6 rows' % live.sum()
+    np.testing.assert_allclose(params.numpy()[:, live], ref_params[:, live],
+                               rtol=0, atol=1e-5)
 
 
 def test_pipeline_defaults_to_the_card(monkeypatch):
@@ -302,6 +371,15 @@ def test_port_imports_without_jax_or_flax():
         import exposure_tpu_torch.tools.bench_filters
         import exposure_tpu_torch.tools.bench_kernel_probe
         import exposure_tpu_torch.tools.verify_kernel
+        import exposure_tpu_torch.core.evaluator
+        import exposure_tpu_torch.data
+        import exposure_tpu_torch.tools.edit_sequence
+        import exposure_tpu_torch.tools.histogram_intersection
+        import exposure_tpu_torch.tools.pickle_to_tex
+        import exposure_tpu_torch.tools.quality_report
+        import exposure_tpu_torch.utils.image_io
+        import exposure_tpu_torch.utils.viz
+        import evaluate_torch
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                       'exposure_tpu')]

@@ -242,15 +242,42 @@ def test_sass_opcodes_counts_one_kernel(monkeypatch):
     assert calls == [['/cuda/bin/cuobjdump', '-sass', 'lib.so']]
 
 
-def test_turns_judge_any_differing_kernel_value():
-    """``chip_smoke.py --turns`` counts, by kernel output, the values that
-    differ from the parent's (NaNs at the same places aside) and lets none
-    pass that is not listed as a deliberate change."""
+def _load_smoke():
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         'chip_smoke', os.path.join(REPO, 'chip_smoke.py'))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_smoke_times_with_median_seconds(monkeypatch):
+    """``chip_smoke.py::cuda_ms`` is ``tools.median_seconds`` in
+    milliseconds, with its arguments passed on, not a copy of it."""
+    import exposure_tpu_torch.tools as tools
+    smoke = _load_smoke()
+    seen = []
+
+    def fake(fn, device, runs, warmup, calls):
+        seen.append((fn, device, runs, warmup, calls))
+        return 0.002
+
+    monkeypatch.setattr(tools, 'median_seconds', fake)
+    fn = lambda: None
+    assert smoke.cuda_ms(fn, runs=5, warmup=1, calls=4) == 2.0
+    assert smoke.cuda_ms(fn) == 2.0
+    assert seen == [(fn, smoke.DEVICE, 5, 1, 4), (fn, smoke.DEVICE, 7, 2, 1)]
+    # a pipeline call keeps its output on the card where the knob exists
+    assert smoke._on_card(lambda images, device_out=False: 0) == {
+        'device_out': True}
+    assert smoke._on_card(lambda images, seed=0: 0) == {}
+
+
+def test_turns_judge_any_differing_kernel_value():
+    """``chip_smoke.py --turns`` counts, by kernel output, the values that
+    differ from the parent's (NaNs at the same places aside) and lets none
+    pass that is not listed as a deliberate change."""
+    smoke = _load_smoke()
     nan = np.float32('nan')
     parent = {'k1_E_exact_u8': np.arange(6, dtype=np.uint8),
               'k2f32_case_masked': np.array([0.5, nan, 1.0], np.float32),
