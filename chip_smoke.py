@@ -57,6 +57,22 @@ Phases, one line or a few each (a failing phase exits non-zero):
    one-launch replay; u8 within 1 LSB of f32 on the u8 grid; the card
    against the CPU evaluator with dropout off; ``quality_report`` (n=256)
    and ``edit_sequence``; the plan, replay and PNG milliseconds per image;
+9c. train: one outer iteration of ``synthetic_explore`` at full width on
+   the card against the same iteration on the CPU, from the same state and
+   draws (``tools/train_check.py``: metrics rtol 1e-4, gradients, Adam's
+   moments, Adam replayed on the CPU on the card's gradients, parameters
+   within 3 lr, selected ids, pool slots); ``Trainer.train()`` through
+   iterations 0-11 of the config's schedule in a temp dir (the warmup at lr
+   0 keeps the generator and value bits, finite metrics, the critic moves,
+   the log, ``metrics.jsonl`` and two checkpoints), with ms per generator
+   update, per critic update (burst and plain) and per plain iteration
+   (CUDA events), peak memory, the host syncs the sync debug mode flags and
+   where, and one more plain iteration under ``torch.profiler`` (device
+   busy time, kernel launches); a fresh Trainer restores the newest
+   checkpoint bit for bit and trains one more iteration; the trained state
+   is exported and served through ``RetouchPipeline.from_run`` on a B=64
+   batch of 512x512 u8 (6 K1 launches counted by stage, no plain version)
+   and held within 1 LSB of the CPU pipeline on a small input;
 10. main path: the trained ``synthetic_explore`` policy served from the
    in-repo artifact at full width on B=512 batches of seeded 512x512 u8
    images through ``RetouchPipeline.map_batches`` (dynamic, selected
@@ -1288,15 +1304,18 @@ def phase_bf16_plan(batches):
     return step1, total
 
 
-def phase_small_reference():
-    """The whole dynamic path on the card against the CPU pipeline, which
-    runs the plain versions throughout, on a small input with dropout off
-    (the two devices draw different random bits)."""
+def _small_against_cpu(make, what):
+    """The pipeline ``make(dev)`` gives on the card against the one it
+    gives on the CPU, which runs the plain versions throughout, on a small
+    input with dropout off (the two devices draw different random bits).
+    Fails unless their plans agree on at least 4 of the 8 rows and the
+    outputs of those rows are within 1 LSB; returns ``(rows agreeing,
+    max_lsb)``."""
     import numpy as np
     import torch
     pipes = {}
     for dev in ('cpu', DEVICE):
-        pipe = _pipeline(dev, use_kernels=True)
+        pipe = make(dev)
         pipe.policy.shared_extractor.dropout_keep_prob = 1.0
         pipe.policy.selector_extractor.dropout_keep_prob = 1.0
         pipes[dev] = pipe
@@ -1309,15 +1328,23 @@ def phase_small_reference():
         outs[dev] = torch.from_numpy(pipe(imgs))
     same = (plans['cpu'] == plans[DEVICE]).all(dim=0)
     if int(same.sum()) < 4:
-        fail('small input: CPU and GPU plans agree on %d of 8 rows'
-             % int(same.sum()))
+        fail('%s: CPU and GPU plans agree on %d of 8 rows'
+             % (what, int(same.sum())))
     lsb = int((outs['cpu'][same].int() - outs[DEVICE][same].int()).abs()
               .max())
+    if lsb > 1:
+        fail('%s: GPU output off the CPU reference by %d LSB' % (what, lsb))
+    return int(same.sum()), lsb
+
+
+def phase_small_reference():
+    """The whole dynamic path on the card against the CPU pipeline on a
+    small input (``_small_against_cpu``)."""
+    same, lsb = _small_against_cpu(
+        lambda dev: _pipeline(dev, use_kernels=True), 'small input')
     say('small: GPU pipeline vs CPU pipeline on [8, 64, 128, 3] u8, '
         'dropout off: plans agree on %d/8 rows, max_lsb on those %d'
-        % (int(same.sum()), lsb))
-    if lsb > 1:
-        fail('small input: GPU output off the CPU reference by %d LSB' % lsb)
+        % (same, lsb))
 
 
 EVAL_ODD_SIZES = ((300, 452), (640, 333))    # H x W of the two seeded files
@@ -1432,22 +1459,23 @@ def _eval_k1_cases():
 
 
 class _NoPlainVersions:
-    """While active, reaching a plain version of the chain from the
-    evaluator's card path fails the run: K1's plain version, and the
-    branchless chain and step the CPU evaluator replays with."""
+    """While active, reaching a plain version of the chain from a card
+    path (the evaluator's, serving's) fails the run: K1's plain version,
+    and the branchless chain and step the CPU evaluator and the CPU
+    pipeline replay with."""
 
     def __enter__(self):
-        from exposure_tpu_torch.core import evaluator
+        from exposure_tpu_torch.core import evaluator, serving
         from exposure_tpu_torch.ops import dyn_chain
         self.saved = [
             (dyn_chain, 'apply_filter_chain_dynamic_reference'),
             (evaluator, 'apply_filter_chain'),
-            (evaluator, 'apply_filter_step')]
+            (evaluator, 'apply_filter_step'),
+            (serving, 'apply_filter_chain')]
         self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
         for module, name, _ in self.saved:
             setattr(module, name, lambda *a, _n=name, **kw: fail(
-                'evaluate: the card path reached the plain version %s'
-                % _n))
+                'the card path reached the plain version %s' % _n))
 
     def __exit__(self, *exc):
         for module, name, fn in self.saved:
@@ -1676,6 +1704,382 @@ def phase_evaluate():
             'png_write_ms': write_ms, 'quality': quality}
 
 
+TRAIN_CONFIG = 'synthetic_explore'
+TRAIN_LAST_ITER = 11        # iterations 0-11 of the full run's schedule
+TRAIN_CKPT_INTERVAL = 6     # checkpoints at 6 and 12
+TRAIN_BUDGET_S = 90         # over it, cut critic_initialization (PERF.md)
+TRAIN_SERVE_BATCH = 64
+
+
+def _timed_trainer(trainer, caught):
+    """Time ``trainer``'s steps and iterations with CUDA events, and count
+    the host synchronisations that the sync debug mode flags inside each
+    iteration (``caught['warnings']``: the list of caught warnings while
+    the mode warns).  Returns ``{'phases': [((giters, citers), start,
+    end)], 'iters': [(it, start, end, syncs)], 'metrics': [(it,
+    floats)], 'sync_sites': {'file:line'}}``."""
+    import torch
+    record = {'phases': [], 'iters': [], 'metrics': [],
+              'sync_sites': set()}
+    get_step = trainer._get_step
+    run_iteration = trainer.run_iteration
+    process = trainer._process_record
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def timed_step(giters, citers):
+        step = get_step(giters, citers)
+
+        def run(*args):
+            start, end = events()
+            start.record()
+            out = step(*args)
+            end.record()
+            record['phases'].append(((giters, citers), start, end))
+            return out
+        return run
+
+    def flagged():
+        return ['%s:%d' % (os.path.relpath(w.filename, REPO), w.lineno)
+                for w in caught.get('warnings', ())
+                if 'synchroniz' in str(w.message)]
+
+    def timed_iteration(it, generator):
+        start, end = events()
+        before = len(flagged())
+        start.record()
+        out = run_iteration(it, generator)
+        end.record()
+        sites = flagged()[before:]
+        record['iters'].append((it, start, end, len(sites)))
+        record['sync_sites'].update(sites)
+        return out
+
+    def kept(it, citers, metrics, books):
+        record['metrics'].append((it, [float(v) for v in metrics]))
+        return process(it, citers, metrics, books)
+
+    timed_iteration.__wrapped__ = run_iteration
+    trainer._get_step = timed_step
+    trainer.run_iteration = timed_iteration
+    trainer._process_record = kept
+    return record
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float('nan')
+
+
+def _train_check():
+    """One outer iteration, the card against the CPU."""
+    from exposure_tpu_torch.tools import train_check as check
+    from exposure_tpu_torch.utils.config import load_config
+    t0 = time.perf_counter()
+    report = check.card_against_cpu(load_config(TRAIN_CONFIG), DEVICE,
+                                    giters=1, citers=1, seed=SEED)
+    say('train: card against CPU, one outer iteration (giters 1, citers 1, '
+        '%s at full width, dropout off, TF32 off, the CPU\'s draws '
+        'replayed; %.1f s): metrics [card, CPU] %s' % (
+            TRAIN_CONFIG, time.perf_counter() - t0,
+            json.dumps(report['metrics'])))
+    say('train: worst gradient difference over the largest gradient %s '
+        '(bound %g); Adam\'s moments against the CPU\'s, over their largest '
+        '%s (mu %g, nu %g); the card against Adam replayed on the CPU on its '
+        'gradients, in ulps, %s (bound %g); '
+        'worst parameter difference in lr %s (bound %g); selected ids %s; '
+        'pool %s' % (
+            json.dumps(report['grad_frac']), check.GRAD_FRAC,
+            json.dumps(report['moment_frac']), check.GRAD_FRAC,
+            2 * check.GRAD_FRAC, json.dumps(report['replay']),
+            check.REPLAY_ULPS,
+            json.dumps(report['param_lrs']), check.PARAM_LRS,
+            json.dumps(report['ids']), json.dumps(report['pool'])))
+    if report['failures']:
+        fail('train: the card is off the CPU: %s' % report['failures'])
+    return report
+
+
+def _profile_iteration(trainer, it):
+    """One more plain iteration ``it`` under ``torch.profiler``, then the
+    trainer put back as it was: ``(wall ms, device-busy ms, kernel
+    launches, the five kernels of most device time)``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    saved = trainer.state, trainer.pool
+    generator = torch.Generator(device=DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.run_iteration.__wrapped__(it, generator)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    trainer.state, trainer.pool = saved
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return 1e3 * wall, busy, len(kernels), top
+
+
+def _train_run(cfg, tmp):
+    """``Trainer.train()`` through iterations 0..TRAIN_LAST_ITER with the
+    checks of iteration 0, the timings and the host syncs of the plain
+    iterations.  Returns ``(trainer, numbers)``."""
+    import random
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.core.trainer import Trainer
+    random.seed(SEED)           # the providers draw from ``random``
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, model_root=tmp, device=DEVICE)
+    init_s = time.perf_counter() - t0
+    caught = {}
+    record = _timed_trainer(trainer, caught)
+    try:
+        init = {k: v.clone() for k, v in trainer.state.tensors().items()}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.train(last_iter=0)
+        state = trainer.state
+        for tree in ('gen_params', 'val_params'):
+            for k, v in getattr(state, tree).items():
+                if not torch.equal(v, init['%s/%s' % (tree, k)]):
+                    fail('train: iteration 0 (lr 0) moved %s %s' % (tree, k))
+        counts = (state.opt_g.count, state.opt_v.count, state.opt_c.count)
+        if counts != (cfg.warmup_giters,) * 2 + (cfg.critic_burst,):
+            fail('train: Adam counts after iteration 0: %s' % (counts,))
+        term0 = trainer._metrics_last.pool_terminated_frac
+        if not term0 > 0:
+            fail('train: no terminated record in the pool after the warmup')
+        trainer.train(last_iter=cfg.critic_initialization - 1)
+        with warnings.catch_warnings(record=True) as flagged:
+            warnings.simplefilter('always')
+            caught['warnings'] = flagged
+            torch.cuda.set_sync_debug_mode('warn')
+            try:
+                trainer.train(last_iter=TRAIN_LAST_ITER)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                caught.clear()
+            all_syncs = sum('synchroniz' in str(w.message) for w in flagged)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        profiled = _profile_iteration(trainer, TRAIN_LAST_ITER + 1)
+    finally:
+        trainer.close()
+    metrics = dict(record['metrics'])
+    bad = {it: m for it, m in metrics.items()
+           if not np.isfinite(m).all()}
+    if sorted(metrics) != list(range(TRAIN_LAST_ITER + 1)) or bad:
+        fail('train: metrics of iterations %s, non-finite %s'
+             % (sorted(metrics), bad))
+    moved = [k for k, v in trainer.state.crit_params.items()
+             if not torch.equal(v, init['crit_params/' + k])]
+    if not moved:
+        fail('train: the critic parameters did not move')
+
+    def ms(key):
+        return [s.elapsed_time(e) for k, s, e in record['phases']
+                if k == key]
+    plain = [it for it in range(TRAIN_LAST_ITER + 1)
+             if it >= cfg.critic_initialization and it % 500]
+    iters = {it: (s.elapsed_time(e), n) for it, s, e, n in record['iters']}
+    numbers = {
+        'g_update_ms': _median(ms((cfg.giters, 0))) / cfg.giters,
+        'g_update_warmup_ms': _median(ms((cfg.warmup_giters, 0))) /
+        cfg.warmup_giters,
+        'c_update_ms': _median(ms((0, cfg.citers))) / cfg.citers,
+        'c_update_burst_ms': _median(ms((0, cfg.critic_burst))) /
+        cfg.critic_burst,
+        'plain_iteration_ms': _median([iters[it][0] for it in plain]),
+        'plain_iteration_syncs': [iters[it][1] for it in plain],
+        'step_sync_sites': sorted(record['sync_sites']),
+        'plain_bookkeeping_syncs': all_syncs - sum(
+            iters[it][1] for it in plain),
+        'plain_iterations': plain,
+        'peak_memory_gib': peak / 2 ** 30,
+        'profiled_iteration': {
+            'wall_ms': profiled[0], 'device_busy_ms': profiled[1],
+            'idle_share': 1 - profiled[1] / profiled[0],
+            'kernel_launches': profiled[2], 'top_kernels_ms': profiled[3]},
+        'init_s': init_s, 'train_s': train_s,
+        'emd': metrics[TRAIN_LAST_ITER][2],
+        'reward': metrics[TRAIN_LAST_ITER][4],
+        'pool_terminated_frac_after_warmup': term0,
+        'critic_tensors_moved': len(moved),
+    }
+    return trainer, numbers
+
+
+def _resume(cfg, tmp, trained):
+    """A fresh Trainer restores the newest checkpoint: every tensor equal
+    bit for bit to the trained state, then one more iteration."""
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.core.trainer import Trainer
+    again = Trainer(cfg, restore=True, model_root=tmp, device=DEVICE)
+    try:
+        step = again.restore()
+        want, got = trained.state.tensors(), again.state.tensors()
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        same_counts = all(
+            getattr(again.state, o).count == getattr(trained.state, o).count
+            for o in ('opt_g', 'opt_v', 'opt_c')) and \
+            again.state.ema.count == trained.state.ema.count
+        if step != trained.state.step or differ or not same_counts or \
+                set(got) != set(want):
+            fail('train: the restored state differs: step %d of %d, %d '
+                 'tensors differ (%s), counts equal %s' % (
+                     step, trained.state.step, len(differ), differ[:3],
+                     same_counts))
+        metrics = again.train(last_iter=step)
+    finally:
+        again.close()
+    if not np.isfinite(np.asarray(metrics)).all() or \
+            again.state.step != step + 1:
+        fail('train: the iteration after the restore: %s' % (metrics,))
+    say('train: resume: checkpoint %d restored into a fresh Trainer, %d '
+        'tensors equal bit for bit, Adam and EMA counts equal; iteration %d '
+        'after it: EMD %.4f, reward %.4f' % (step, len(want), step,
+                                             metrics.emd, metrics.reward))
+    return step
+
+
+def _serve_trained(cfg, tmp, trained):
+    """Export the trained state, serve the run through
+    ``RetouchPipeline.from_run`` on one B=TRAIN_SERVE_BATCH batch of
+    512x512 u8 (dynamic, selected plan): K1's launches by stage, no plain
+    version, the artifact's weights equal to the served ones, the card
+    within 1 LSB of the CPU pipeline on a small input."""
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.core.artifacts import (
+        export_serving_artifact, flax_to_state_dict, load_artifact)
+    from exposure_tpu_torch.core.serving import RetouchPipeline
+    path = export_serving_artifact(cfg.name, trained.state,
+                                   trained.state.step,
+                                   path=os.path.join(tmp, 'artifact.gz'))
+    exported = flax_to_state_dict(load_artifact(path)['gen_params'])
+    pipe = RetouchPipeline.from_run(cfg, model_root=tmp, device=DEVICE)
+    served = pipe.policy.state_dict()
+    if pipe.step != trained.state.step or any(
+            not torch.equal(served[k].cpu(), exported[k]) for k in exported):
+        fail('train: from_run serves step %s, the export holds step %d or '
+             'other weights' % (pipe.step, trained.state.step))
+    if not (pipe.dynamic and pipe.selected_plan):
+        fail('train: the pipeline is not dynamic with the selected plan')
+    batch = torch.from_numpy(_images(np.random.default_rng(SEED + 11),
+                                     TRAIN_SERVE_BATCH, RES, RES)).to(DEVICE)
+    stages = _count_k1_by_stage(pipe)
+    reset_counts()
+    with _NoPlainVersions():
+        out = pipe(batch, SEED, 0, device_out=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    by_stage = {'proxy': stages['plan'], 'replay': stages['replay']}
+    steps = pipe.cfg.test_steps
+    if by_stage != {'proxy': steps, 'replay': 1} or \
+            counts['dyn_chain'] != steps + 1 or counts['switch_chain'] or \
+            counts['static_chain']:
+        fail('train: serving the trained policy launched %s (K1 by stage %s)'
+             % (counts, by_stage))
+    if out.shape != batch.shape or out.dtype != torch.uint8:
+        fail('train: served %s %s' % (tuple(out.shape), out.dtype))
+
+    same, lsb = _small_against_cpu(
+        lambda dev: RetouchPipeline.from_run(cfg, model_root=tmp, device=dev,
+                                             use_kernels=True),
+        'train: the trained policy served')
+    say('train: served step %d through from_run on [%d, %d, %d, 3] u8: K1 '
+        'launches %d (%d on the proxy in the plan, %d replay), no plain '
+        'version; the exported artifact holds the served weights bit for '
+        'bit; small input against the CPU pipeline, dropout off: plans agree '
+        'on %d/8 rows, max_lsb %d' % (
+            pipe.step, TRAIN_SERVE_BATCH, RES, RES, counts['dyn_chain'],
+            by_stage['proxy'], by_stage['replay'], same, lsb))
+    return counts['dyn_chain']
+
+
+def phase_train():
+    """Training on the card: one outer iteration against the CPU; the
+    Trainer at full width through iterations 0-11, timed; resume; the
+    trained policy exported and served through K1.  Returns what the
+    summary line reports of it."""
+    import contextlib
+    import tempfile
+    from exposure_tpu_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    report = _train_check()
+    cfg = load_config(TRAIN_CONFIG)
+    cfg.name = TRAIN_CONFIG + '/smoke'
+    cfg.checkpoint_interval = TRAIN_CKPT_INTERVAL
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(REPO):
+        trainer, numbers = _train_run(cfg, tmp)
+        run = os.path.join(tmp, cfg.name)
+        with open(os.path.join(run, 'log.txt')) as f:
+            log = f.read()
+        with open(os.path.join(run, 'metrics.jsonl')) as f:
+            rows = [json.loads(line)['step'] for line in f]
+        ckpts = sorted((p for p in os.listdir(run) if p.endswith('.msgpack')),
+                       key=lambda p: int(re.findall(r'\d+', p)[0]))
+        want_ckpts = ['model.ckpt-%d.msgpack' % s for s in (6, 12)]
+        if 'it     0,' not in log or 'it    10,' not in log or \
+                rows != [0, 10] or ckpts != want_ckpts:
+            fail('train: run layout: log lines %s, metrics.jsonl steps %s, '
+                 'checkpoints %s' % ('it    10,' in log, rows, ckpts))
+        say('train: %s (B=%d, pool %d, %d filters, conv channels from %d, '
+            '%d-d features, fc %d), iterations 0-%d of the '
+            'schedule (warmup %d at lr 0, critic bursts of %d through '
+            'iteration %d, then giters %d citers %d), checkpoint every %d: '
+            'init %.1f s, training %.1f s; every metric finite; iteration 0 '
+            'kept the generator and value bits, Adam counts %d/%d/%d; pool '
+            'terminated %.4f after the warmup; %d critic tensors moved; '
+            'log lines, metrics.jsonl steps %s, checkpoints %s' % (
+                TRAIN_CONFIG, cfg.batch_size, cfg.replay_memory_size,
+                len(cfg.filters), cfg.base_channels,
+                cfg.feature_extractor_dims, cfg.fc1_size,
+                TRAIN_LAST_ITER, cfg.warmup_giters, cfg.critic_burst,
+                cfg.critic_initialization - 1, cfg.giters, cfg.citers,
+                cfg.checkpoint_interval, numbers['init_s'],
+                numbers['train_s'], cfg.warmup_giters, cfg.warmup_giters,
+                cfg.critic_burst, numbers['pool_terminated_frac_after_warmup'],
+                numbers['critic_tensors_moved'], rows, ckpts))
+        say('train: ms per generator update %.4f (warmup %.4f), per critic '
+            'update %.4f (burst %.4f), per plain outer iteration %.4f '
+            '(iterations %s; CUDA events, medians); peak memory %.3f GiB; '
+            'host syncs flagged by the sync debug mode in each plain '
+            'iteration\'s steps %s (at %s), in its bookkeeping %d over the '
+            '%d (the metric read, and the checkpoint at 12); EMD %.4f and '
+            'reward %.4f at iteration %d' % (
+                numbers['g_update_ms'], numbers['g_update_warmup_ms'],
+                numbers['c_update_ms'], numbers['c_update_burst_ms'],
+                numbers['plain_iteration_ms'], numbers['plain_iterations'],
+                numbers['peak_memory_gib'], numbers['plain_iteration_syncs'],
+                ', '.join(numbers['step_sync_sites']) or 'nowhere',
+                numbers['plain_bookkeeping_syncs'],
+                len(numbers['plain_iterations']), numbers['emd'],
+                numbers['reward'], TRAIN_LAST_ITER))
+        say('train: one more plain iteration under torch.profiler (the '
+            'trainer put back after it): %s' % json.dumps(
+                numbers['profiled_iteration']))
+        _resume(cfg, tmp, trainer)
+        numbers['launches_serve'] = _serve_trained(cfg, tmp, trainer)
+    numbers['phase_s'] = time.perf_counter() - t_phase
+    numbers['check'] = report
+    say('train: phase %.1f s (budget %d s)' % (numbers['phase_s'],
+                                               TRAIN_BUDGET_S))
+    return numbers
+
+
 def main():
     import numpy as np
     import torch
@@ -1695,6 +2099,7 @@ def main():
     tool_counts, _ = phase_tools()
     phase_small_reference()
     evaluation = phase_evaluate()
+    training = phase_train()
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
                for _ in range(MAIN_BATCHES)]
@@ -1762,10 +2167,12 @@ def main():
                     'exposure_tpu/ops/pallas_chain.py:479',
                     k1_timing[REPLAY_CASE[0]], k1_worst,
                     k1_main['replay'] + totals['dyn_chain'] +
-                    evaluation['launches'], 'dyn_chain', 'dyn_chain_kernel',
+                    evaluation['launches'] + training['launches_serve'],
+                    'dyn_chain', 'dyn_chain_kernel',
                     launches_main_path_replay=k1_main['replay'],
                     launches_other_paths=totals['dyn_chain'],
-                    launches_evaluation=evaluation['launches']),
+                    launches_evaluation=evaluation['launches'],
+                    launches_training_serve=training['launches_serve']),
         # the same kernel on one full-resolution image, the evaluator's
         # replay: every launch of the evaluation path (its sizes vary; the
         # time is this shape's)

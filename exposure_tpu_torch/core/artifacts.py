@@ -1,21 +1,25 @@
 """Weight importer for the JAX package's serving artifacts.
 
-An artifact (``exposure_tpu/core/artifacts.py``) is a gzip-compressed flax
-msgpack map ``{'run', 'step', 'dtype', 'gen_params'}``.  flax writes each
-array as msgpack ext type 1 whose payload is itself msgpack
-``(shape, dtype_name, C-order bytes)``, and each numpy scalar as ext type
-3 with the same payload.  Neither flax nor the ``msgpack`` package is
-needed here: ``msgpack_restore`` decodes the subset such files use in
-pure Python.  ``flax_to_state_dict`` maps the flax ``gen_params`` tree
-onto ``models.networks.PolicyNet``.
+Serving artifacts and the flax msgpack format (torch counterpart of
+``exposure_tpu/core/artifacts.py``).
 
-``restore_for_serving`` is the by-run lookup the evaluator uses
-(``exposure_tpu/core/artifacts.py::restore_for_serving``): the artifact of
-``<config>/<run>`` under ``artifacts/serving/``.  The JAX package prefers a
-training checkpoint under ``models/<config>/<run>`` when there is one; the
-port cannot read those yet (``ROADMAP.md`` item 9c), so a run that has
-checkpoints raises instead of quietly serving the artifact's weights in
-their place.  The artifact writer waits for 9c too.
+An artifact is a gzip-compressed flax msgpack map ``{'run', 'step',
+'dtype', 'gen_params'}``.  flax writes each array as msgpack ext type 1
+whose payload is itself msgpack ``(shape, dtype_name, C-order bytes)``,
+and each numpy scalar as ext type 3 with the same payload.  Neither flax
+nor the ``msgpack`` package is needed here: ``msgpack_restore`` decodes
+and ``msgpack_serialize`` encodes the subset such files use in pure
+Python, byte for byte as ``msgpack.packb`` does.  ``flax_to_state_dict``
+and ``flax_critic_to_state_dict`` map the flax trees onto
+``models.networks.PolicyNet`` and ``CriticNet``; ``state_dict_to_flax`` and
+``critic_state_dict_to_flax`` map back (training checkpoints,
+``core/checkpoint.py``, use them too).
+
+``restore_for_serving`` is the by-run lookup the evaluator and
+``RetouchPipeline.from_run`` use: the newest training checkpoint under
+``models/<config>/<run>`` when there is one, the artifact of
+``<config>/<run>`` under ``artifacts/serving/`` otherwise.
+``export_serving_artifact`` writes an artifact from a ``TrainState``.
 """
 
 import gzip
@@ -41,7 +45,7 @@ def artifact_path(run, root=ARTIFACT_ROOT):
 
 def has_checkpoint(run, model_root='models'):
     """True when ``<model_root>/<run>`` holds a training checkpoint
-    (``model.ckpt-<step>.msgpack``, as the JAX trainer writes them)."""
+    (``model.ckpt-<step>.msgpack``, as either trainer writes them)."""
     directory = os.path.join(model_root, run)
     return os.path.isdir(directory) and any(
         _CHECKPOINT_FILE.match(p) for p in os.listdir(directory))
@@ -55,26 +59,47 @@ def has_trained_params(run, model_root='models'):
 
 def restore_for_serving(run, model_root='models', ckpt=None):
     """The trained policy weights of ``<config>/<run>``: ``(PolicyNet
-    state_dict, step, 'artifact')``.
-
-    Raises ``NotImplementedError`` when a checkpoint step is asked for
-    (``ckpt``) or the run has checkpoints, which the JAX package would
-    restore and the port cannot read yet; ``FileNotFoundError`` when there
-    is no artifact."""
+    state_dict, step, source)``.  The checkpoint when there is one (step
+    ``ckpt``, or the newest readable), the serving artifact otherwise, as
+    the JAX ``restore_for_serving`` does; ``FileNotFoundError`` when there
+    is neither."""
+    from exposure_tpu_torch.core.checkpoint import read_checkpoint
+    directory = os.path.join(model_root, run)
     if ckpt is not None or has_checkpoint(run, model_root):
-        raise NotImplementedError(
-            'restoring a training checkpoint (%s, step %s) is not ported '
-            'yet: ROADMAP.md item 9c; move the checkpoints away to serve '
-            'the artifact %s'
-            % (os.path.join(model_root, run), ckpt, artifact_path(run)))
+        tree, step = read_checkpoint(directory, ckpt)
+        return flax_to_state_dict(tree['gen_params']), step, 'checkpoint'
     path = artifact_path(run)
     if not os.path.exists(path):
         raise FileNotFoundError(
             'no checkpoint under %s and no artifact at %s'
-            % (os.path.join(model_root, run), path))
+            % (directory, path))
     payload = load_artifact(path)
     return (flax_to_state_dict(payload['gen_params']), int(payload['step']),
             'artifact')
+
+
+def export_serving_artifact(run, state, step, path=None, dtype=np.float32):
+    """Write the generator-only artifact of a trained ``TrainState``
+    (``{'run', 'step', 'dtype', 'gen_params'}``, gzip level 9), as the JAX
+    ``export_serving_artifact`` does.  float32 restores bit for bit;
+    float16 halves the file and flips near-tie argmax decisions.  Returns
+    the path."""
+    path = path or artifact_path(run)
+    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+    dtype = np.dtype(dtype)
+
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        return np.asarray(tree, dtype)
+
+    payload = {'run': run, 'step': int(step), 'dtype': dtype.name,
+               'gen_params': cast(state_dict_to_flax(state.gen_params))}
+    tmp = path + '.tmp'
+    with gzip.open(tmp, 'wb', compresslevel=9) as f:
+        f.write(msgpack_serialize(payload))
+    os.replace(tmp, path)
+    return path
 
 
 class _Reader:
@@ -169,6 +194,98 @@ def msgpack_restore(data):
     return out
 
 
+def _header(out, n, fix, fix_max, codes):
+    """A length header: ``fix | n`` below ``fix_max``, else the first code
+    of ``codes`` ((code, struct format, limit), ...) whose limit takes it."""
+    if fix is not None and n < fix_max:
+        out.append(struct.pack('B', fix | n))
+        return
+    for code, fmt, limit in codes:
+        if n < limit:
+            out.append(struct.pack('>B' + fmt, code, n))
+            return
+    raise ValueError('msgpack length %d too large' % n)
+
+
+_STR = ((0xd9, 'B', 1 << 8), (0xda, 'H', 1 << 16), (0xdb, 'I', 1 << 32))
+_BIN = ((0xc4, 'B', 1 << 8), (0xc5, 'H', 1 << 16), (0xc6, 'I', 1 << 32))
+_ARRAY = ((0xdc, 'H', 1 << 16), (0xdd, 'I', 1 << 32))
+_MAP = ((0xde, 'H', 1 << 16), (0xdf, 'I', 1 << 32))
+_FIXEXT = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+_EXT = ((0xc7, 'B', 1 << 8), (0xc8, 'H', 1 << 16), (0xc9, 'I', 1 << 32))
+
+
+def _int(out, n):
+    if 0 <= n < 0x80 or -32 <= n < 0:
+        out.append(struct.pack('b' if n < 0 else 'B', n))
+        return
+    codes = ((0xcc, 'B', 0, 1 << 8), (0xcd, 'H', 0, 1 << 16),
+             (0xce, 'I', 0, 1 << 32), (0xcf, 'Q', 0, 1 << 64)) if n > 0 \
+        else ((0xd0, 'b', -(1 << 7), 0), (0xd1, 'h', -(1 << 15), 0),
+              (0xd2, 'i', -(1 << 31), 0), (0xd3, 'q', -(1 << 63), 0))
+    for code, fmt, lo, hi in codes:
+        if lo <= n < hi:
+            out.append(struct.pack('>B' + fmt, code, n))
+            return
+    raise ValueError('integer %d does not fit msgpack' % n)
+
+
+def _ext_out(out, code, payload):
+    if len(payload) in _FIXEXT:
+        out.append(struct.pack('>Bb', _FIXEXT[len(payload)], code))
+    else:
+        _header(out, len(payload), None, 0, _EXT)
+        out.append(struct.pack('b', code))
+    out.append(payload)
+
+
+def _encode(out, obj):
+    if obj is None:
+        out.append(b'\xc0')
+    elif obj is True or obj is False:
+        out.append(b'\xc3' if obj else b'\xc2')
+    elif isinstance(obj, int):
+        _int(out, obj)
+    elif isinstance(obj, float):
+        out.append(struct.pack('>Bd', 0xcb, obj))
+    elif isinstance(obj, str):
+        raw = obj.encode('utf-8')
+        _header(out, len(raw), 0xa0, 32, _STR)
+        out.append(raw)
+    elif isinstance(obj, bytes):
+        _header(out, len(obj), None, 0, _BIN)
+        out.append(obj)
+    elif isinstance(obj, dict):
+        _header(out, len(obj), 0x80, 16, _MAP)
+        for key, value in obj.items():
+            _encode(out, key)
+            _encode(out, value)
+    elif isinstance(obj, (list, tuple)):
+        _header(out, len(obj), 0x90, 16, _ARRAY)
+        for value in obj:
+            _encode(out, value)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        if arr.dtype.hasobject:
+            raise ValueError('object arrays do not serialize')
+        payload = msgpack_serialize(
+            (list(arr.shape), arr.dtype.name, arr.tobytes('C')))
+        _ext_out(out, _EXT_NDARRAY if isinstance(obj, np.ndarray)
+                 else _EXT_NPSCALAR, payload)
+    else:
+        raise TypeError('cannot serialize %r' % type(obj))
+
+
+def msgpack_serialize(tree):
+    """Encode dicts, lists, python scalars and numpy leaves as flax's
+    ``msgpack_serialize`` does (``msgpack.packb`` with flax's ext types:
+    each array ext type 1, each numpy scalar ext type 3, with the payload
+    ``(shape, dtype_name, C-order bytes)``), in the dicts' key order."""
+    out = []
+    _encode(out, tree)
+    return b''.join(out)
+
+
 def load_artifact(path):
     """Read a serving artifact: ``{'run', 'step', 'dtype', 'gen_params'}``
     with numpy leaves."""
@@ -204,6 +321,56 @@ def flax_to_state_dict(gen_params):
         else:
             raise KeyError('unexpected policy parameter %r' % name)
     return sd
+
+
+def sorted_tree(tree):
+    """``tree`` with every dict's keys in sorted order, as a JAX tree map
+    leaves a flax parameter tree (and so the JAX package writes them)."""
+    if isinstance(tree, dict):
+        return {k: sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _layer(sd, prefix, conv):
+    """One layer of a state_dict as a flax leaf: conv weights from OIHW to
+    HWIO, linear weights from [out, in] to [in, out]."""
+    weight = sd[prefix + '.weight'].detach().cpu().numpy().astype(np.float32)
+    kernel = weight.transpose(2, 3, 1, 0) if conv else weight.T
+    return {'bias': sd[prefix + '.bias'].detach().cpu().numpy()
+            .astype(np.float32),
+            'kernel': np.ascontiguousarray(kernel)}
+
+
+def _indices(sd, prefix, at):
+    return sorted({int(k.split('.')[at]) for k in sd if k.startswith(prefix)})
+
+
+def state_dict_to_flax(sd):
+    """Inverse of :func:`flax_to_state_dict`: a ``PolicyNet`` state_dict
+    (or a tree of Adam moments keyed alike) as the flax ``{'params': ...}``
+    tree, numpy leaves, keys sorted."""
+    params = {}
+    for name in ('shared_extractor', 'selector_extractor'):
+        params[name] = {
+            'Conv_%d' % i: _layer(sd, '%s.convs.%d' % (name, i), conv=True)
+            for i in _indices(sd, name + '.convs.', 2)}
+    for j in _indices(sd, 'filter_fc1.', 1):
+        for layer in ('fc1', 'fc2'):
+            params['filter_%d_%s' % (j, layer)] = _layer(
+                sd, 'filter_%s.%d' % (layer, j), conv=False)
+    for name in ('selector_fc1', 'selector_fc2'):
+        params[name] = _layer(sd, name, conv=False)
+    return sorted_tree({'params': params})
+
+
+def critic_state_dict_to_flax(sd):
+    """Inverse of :func:`flax_critic_to_state_dict` (the critic and the
+    value network)."""
+    params = {'Conv_%d' % i: _layer(sd, 'convs.%d' % i, conv=True)
+              for i in _indices(sd, 'convs.', 1)}
+    params['Dense_0'] = _layer(sd, 'fc1', conv=False)
+    params['Dense_1'] = _layer(sd, 'fc2', conv=False)
+    return sorted_tree({'params': params})
 
 
 def flax_critic_to_state_dict(params):

@@ -65,7 +65,7 @@ from exposure_tpu_torch.utils.image_io import (
     read_tiff16,
     write_image,
 )
-from exposure_tpu_torch.utils.ops import STATE_STOPPED_DIM
+from exposure_tpu_torch.utils.ops import STATE_STOPPED_DIM, tf32_off
 
 _REALTIME_VIS_FAILED = [False]
 
@@ -101,19 +101,6 @@ def downsample_to_proxy(image, size=64):
     resolution, on the host."""
     center = np.ascontiguousarray(get_image_center(image), np.float32)
     return proxy_resize(torch.from_numpy(center)[None], size)[0].numpy()
-
-
-@contextlib.contextmanager
-def _tf32_off():
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def _host(x):
@@ -191,7 +178,7 @@ class Evaluator:
             low_res_batch = torch.from_numpy(
                 np.asarray(low_res_batch, np.float32))
         proxies = low_res_batch.to(self.device)
-        with _tf32_off():
+        with tf32_off():
             traj = rollout(self.policy, proxies, generator, cfg=self.cfg,
                            filters=self.filters, is_train=0)
         stopped = _host(traj.states[:, :, STATE_STOPPED_DIM])  # [K, B]

@@ -58,7 +58,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from exposure_tpu_torch.core.artifacts import flax_to_state_dict, load_artifact
+from exposure_tpu_torch.core.artifacts import (
+    flax_to_state_dict,
+    load_artifact,
+    restore_for_serving,
+)
 from exposure_tpu_torch.core.rollout import rollout, serve_rollout
 from exposure_tpu_torch.models.networks import build_policy
 from exposure_tpu_torch.ops.chain import apply_filter_chain
@@ -169,6 +173,19 @@ class RetouchPipeline:
         policy.load_state_dict(flax_to_state_dict(payload['gen_params']))
         return cls(cfg, policy, device=device, run=payload.get('run'),
                    step=payload.get('step'), **kwargs)
+
+    @classmethod
+    def from_run(cls, cfg, model_root='models', ckpt=None, device='cuda',
+                 **kwargs):
+        """A pipeline serving the generator of training run ``cfg.name``
+        (``<config>/<run>``): its checkpoint (step ``ckpt``, or the newest),
+        or its serving artifact when there is no checkpoint
+        (``core/artifacts.py::restore_for_serving``)."""
+        state_dict, step, _ = restore_for_serving(cfg.name, model_root, ckpt)
+        policy = build_policy(cfg, build_filters(cfg))
+        policy.load_state_dict(state_dict)
+        return cls(cfg, policy, device=device, run=cfg.name, step=step,
+                   **kwargs)
 
     # -- superset layout: freeze, and the auto record/freeze/re-freeze ----
     def freeze_superset(self, layout):

@@ -1,0 +1,194 @@
+"""The outer training iteration on one device (torch counterpart of
+``exposure_tpu/core/steps.py::build_outer_step``).
+
+One call of the step runs ``giters`` generator+value updates, then
+``citers`` critic WGAN-GP updates, each a plain eager PyTorch update with
+no host synchronisation: the dataset packs and the replay pool live on the
+device, fresh crops are sampled there (``data/device_sampler.py``), and the
+metrics stay device tensors until the trainer reads them.
+
+Randomness comes from the caller's ``utils/draws.py::Draws``: by default a
+``torch.Generator``, in the tests the JAX step's own draws replayed.  The
+JAX step's ``shard_map`` over a data-parallel mesh, its fused N-iteration
+variant and its streaming variants are economies of the TPU's dispatch;
+this step is the one-device, one-iteration program (``ROADMAP.md`` lists
+the rest).
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from exposure_tpu_torch.core.losses import critic_loss, generator_value_loss
+from exposure_tpu_torch.core.replay import (
+    reinsert,
+    sample_terminated,
+    select_generator_batch,
+)
+from exposure_tpu_torch.core.train_state import apply_lr_update, clip_tree
+from exposure_tpu_torch.data.device_sampler import (
+    DevicePack,
+    channels_to_paired,
+    sample_batch,
+)
+
+
+class StepMetrics(NamedTuple):
+    g_loss: torch.Tensor
+    v_loss: torch.Tensor
+    emd: torch.Tensor
+    critic_gradient_norm: torch.Tensor
+    reward: torch.Tensor
+    pool_avg_trajectory: torch.Tensor
+    pool_terminated_frac: torch.Tensor
+
+
+def _leaves(params):
+    """Fresh leaf tensors to differentiate, sharing ``params``' storage."""
+    return {k: v.detach().requires_grad_(True) for k, v in params.items()}
+
+
+def _make_phase_bodies(cfg, policy, critic_mod, value_mod, filters,
+                       local_batch, taps=None):
+    """The generator-phase and critic-phase update cores.  ``taps``: a
+    list each update appends its gradients to (and a generator update its
+    selection), or None."""
+    betas = (cfg.get('adam_beta1', 0.5), cfg.get('adam_beta2', 0.9))
+
+    def g_update(st, pl, fresh_triplet, draws, lr_g, progress):
+        (fresh_batch, fresh_gt), (fresh2, fresh2_gt), \
+            (fresh_pool, fresh_pool_gt) = fresh_triplet
+        sel_idx, b_img, b_states, dropped, b_gt = select_generator_batch(
+            pl, draws, local_batch, fresh_batch, fresh_gt)
+
+        params = {'gen': _leaves(st.gen_params),
+                  'val': _leaves(st.val_params)}
+        loss, aux = generator_value_loss(
+            params, st.crit_params, policy, critic_mod, value_mod, b_img,
+            b_states, draws, 1, progress, cfg, filters, ground_truth=b_gt)
+        names = [(tree, k) for tree in ('gen', 'val') for k in params[tree]]
+        grads = torch.autograd.grad(loss, [params[t][k] for t, k in names],
+                                    allow_unused=True)
+        grads = {(t, k): torch.zeros_like(params[t][k]) if g is None else g
+                 for (t, k), g in zip(names, grads)}
+
+        if taps is not None:
+            taps.append({
+                'gen': {k: grads['gen', k] for k in st.gen_params},
+                'val': {k: grads['val', k] for k in st.val_params},
+                'sel_idx': sel_idx, 'ids': aux.selected_filter_id,
+                'pdf': aux.pdf})
+        gen_params, opt_g = apply_lr_update(
+            {k: grads['gen', k] for k in st.gen_params}, st.opt_g,
+            st.gen_params, lr_g, *betas)
+        val_params, opt_v = apply_lr_update(
+            {k: grads['val', k] for k in st.val_params}, st.opt_v,
+            st.val_params, lr_g * cfg.value_lr_mul, *betas)
+        st = st.replace(gen_params=gen_params, val_params=val_params,
+                        opt_g=opt_g, opt_v=opt_v)
+
+        pl = reinsert(pl, draws, sel_idx, aux.new_images, aux.new_states,
+                      dropped, fresh2, fresh_pool,
+                      cfg.maximum_trajectory_length,
+                      cfg.over_length_keep_prob,
+                      batch_gt=b_gt, fresh_gt_for_batch=fresh2_gt,
+                      fresh_gt_for_pool=fresh_pool_gt)
+        return st, pl, (aux.g_loss, aux.v_loss, torch.mean(aux.reward))
+
+    def c_update(st, pool, real_batch, draws, lr_c):
+        fake_batch, _ = sample_terminated(pool, draws, local_batch)
+        crit = _leaves(st.crit_params)
+        loss, aux = critic_loss(crit, critic_mod, real_batch, fake_batch,
+                                draws, cfg)
+        names = list(crit)
+        grads = torch.autograd.grad(loss, [crit[k] for k in names])
+        if taps is not None:
+            taps.append({'crit': dict(zip(names, grads))})
+        crit_params, opt_c = apply_lr_update(
+            dict(zip(names, grads)), st.opt_c, st.crit_params, lr_c, *betas)
+        if cfg.gan == 'w' and cfg.gradient_penalty_lambda <= 0:
+            # weight clipping when the gradient penalty is off
+            crit_params = clip_tree(crit_params, cfg.clamp_critic)
+        st = st.replace(crit_params=crit_params, opt_c=opt_c,
+                        ema=st.ema.update(aux.c_average))
+        return st, (aux.emd, aux.critic_gradient_norm)
+
+    return g_update, c_update
+
+
+def _finalize(state, pool, g_outs, c_outs):
+    """The iteration's metrics, device tensors: the means over the updates
+    (the critic gradient norm of the last critic update).  A phase that ran
+    no update gives NaN for its metrics, as the JAX mean of nothing does
+    (the trainer takes them from the other phase)."""
+    device = pool.images.device
+    nan = torch.full((), float('nan'), device=device)
+
+    def mean(xs):
+        return torch.stack(xs).mean() if xs else nan
+
+    g_losses, v_losses, rewards = zip(*g_outs) if g_outs else ((), (), ())
+    emds, cgns = zip(*c_outs) if c_outs else ((), ())
+    metrics = StepMetrics(
+        g_loss=mean(g_losses),
+        v_loss=mean(v_losses),
+        emd=mean(emds) if emds else torch.zeros((), device=device),
+        critic_gradient_norm=cgns[-1] if cgns else torch.zeros(
+            (), device=device),
+        reward=mean(rewards),
+        pool_avg_trajectory=pool.average_trajectory(),
+        pool_terminated_frac=torch.mean(
+            pool.terminated_mask().to(torch.float32)),
+    )
+    return state, pool, metrics
+
+
+def build_outer_step(cfg, policy, critic_mod, value_mod, filters,
+                     fake_meta, real_meta, giters, citers, taps=None):
+    """The train step for fixed (giters, citers).
+
+    ``fake_meta``/``real_meta`` are the packs' ``(output_size, augment)``;
+    their images are passed at call time.  ``taps``: a list that every
+    update appends its gradients to (``tools/train_check.py`` compares the
+    card's with the CPU's).  Returns
+    ``step(state, pool, fake_images, real_images, draws, lr_g, lr_c,
+    progress) -> (state, pool, StepMetrics)``."""
+    local_batch = cfg.batch_size
+    supervised = bool(cfg.get('supervised', False))
+    if supervised and citers:
+        raise ValueError('supervised mode has no critic updates')
+    fake_size, fake_augment = fake_meta
+    real_size, real_augment = real_meta
+    img_channels = cfg.get('real_img_channels', 3)
+    g_update, c_update = _make_phase_bodies(
+        cfg, policy, critic_mod, value_mod, filters, local_batch, taps)
+
+    def step(state, pool, fake_images, real_images, draws, lr_g, lr_c,
+             progress):
+        fake_pack = DevicePack(fake_images, fake_size, fake_augment)
+        real_pack = DevicePack(real_images, real_size, real_augment)
+
+        def sample_fake(n):
+            """Fresh RAW; in supervised mode the pack carries (input, gt)
+            pairs as stacked channels: returns (img, gt)."""
+            batch = sample_batch(fake_pack, draws, n)
+            if supervised:
+                return channels_to_paired(batch, img_channels)
+            return batch, None
+
+        g_outs = []
+        for _ in range(giters):
+            triplet = (sample_fake(local_batch), sample_fake(local_batch),
+                       sample_fake(pool.size))
+            state, pool, outs = g_update(state, pool, triplet, draws, lr_g,
+                                         progress)
+            g_outs.append(outs)
+
+        c_outs = []
+        for _ in range(citers):
+            real_batch = sample_batch(real_pack, draws, local_batch)
+            state, outs = c_update(state, pool, real_batch, draws, lr_c)
+            c_outs.append(outs)
+        return _finalize(state, pool, g_outs, c_outs)
+
+    return step

@@ -12,13 +12,16 @@ Two differences from the JAX file:
   the machine.  Here it is always plain bilinear with half-pixel centres
   and no antialiasing, in numpy: what ``cv2.resize`` computes by default
   (``INTER_LINEAR``) on float images.
-- ``device_pack`` (the device-resident sampling path of training) is not
-  ported yet and raises: ``ROADMAP.md`` item 9b.
+- ``device_pack`` takes the device to put the pack on (the JAX trainer
+  moves it there itself).
 """
 
 import random
 
 import numpy as np
+import torch
+
+from exposure_tpu_torch.data.device_sampler import DevicePack
 
 
 def _linear_taps(n_in, n_out):
@@ -83,10 +86,13 @@ class DataProvider:
         else:
             self.output_size = (output_size, output_size)
 
-    def device_pack(self):
-        """The full source array for sampling on the device (training)."""
-        raise NotImplementedError(
-            'device_pack waits for the device sampler: ROADMAP.md item 9b')
+    def device_pack(self, device='cpu'):
+        """The full source array on ``device``, with its sampling metadata,
+        for ``data/device_sampler.py::sample_batch`` (training)."""
+        return DevicePack(
+            images=torch.from_numpy(self.data * self.image_scaling).to(device),
+            output_size=self.output_size[0],
+            augment=self.augmentation > 0)
 
     def augment_one(self, img):
         s = self.output_size[0]

@@ -19,7 +19,12 @@ import torch.nn.functional as F
 
 from exposure_tpu_torch.ops.filters import max_filter_parameters
 from exposure_tpu_torch.ops.sampling import pdf_sample
-from exposure_tpu_torch.utils.ops import STATE_DROPOUT_BEGIN, STATE_STEP_DIM
+from exposure_tpu_torch.utils.draws import randint, uniform
+from exposure_tpu_torch.utils.ops import (
+    STATE_DROPOUT_BEGIN,
+    STATE_STEP_DIM,
+    clip,
+)
 
 
 def enrich_image_input(cfg, img, states):
@@ -102,8 +107,9 @@ def agent_step(policy, img, states, generator, *, is_train, progress, cfg,
       img: [B, H, W, C] low-res proxy in [0, 1].
       states: [B, state_dim] trajectory state.
       generator: ``torch.Generator`` on the image's device (or None for
-        the global one).  Dropout draws from it first, then the selection
-        noise, as the JAX step splits its key into (dropout, noise).
+        the global one), or a training step's ``utils/draws.py::Draws``.
+        Dropout draws from it first, then the selection noise, as the JAX
+        step splits its key into (dropout, noise).
       is_train: 1 samples the action, 0 takes the argmax; an int or an
         int tensor, blended arithmetically as the reference does.  With a
         python 0 the sample is not used, so no selection noise is drawn.
@@ -138,8 +144,7 @@ def agent_step(policy, img, states, generator, *, is_train, progress, cfg,
     inject_p = float(cfg.replay_inject_prob or 0.0)
     greedy_id = torch.argmax(pdf, dim=1).to(torch.int32)
     if selection_noise is None and (not _is_zero(is_train) or inject_p > 0):
-        selection_noise = torch.rand((batch, 1), generator=generator,
-                                     device=img.device)
+        selection_noise = uniform(generator, 'noise', (batch, 1), img.device)
     if selection_noise is not None:
         sampled_id = pdf_sample(pdf, selection_noise)
     else:   # is_train is a python 0: the blend keeps the greedy id
@@ -156,8 +161,8 @@ def agent_step(policy, img, states, generator, *, is_train, progress, cfg,
     # The draws come after the selection noise on the same generator.
     injected = None
     if inject_p > 0.0:
-        injected = torch.rand((batch,), generator=generator,
-                              device=img.device) < inject_p
+        injected = uniform(generator, 'inject', (batch,), img.device) \
+            < inject_p
         for gate in (is_train > 0 if torch.is_tensor(is_train)
                      else bool(is_train),
                      progress < cfg.replay_inject_until):
@@ -166,12 +171,11 @@ def agent_step(policy, img, states, generator, *, is_train, progress, cfg,
         if str(cfg.replay_inject_mode) == 'anti':
             q = 1.0 / (pdf + 0.02)
             q = q / torch.sum(q, dim=1, keepdim=True)
-            forced_id = pdf_sample(q, torch.rand(
-                (batch, 1), generator=generator, device=img.device))
+            forced_id = pdf_sample(q, uniform(generator, 'forced', (batch, 1),
+                                              img.device))
         else:
-            forced_id = torch.randint(0, num_filters, (batch,),
-                                      generator=generator, device=img.device,
-                                      dtype=torch.int32)
+            forced_id = randint(generator, 'forced', num_filters, (batch,),
+                                img.device).to(torch.int32)
         selected_id = torch.where(injected, forced_id, selected_id)
 
     one_hot = F.one_hot(selected_id.long(), num_filters).to(img.dtype)
@@ -196,7 +200,7 @@ def agent_step(policy, img, states, generator, *, is_train, progress, cfg,
         states, one_hot, cfg, img.dtype)
     submitted = is_last_step
     if cfg.clamp:
-        out = torch.clamp(out, 0.0, 5.0)
+        out = clip(out, 0.0, 5.0)
 
     early_stop_penalty = (1 - is_last_step) * submitted * \
         cfg.early_stop_penalty
@@ -206,12 +210,12 @@ def agent_step(policy, img, states, generator, *, is_train, progress, cfg,
     if respike > 0.0:
         bump = 1.0 - abs(progress - cfg.entropy_respike_center) / \
             cfg.entropy_respike_width
-        decay = decay + respike * (torch.clamp(bump, min=0.0)
+        decay = decay + respike * (clip(bump, lo=0.0)
                                    if torch.is_tensor(bump)
                                    else max(0.0, bump))
     entropy_penalty = decay * cfg.exploration_penalty * (
         -entropy + math.log(num_filters))
-    overflow = torch.mean(torch.clamp(out - 1, min=0) ** 2,
+    overflow = torch.mean(clip(out - 1, lo=0.0) ** 2,
                           dim=(1, 2, 3))[:, None]
     penalty = (overflow + entropy_penalty +
                usage_penalty * cfg.filter_usage_penalty + early_stop_penalty)

@@ -17,14 +17,21 @@ the convolutions.  Three details carry the flax semantics over:
 ``CriticNet`` is the WGAN critic and, given ``states``, the value network:
 hand-made statistics channels (``critic_stats``) and the optional state
 vector are broadcast over the image as constant channels, then a strided
-conv stack without normalization and two dense layers give one logit.  It
-is forward only here; the losses that train it are not ported yet.
+conv stack without normalization and two dense layers give one logit.
+``core/losses.py`` trains it.
+
+``init_like_flax`` starts a module as the JAX networks start: Glorot-uniform
+kernels (``nn.initializers.glorot_uniform``, the reference's
+``xavier_initializer``) and zero biases; torch's own defaults differ.
 """
+
+import math
 
 import torch
 import torch.nn as nn
 
-from exposure_tpu_torch.utils.ops import lrelu
+from exposure_tpu_torch.utils.draws import uniform
+from exposure_tpu_torch.utils.ops import clip, lrelu
 
 MIN_FEATURE_MAP_SIZE = 4   # the convs stop at a 4x4 map
 
@@ -32,11 +39,11 @@ MIN_FEATURE_MAP_SIZE = 4   # the convs stop at a 4x4 map
 def dropout(x, keep_prob, generator):
     """Inverted dropout that is on whatever the module mode.  The mask is
     drawn in float32 whatever ``x``'s dtype, so a bfloat16 plan drops the
-    same units as a float32 one from the same generator."""
+    same units as a float32 one from the same generator; ``generator`` is a
+    ``torch.Generator`` or a training step's ``Draws``."""
     if keep_prob >= 1.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < keep_prob
+    keep = uniform(generator, 'dropout', x.shape, x.device) < keep_prob
     return x * keep / keep_prob
 
 
@@ -143,9 +150,10 @@ def critic_stats(images):
            images[..., 2] * 0.06 + 1e-5)
     luminance = lum.mean(dim=(1, 2))
     contrast = lum.var(dim=(1, 2), unbiased=False)
-    clipped = torch.clamp(images, 0.0, 1.0)
-    i_max = clipped.max(dim=3).values
-    i_min = clipped.min(dim=3).values
+    clipped = clip(images, 0.0, 1.0)
+    # amax/amin split the gradient over tied channels, as jnp.max does
+    i_max = clipped.amax(dim=3)
+    i_min = clipped.amin(dim=3)
     sat = (i_max - i_min) / (torch.minimum(i_max + i_min,
                                            2.0 - i_max - i_min) + 1e-2)
     saturation = sat.mean(dim=(1, 2))
@@ -201,6 +209,25 @@ class CriticNet(nn.Module):
             x = lrelu(conv(x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], self.flat_dim)
         return self.fc2(lrelu(self.fc1(x)))
+
+
+def init_like_flax(module, generator=None):
+    """Glorot-uniform on every conv and linear weight, zero on every bias,
+    drawn from ``generator`` in ``module.modules()`` order.  A conv weight
+    is OIHW: fan_in is ``I*kh*kw`` and fan_out ``O*kh*kw``, as flax counts
+    them on its HWIO kernel.  Returns the module."""
+    with torch.no_grad():
+        for m in module.modules():
+            if not isinstance(m, (nn.Conv2d, nn.Linear)):
+                continue
+            w = m.weight
+            receptive = w[0, 0].numel() if w.dim() > 2 else 1
+            fan_in, fan_out = w.shape[1] * receptive, w.shape[0] * receptive
+            limit = math.sqrt(6.0 / (fan_in + fan_out))
+            w.uniform_(-limit, limit, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+    return module
 
 
 def build_models(cfg):

@@ -12,7 +12,7 @@ import math
 import torch
 
 from exposure_tpu_torch.ops.color_space import hsv_to_rgb, rgb_to_hsv
-from exposure_tpu_torch.utils.ops import lerp, rgb2lum, tanh_range
+from exposure_tpu_torch.utils.ops import abs_, clip, lerp, rgb2lum, tanh_range
 
 
 class Filter:
@@ -148,7 +148,7 @@ class GammaFilter(Filter):
             tanh_range(-log_gamma_range, log_gamma_range)(features))
 
     def process(self, img, param):
-        return torch.pow(torch.clamp(img, min=0.001),
+        return torch.pow(clip(img, lo=0.001),
                          param[:, None, None, :])
 
 
@@ -196,8 +196,7 @@ class ColorFilter(Filter):
         curve_sum = torch.sum(curve, dim=2) + 1e-30
         total = img * 0
         for i in range(steps):
-            total = total + torch.clamp(img - 1.0 * i / steps, 0.0,
-                                        1.0 / steps) * \
+            total = total + clip(img - 1.0 * i / steps, 0.0, 1.0 / steps) * \
                 curve[:, None, None, :, i]
         return total * (steps / curve_sum)[:, None, None, :]
 
@@ -220,8 +219,7 @@ class ToneFilter(Filter):
         curve_sum = torch.sum(param, dim=1) + 1e-30
         total = img * 0
         for i in range(steps):
-            total = total + torch.clamp(img - 1.0 * i / steps, 0.0,
-                                        1.0 / steps) * \
+            total = total + clip(img - 1.0 * i / steps, 0.0, 1.0 / steps) * \
                 param[:, i, None, None, None]
         return total * (steps / curve_sum)[:, None, None, None]
 
@@ -271,7 +269,7 @@ class ContrastFilter(Filter):
         return torch.tanh(features)
 
     def process(self, img, param):
-        luminance = torch.clamp(rgb2lum(img), 0.0, 1.0)
+        luminance = clip(rgb2lum(img), 0.0, 1.0)
         contrast_lum = -torch.cos(math.pi * luminance) * 0.5 + 0.5
         contrast_image = img / (luminance + 1e-6) * contrast_lum
         return lerp(img, contrast_image, param[:, :, None, None])
@@ -303,7 +301,7 @@ class LevelFilter(Filter):
     def process(self, img, param):
         lower = param[:, 0][:, None, None, None]
         upper = (param[:, 1] + 1)[:, None, None, None]
-        return torch.clamp((img - lower) / (upper - lower + 1e-6), 0.0, 1.0)
+        return clip((img - lower) / (upper - lower + 1e-6), 0.0, 1.0)
 
 
 class SaturationPlusFilter(Filter):
@@ -316,11 +314,11 @@ class SaturationPlusFilter(Filter):
         return torch.sigmoid(features)
 
     def process(self, img, param):
-        img = torch.clamp(img, max=1.0)
+        img = clip(img, hi=1.0)
         hsv = rgb_to_hsv(img)
         s = hsv[..., 1:2]
         v = hsv[..., 2:3]
-        enhanced_s = s + (1 - s) * (0.5 - torch.abs(0.5 - v)) * 0.8
+        enhanced_s = s + (1 - s) * (0.5 - abs_(0.5 - v)) * 0.8
         hsv1 = torch.cat([hsv[..., 0:1], enhanced_s, hsv[..., 2:]], dim=-1)
         full_color = hsv_to_rgb(hsv1)
         p = param[:, :, None, None]

@@ -10,7 +10,10 @@ providers read the FiveK files) also carry their three data providers,
 with the arguments of ``configs/config_synthetic.py`` and
 ``configs/config_test.py``.  The knobs that the
 JAX ``agent_step`` reads with ``cfg.get`` and a default (``replay_inject_*``,
-``entropy_respike*``) are in the table with those defaults.  Filters are named by the
+``entropy_respike*``) are in the table with those defaults, and so are the
+ones the JAX trainer reads so (``critic_burst``, ``warmup_giters``,
+``checkpoint_interval``, ``seed``).  The learning-rate schedules
+``lr_g``/``lr_c`` are callables of the iteration.  Filters are named by the
 JAX class ``__name__``; ``ops.filters.build_filters`` maps each name to
 its port.  ``tests/test_torch_serving.py`` holds every entry equal to
 ``exposure_tpu.utils.load_config(name)``.
@@ -76,9 +79,56 @@ def _example():
         supervised=False,
         batch_size=64,
         vis_step_test=False,
+        # RL and the replay pool
+        critic_logit_multiplier=0.05,
+        discount_factor=1.0,
+        use_TD=True,
+        test_random_walk=False,
+        replay_memory_size=128,
+        maximum_trajectory_length=7,
+        over_length_keep_prob=0.5,
+        all_reward=1.0,
+        # GAN
+        use_penalty=True,
+        gan='w',
+        giters=1,
+        citers=5,
+        gradient_penalty_lambda=10,
+        critic_initialization=10,
+        clamp_critic=0.01,
+        median_filter_size=101,
+        # the schedule and the optimizers
+        max_iter_step=20000,
+        parameter_lr_mul=1,
+        value_lr_mul=10,
+        adam_beta1=0.5,
+        adam_beta2=0.9,
+        num_samples=64,
+        # the trainer's cfg.get knobs, at the JAX trainer's defaults
+        critic_burst=100,
+        warmup_giters=100,
+        checkpoint_interval=500,
+        seed=0,
+        # observability
+        vis_draw_critic_scores=True,
+        realtime_vis=False,
+        write_image_interval=400,
     )
     cfg.num_state_dim = 3 + len(cfg.filters)
+    cfg.lr_g = _decayed(cfg, 0.3)
+    cfg.lr_c = _decayed(cfg, 1.0)
     return cfg
+
+
+def _decayed(cfg, mul, base_lr=5e-5, decay=0.1, segments=3):
+    """``configs/config_example.py``'s learning-rate schedule: ``mul *
+    base_lr`` decayed tenfold over each third of ``cfg.max_iter_step``,
+    read when called (as there, a later change of ``max_iter_step`` moves
+    the schedule)."""
+    def schedule(t):
+        return mul * base_lr * decay ** (1.0 * t * segments /
+                                         cfg.max_iter_step)
+    return schedule
 
 
 def _synthetic_providers(cfg, n_train, n_test):
@@ -102,10 +152,20 @@ def _synthetic_providers(cfg, n_train, n_test):
 
 def _test():
     cfg = _example()
-    cfg.base_channels = 16
-    cfg.feature_extractor_dims = 1024
-    cfg.fc1_size = 32
-    cfg.batch_size = 16
+    cfg.update(
+        base_channels=16,
+        feature_extractor_dims=1024,
+        fc1_size=32,
+        batch_size=16,
+        replay_memory_size=32,
+        num_samples=16,
+        max_iter_step=20,
+        critic_initialization=1,
+        citers=2,
+        critic_burst=4,
+        write_image_interval=0,
+        warmup_giters=6,
+        checkpoint_interval=2)
     return _synthetic_providers(cfg, n_train=64, n_test=32)
 
 
@@ -127,8 +187,8 @@ def _masked():
     return cfg
 
 
-# config_synthetic.py changes only data and dispatch knobs, and
-# config_synthetic_explore.py only exploration_penalty
+# config_synthetic.py changes only the data (its dispatch knobs restate
+# the example's), and config_synthetic_explore.py only exploration_penalty
 CONFIGS = {
     'example': _example,
     'synthetic': _synthetic,

@@ -1,6 +1,7 @@
 """Small numeric building blocks (torch counterpart of
 ``exposure_tpu/utils/ops.py``)."""
 
+import contextlib
 import math
 
 import torch
@@ -14,11 +15,53 @@ STATE_STEP_DIM = 2
 STATE_DROPOUT_BEGIN = 3
 
 
+class _Abs(torch.autograd.Function):
+    """``torch.abs`` with ``jnp.abs``'s gradient: +1 at zero (torch: 0)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        return torch.where(x >= 0, grad, -grad)
+
+
+def abs_(x):
+    """``|x|``, bit for bit ``torch.abs``, differentiated as JAX does."""
+    return _Abs.apply(x)
+
+
+class _Clip(torch.autograd.Function):
+    """``torch.clamp`` with ``jnp.clip``'s gradient: half of it where ``x``
+    equals a bound (JAX differentiates ``minimum(maximum(x, lo), hi)`` so),
+    where torch's passes all of it.  The backward is written in torch ops,
+    so the gradient penalty can differentiate it again."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = lo, hi
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        # slope = (sign(x - lo) - sign(x - hi)) / 2: 1 inside, 1/2 at a
+        # bound, 0 outside (x - b is 0 only where x == b)
+        above = 1.0 if lo is None else torch.sign(x - lo)
+        below = -1.0 if hi is None else torch.sign(x - hi)
+        return grad * ((above - below) * 0.5), None, None
+
+
 def lrelu(x, leak=0.2):
     """Leaky ReLU in the abs-combination form the JAX package uses."""
     f1 = 0.5 * (1 + leak)
     f2 = 0.5 * (1 - leak)
-    return f1 * x + f2 * torch.abs(x)
+    return f1 * x + f2 * abs_(x)
 
 
 def rgb2lum(image):
@@ -48,3 +91,25 @@ def tanh_range(l, r, initial=None):
 
 def lerp(a, b, t):
     return (1 - t) * a + t * b
+
+
+def clip(x, lo=None, hi=None):
+    """``jnp.clip(x, lo, hi)`` (or ``jnp.maximum(x, lo)``,
+    ``jnp.minimum(x, hi)``) against constants: ``torch.clamp``'s values,
+    JAX's gradient (``_Clip``)."""
+    return _Clip.apply(x, lo, hi)
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for cuDNN convolutions and matmuls inside the block (it
+    flips near-tie argmax decisions), restored after it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

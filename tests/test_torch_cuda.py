@@ -34,7 +34,13 @@ over every pair of operands.
 The probes: K4a, K4b and K4c in f32 within 1 LSB of their plain versions
 (the CUDA library's powf, cospif, expf and logf may differ from torch's in the
 last bit), K4c in bf16 with at most 1e-3 of the values more than 1 LSB
-apart, and its bf16_cast and bf16_splat styles equal bit for bit."""
+apart, and its bf16_cast and bf16_splat styles equal bit for bit.
+
+Training: one outer step of the ``test`` config on the card against the
+CPU from the same state and draws, within ``tools/train_check.py``'s
+bounds; three iterations of ``Trainer`` on the card by default, restored
+bit for bit from its checkpoint; a state on the card saved and restored on
+the card and on the CPU."""
 
 import numpy as np
 import pytest
@@ -757,3 +763,65 @@ def test_edit_sequence_replays_through_k1(cuda_device):
     want = edit_sequence.replay(image, debug, filters, device='cpu')
     assert _outlier_fraction(torch.from_numpy(got),
                              torch.from_numpy(want)) <= 1e-4
+
+
+# -- training on the card ----------------------------------------------------
+
+@pytest.mark.cuda
+def test_outer_step_card_against_cpu(cuda_device):
+    """One outer iteration (giters 2, citers 2) of the ``test`` config on
+    the card against the CPU, from the same state and draws, within
+    ``tools/train_check.py``'s bounds."""
+    from exposure_tpu_torch.tools.train_check import card_against_cpu
+    report = card_against_cpu(load_config('test'), cuda_device, giters=2,
+                              citers=2)
+    assert not report['failures'], report
+    assert report['ids']['rows'] == 2 * load_config('test').batch_size
+
+
+@pytest.mark.cuda
+def test_trainer_runs_on_the_card(cuda_device, tmp_path):
+    """Three iterations of the ``test`` config on the card by default:
+    finite metrics, a checkpoint, and a restore equal bit for bit."""
+    from exposure_tpu_torch.core.trainer import Trainer
+    cfg = load_config('test')
+    cfg.name = 'test/card'
+    cfg.max_iter_step = 3
+    trainer = Trainer(cfg, restore=True, model_root=str(tmp_path))
+    assert trainer.device.type == 'cuda'
+    metrics = trainer.train()
+    trainer.close()
+    assert np.isfinite(np.asarray(metrics)).all()
+    assert all(v.device.type == 'cuda'
+               for v in trainer.state.tensors().values())
+    again = Trainer(cfg, restore=True, model_root=str(tmp_path))
+    assert again.restore() == 4
+    for k, v in trainer.state.tensors().items():
+        got = again.state.tensors()[k]
+        assert got.device.type == 'cuda' and torch.equal(got, v), k
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
+    """A state on the card saved and restored into a template on the card:
+    every tensor equal and on the card; the same file restores on the
+    CPU."""
+    from exposure_tpu_torch.core.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+    from exposure_tpu_torch.core.train_state import init_train_state
+    from exposure_tpu_torch.models.networks import build_models
+    cfg = load_config('test')
+    nets = build_models(cfg)[1:]
+    state = init_train_state(cfg, *nets, seed=1, device=cuda_device)
+    state = state.replace(gen_params={k: v + 0.5 for k, v in
+                                      state.gen_params.items()}, step=7)
+    save_checkpoint(str(tmp_path), state, 7)
+    template = init_train_state(cfg, *nets, seed=2, device=cuda_device)
+    for device, like in ((cuda_device, template), ('cpu',
+                                                     template.to('cpu'))):
+        restored, step = restore_checkpoint(str(tmp_path), like)
+        assert step == 7 and restored.step == 7
+        for k, v in state.tensors().items():
+            got = restored.tensors()[k]
+            assert got.device.type == torch.device(device).type, k
+            assert torch.equal(got.cpu(), v.cpu()), k

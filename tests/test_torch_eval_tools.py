@@ -325,8 +325,10 @@ def test_get_next_batch_equal(kw):
         assert a.dtype == b.dtype and a.shape == b.shape
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(fa, fb)
-    with pytest.raises(NotImplementedError, match='9b'):
-        t.device_pack()
+    pack, want = t.device_pack(), j.device_pack()
+    np.testing.assert_array_equal(pack.images.numpy(), want.images)
+    assert (pack.output_size, pack.augment) == (want.output_size,
+                                                want.augment)
 
 
 @pytest.mark.parametrize('src,dst', [(80, 64), (64, 80), (100, 64),

@@ -367,13 +367,24 @@ def test_evaluator_defaults_and_refusals(tmp_path, monkeypatch):
         tev.Evaluator(cfg)
     with pytest.raises(FileNotFoundError):
         tev.Evaluator(cfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='9c'):
+    with pytest.raises(FileNotFoundError):
         tev.Evaluator(cfg, ckpt=100, device='cpu')
-    run = tmp_path / 'test' / 'none'
-    run.mkdir(parents=True)
-    (run / 'model.ckpt-20.msgpack').write_bytes(b'')
-    with pytest.raises(NotImplementedError, match='9c'):
-        tev.Evaluator(cfg, model_root=str(tmp_path), device='cpu')
+    # a run with a checkpoint (written by the JAX trainer's writer) serves
+    # the checkpoint's generator, the newest or the one asked for
+    from exposure_tpu.core.checkpoint import save_checkpoint
+    jcfg = j_load_config('test')
+    state, _ = init_train_state(jcfg, *j_build_models(jcfg)[1:], 3)
+    run = str(tmp_path / 'test' / 'none')
+    save_checkpoint(run, state, 20, keep=2)
+    save_checkpoint(run, state.replace(gen_params=jax.tree_util.tree_map(
+        lambda x: x + 1, state.gen_params)), 30, keep=2)
+    want = flax_to_state_dict(jax.tree_util.tree_map(np.asarray,
+                                                     state.gen_params))
+    for ckpt, shift in ((None, 1), (20, 0)):
+        ev = tev.Evaluator(cfg, model_root=str(tmp_path), ckpt=ckpt,
+                           device='cpu')
+        for k, v in ev.policy.state_dict().items():
+            assert torch.equal(v, want[k] + shift), (ckpt, k)
 
 
 def test_tf32_is_off_inside_the_plan_and_restored(pair, monkeypatch):

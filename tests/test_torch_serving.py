@@ -50,7 +50,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AGENT_STEP_DEFAULTS = {
     'replay_inject_prob': 0.0, 'replay_inject_until': 1.0,
     'replay_inject_mode': 'uniform', 'entropy_respike': 0.0,
-    'entropy_respike_center': 0.5, 'entropy_respike_width': 0.15}
+    'entropy_respike_center': 0.5, 'entropy_respike_width': 0.15,
+    # and the JAX trainer reads these so (exposure_tpu/core/trainer.py)
+    'critic_burst': 100, 'warmup_giters': 100, 'checkpoint_interval': 500,
+    'seed': 0}
 
 
 @pytest.mark.parametrize('name', sorted(CONFIGS))
@@ -58,10 +61,16 @@ def test_config_table_matches_load_config(name):
     jcfg, tcfg = j_load_config(name), t_load_config(name)
     assert list(tcfg.filters) == [c.__name__ for c in jcfg.filters]
     for knob in ('exploration_penalty', 'filter_usage_penalty',
-                 'early_stop_penalty', *AGENT_STEP_DEFAULTS):
+                 'early_stop_penalty', 'gan', 'use_TD', 'giters', 'citers',
+                 'lr_g', 'lr_c', *AGENT_STEP_DEFAULTS):
         assert knob in tcfg, knob
     for knob, value in tcfg.items():
         if knob in ('filters', 'name'):
+            continue
+        if knob in ('lr_g', 'lr_c'):
+            # the learning-rate schedules, at iterations across the run
+            for t in (0, 1, 7, jcfg.max_iter_step // 3, jcfg.max_iter_step):
+                assert value(t) == jcfg[knob](t), (knob, t)
             continue
         if callable(value):
             # a data provider factory: tests/test_torch_eval_tools.py holds

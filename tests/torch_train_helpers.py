@@ -1,0 +1,140 @@
+"""Shared pieces of the training tests of the port (``test_torch_*.py``):
+the two packages' models and states on the same weights, and the JAX
+outer step's random draws reproduced from its keys (``JaxDraws``).
+
+The draws follow ``exposure_tpu/core/steps.py::build_outer_step`` on a
+1-device mesh: the step key is folded with the axis index 0, then the
+generator keys are ``split(fold_in(key, 1), giters)``, each split in 6
+(``k_sel, k_f1, k_f2, k_f3, k_step, k_keep``), a sampler key in 4 (idx,
+ox, oy, flip), the agent step's key in 2 (dropout, noise); the critic keys
+are ``split(fold_in(key, 2), citers)``, each split in 3 (real, fake,
+alpha).  They are listed in the order the port makes them."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import serialization
+
+from exposure_tpu.core.trainer import build_models as j_build_models
+from exposure_tpu.core.trainer import init_train_state as j_init_train_state
+from exposure_tpu.utils import load_config as j_load_config
+from exposure_tpu_torch.core.checkpoint import state_from_flax
+from exposure_tpu_torch.core.train_state import init_train_state
+from exposure_tpu_torch.models.networks import build_models
+from exposure_tpu_torch.utils.config import load_config as t_load_config
+from exposure_tpu_torch.utils.draws import ReplayedDraws
+
+
+@pytest.fixture(scope='module')
+def few_threads():
+    """Two torch threads for a module's tests: a training step is
+    thousands of small operations, and with the suite's worker processes
+    each running all the cores' threads they wait on each other (the
+    trainer's three iterations took 106 s so, 8 s on two threads)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
+
+
+def configs(name='test', **knobs):
+    """The named config of both packages with ``knobs`` set on both."""
+    jcfg, tcfg = j_load_config(name), t_load_config(name)
+    for k, v in knobs.items():
+        jcfg[k] = v
+        tcfg[k] = v
+    return jcfg, tcfg
+
+
+def host_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def to_torch_state(jstate, tstate):
+    """The JAX ``TrainState`` as the port's, through the checkpoint map."""
+    return state_from_flax(serialization.to_state_dict(host_tree(jstate)),
+                           tstate)
+
+
+def models(jcfg, tcfg, seed=0):
+    """``(j_models, jstate, tx, t_models, tstate)``: the JAX state from its
+    own init, carried over to the port's modules."""
+    j_models = j_build_models(jcfg)
+    jstate, tx = j_init_train_state(jcfg, *j_models[1:], seed)
+    t_models = build_models(tcfg)
+    tstate = to_torch_state(jstate, init_train_state(tcfg, *t_models[1:]))
+    return j_models, jstate, tx, t_models, tstate
+
+
+def _t(x, dtype=None):
+    t = torch.from_numpy(np.array(x))
+    return t if dtype is None else t.to(dtype)
+
+
+def sampler_draws(key, n, pack_shape, meta):
+    """``sample_batch``'s draws: idx, crop offsets when it crops, flip."""
+    size, augment = meta
+    _, h, w, _ = pack_shape
+    k_idx, k_ox, k_oy, k_flip = jax.random.split(key, 4)
+    out = [('idx', _t(jax.random.randint(k_idx, (n,), 0, pack_shape[0]),
+                      torch.int64))]
+    if augment:
+        if h > size or w > size:
+            out.append(('crop_x', _t(jax.random.randint(
+                k_ox, (n,), 0, h - size + 1), torch.int64)))
+            out.append(('crop_y', _t(jax.random.randint(
+                k_oy, (n,), 0, w - size + 1), torch.int64)))
+        out.append(('flip', _t(jax.random.bernoulli(k_flip, 0.5, (n,)))))
+    return out
+
+
+def _categorical(key, logits, n):
+    return _t(jax.random.categorical(key, jnp.asarray(logits.cpu().numpy()),
+                                     shape=(n,)), torch.int64)
+
+
+class JaxDraws(ReplayedDraws):
+    """``ReplayedDraws`` of ``step_draws``' list, whose ``terminated`` draws
+    are made when the port asks for them: ``jax.random.categorical`` from
+    the JAX key over the logits the port hands in (they read the pool as
+    the generator phase left it)."""
+
+    def categorical(self, name, logits, n):
+        if self._queue and callable(self._queue[0][1]):
+            want, make = self._queue.popleft()
+            self._queue.appendleft((want, make(logits, n)))
+        return super().categorical(name, logits, n)
+
+
+def step_draws(key, cfg, giters, citers, fake_shape, fake_meta, real_shape,
+               real_meta):
+    """Every draw of one JAX outer step, in the port's order, for
+    ``JaxDraws``."""
+    b, p = cfg.batch_size, cfg.replay_memory_size
+    key = jax.random.fold_in(key, 0)
+    out = []
+    for k in jax.random.split(jax.random.fold_in(key, 1), giters):
+        k_sel, k_f1, k_f2, k_f3, k_step, k_keep = jax.random.split(k, 6)
+        for kf, n in ((k_f1, b), (k_f2, b), (k_f3, p)):
+            out += sampler_draws(kf, n, fake_shape, fake_meta)
+        out.append(('rank', _t(jax.random.uniform(k_sel, (p,)))))
+        _, k_noise = jax.random.split(k_step)
+        out.append(('noise', _t(jax.random.uniform(k_noise, (b, 1)))))
+        out.append(('keep', _t(jax.random.bernoulli(
+            k_keep, cfg.over_length_keep_prob, (b,)))))
+    for k in (jax.random.split(jax.random.fold_in(key, 2), citers)
+              if citers else []):
+        k_real, k_fake, k_gp = jax.random.split(k, 3)
+        out += sampler_draws(k_real, b, real_shape, real_meta)
+        out.append(('terminated', functools.partial(_categorical, k_fake)))
+        out.append(('alpha', _t(jax.random.uniform(k_gp, (b, 1, 1, 1)))))
+    return out
+
+
+def tree_max_abs(a, b):
+    """``{name: max |a - b|}`` over two state_dicts."""
+    return {k: float((a[k] - b[k]).abs().max()) for k in a}
