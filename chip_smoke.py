@@ -73,6 +73,25 @@ Phases, one line or a few each (a failing phase exits non-zero):
    is exported and served through ``RetouchPipeline.from_run`` on a B=64
    batch of 512x512 u8 (6 K1 launches counted by stage, no plain version)
    and held within 1 LSB of the CPU pipeline on a small input;
+9d. data: the native host loader built by g++ from
+   ``exposure_tpu_torch/native/hostloader.cpp``; the FiveK layout at the
+   dataset's size in a temp dir, made from seeds (a 20,000 x 80x80x3 f32
+   ``image_raw.npy``, ``meta_raw.pkl``, folds of 2,000 / 2,000 / 500 ids,
+   5,000 artist PNGs, a few 16-bit TIFFs read back equal and run through
+   ``preprocess_raw_aug``); ``example``'s three providers in it (8,000 /
+   2,000 / 8,000 crops, the seconds each); the loader on the card's host
+   (one seed one batch, u8 the f32 crops quantized, crops the pack windows
+   the draws name, the assembly rate of a plain iteration's bundles and of
+   a chunk of 10 against a numpy copy); ``example`` at full width trained
+   through iterations 0-11 (``critic_initialization`` cut to 2) resident
+   (device packs 614.4 and 393.2 MB) and streaming from the packs in f32
+   and u8, with ms per update and per plain iteration (CUDA events), host
+   assembly, upload and wait ms per bundle, the host syncs of the plain
+   iterations' steps (none), peak memory; the u8 step equal to the f32
+   step on its dequantized bundle; one streaming step on the card against
+   the CPU (``tools/train_check.py``, ``stream='uint8'``); the
+   streaming-trained state served through K1 (6 launches). Its numbers
+   are the JSON line ``{"data": ...}`` before the kernels line;
 10. main path: the trained ``synthetic_explore`` policy served from the
    in-repo artifact at full width on B=512 batches of seeded 512x512 u8
    images through ``RetouchPipeline.map_batches`` (dynamic, selected
@@ -1954,7 +1973,7 @@ def _resume(cfg, tmp, trained):
     return step
 
 
-def _serve_trained(cfg, tmp, trained):
+def _serve_trained(cfg, tmp, trained, phase='train'):
     """Export the trained state, serve the run through
     ``RetouchPipeline.from_run`` on one B=TRAIN_SERVE_BATCH batch of
     512x512 u8 (dynamic, selected plan): K1's launches by stage, no plain
@@ -1973,10 +1992,11 @@ def _serve_trained(cfg, tmp, trained):
     served = pipe.policy.state_dict()
     if pipe.step != trained.state.step or any(
             not torch.equal(served[k].cpu(), exported[k]) for k in exported):
-        fail('train: from_run serves step %s, the export holds step %d or '
-             'other weights' % (pipe.step, trained.state.step))
+        fail('%s: from_run serves step %s, the export holds step %d or '
+             'other weights' % (phase, pipe.step, trained.state.step))
     if not (pipe.dynamic and pipe.selected_plan):
-        fail('train: the pipeline is not dynamic with the selected plan')
+        fail('%s: the pipeline is not dynamic with the selected plan'
+             % phase)
     batch = torch.from_numpy(_images(np.random.default_rng(SEED + 11),
                                      TRAIN_SERVE_BATCH, RES, RES)).to(DEVICE)
     stages = _count_k1_by_stage(pipe)
@@ -1990,21 +2010,22 @@ def _serve_trained(cfg, tmp, trained):
     if by_stage != {'proxy': steps, 'replay': 1} or \
             counts['dyn_chain'] != steps + 1 or counts['switch_chain'] or \
             counts['static_chain']:
-        fail('train: serving the trained policy launched %s (K1 by stage %s)'
-             % (counts, by_stage))
+        fail('%s: serving the trained policy launched %s (K1 by stage %s)'
+             % (phase, counts, by_stage))
     if out.shape != batch.shape or out.dtype != torch.uint8:
-        fail('train: served %s %s' % (tuple(out.shape), out.dtype))
+        fail('%s: served %s %s' % (phase, tuple(out.shape), out.dtype))
 
     same, lsb = _small_against_cpu(
         lambda dev: RetouchPipeline.from_run(cfg, model_root=tmp, device=dev,
                                              use_kernels=True),
-        'train: the trained policy served')
-    say('train: served step %d through from_run on [%d, %d, %d, 3] u8: K1 '
+        '%s: the trained policy served' % phase)
+    say('%s: served step %d through from_run on [%d, %d, %d, 3] u8: K1 '
         'launches %d (%d on the proxy in the plan, %d replay), no plain '
         'version; the exported artifact holds the served weights bit for '
         'bit; small input against the CPU pipeline, dropout off: plans agree '
         'on %d/8 rows, max_lsb %d' % (
-            pipe.step, TRAIN_SERVE_BATCH, RES, RES, counts['dyn_chain'],
+            phase, pipe.step, TRAIN_SERVE_BATCH, RES, RES,
+            counts['dyn_chain'],
             by_stage['proxy'], by_stage['replay'], same, lsb))
     return counts['dyn_chain']
 
@@ -2080,6 +2101,587 @@ def phase_train():
     return numbers
 
 
+DATA_BUDGET_S = 150
+DATA_PACK_ROWS = 20000      # 5,000 FiveK ids x 4 crops of 80x80
+DATA_FOLDS = {'FiveK_train_first2k.txt': 2000,
+              'FiveK_train_second2k.txt': 2000, 'FiveK_test.txt': 500,
+              'FiveK_test_AMT.txt': 100}
+DATA_ARTIST_HW = (88, 84)   # the artist PNGs' size: centre 84x84, kept 80
+DATA_TIFFS = 6
+DATA_CRITIC_INIT = 2        # cut from 10: bursts at iterations 0-1 only
+DATA_LAST_ITER = 21         # iterations 0-21: the bursts, two chunks
+DATA_CKPT_INTERVAL = 22     # a checkpoint at 22; the chunks 2-11, 12-21
+
+
+def _write_tiff(path, arr, rows_per_strip=16):
+    """A baseline TIFF (little-endian, deflate, strips) of a uint16
+    [H, W, 3] array: the Lightroom exports' format, without imageio."""
+    import struct
+    import zlib
+    h, w, c = arr.shape
+    strips = [zlib.compress(arr[top:top + rows_per_strip].astype('<u2')
+                            .tobytes()) for top in range(0, h,
+                                                         rows_per_strip)]
+    offsets = [8 + sum(len(s) for s in strips[:k])
+               for k in range(len(strips))]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [16] * c), (259, 3, [8]),
+            (262, 3, [2]), (273, 4, offsets), (277, 3, [c]),
+            (278, 4, [rows_per_strip]),
+            (279, 4, [len(s) for s in strips]), (284, 3, [1])]
+    ifd_at = 8 + sum(len(s) for s in strips)
+    extra_at = ifd_at + 2 + 12 * len(tags) + 4
+    entries, extra = b'', b''
+    for tag, kind, values in tags:
+        packed = struct.pack('<' + ('H' if kind == 3 else 'I') * len(values),
+                             *values)
+        if len(packed) <= 4:
+            field = packed.ljust(4, b'\0')
+        else:
+            field = struct.pack('<I', extra_at + len(extra))
+            extra += packed
+        entries += struct.pack('<HHI', tag, kind, len(values)) + field
+    with open(path, 'wb') as f:
+        f.write(b'II' + struct.pack('<HI', 42, ifd_at) + b''.join(strips) +
+                struct.pack('<H', len(tags)) + entries +
+                struct.pack('<I', 0) + extra)
+
+
+def _fivek_tree(root):
+    """The FiveK layout at the dataset's size, made from seeds: the RAW pack
+    (written in chunks of ``make_synthetic_pack``, on 8 threads), its
+    ``meta_raw.pkl``, the fold files, 5,000 artist PNGs (the port's codec)
+    and a few 16-bit TIFF exports, those read back equal and run through
+    ``preprocess_raw_aug``.  Returns what it printed."""
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+    import numpy as np
+    from exposure_tpu_torch.data import fivek
+    from exposure_tpu_torch.data.synthetic import make_synthetic_pack
+    from exposure_tpu_torch.utils.image_io import read_tiff, write_png
+    t0 = time.perf_counter()
+    batched = os.path.join(root, fivek.BATCHED_DIR)
+    os.makedirs(batched)
+    pack = np.lib.format.open_memmap(
+        os.path.join(batched, 'image_raw.npy'), mode='w+', dtype=np.float32,
+        shape=(DATA_PACK_ROWS, 80, 80, 3))
+    chunk = 500
+
+    def raw_chunk(k):
+        pack[k * chunk:(k + 1) * chunk] = make_synthetic_pack(
+            chunk, 80, 'raw', SEED + 100 + k)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(raw_chunk, range(DATA_PACK_ROWS // chunk)))
+    pack.flush()
+    del pack
+    ids = DATA_PACK_ROWS // fivek.AUGMENTATION_FACTOR
+    with open(os.path.join(batched, 'meta_raw.pkl'), 'wb') as f:
+        pickle.dump({'filenames': ['a%04d.tif' % (i + 1)
+                                   for i in range(ids)]}, f, protocol=-1)
+    pack_s = time.perf_counter() - t0
+
+    folds = os.path.join(root, 'data', 'folds')
+    os.makedirs(folds)
+    perm = np.random.RandomState(SEED).permutation(ids) + 1
+    start = 0
+    for name, n in DATA_FOLDS.items():
+        if name == 'FiveK_test_AMT.txt':
+            chosen = perm[4000:4000 + n]       # a part of the test fold
+        else:
+            chosen = perm[start:start + n]
+            start += n
+        with open(os.path.join(folds, name), 'w') as f:
+            f.write('# FiveK ids, made from seed %d\n' % SEED)
+            f.write(''.join('%d\n' % i for i in chosen))
+
+    t0 = time.perf_counter()
+    artists = os.path.join(root, 'data', 'artists', 'FiveK_C')
+    os.makedirs(artists)
+    h, w = DATA_ARTIST_HW
+
+    def artist_chunk(k):
+        imgs = make_synthetic_pack(chunk, h, 'retouched', SEED + 200 + k)
+        for i, img in enumerate(imgs):
+            write_png(os.path.join(artists, 'a%04d.png' % (k * chunk + i + 1)),
+                      (np.clip(img[:, :w], 0, 1) * 255 + 0.5)
+                      .astype(np.uint8))
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(artist_chunk, range(ids // chunk)))
+    artist_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    source = os.path.join(root, fivek.SOURCE_DIR)
+    os.makedirs(source)
+    rng = np.random.RandomState(SEED + 3)
+    for i in range(DATA_TIFFS):
+        img = (rng.rand(96 + 24 * i, 200, 3) * 65535).astype(np.uint16)
+        path = os.path.join(source, 'a%04d.tif' % (i + 1))
+        _write_tiff(path, img)
+        back = read_tiff(path)
+        if back.dtype != np.uint16 or not np.array_equal(back, img):
+            fail('data: the TIFF %s read back %s %s, not as written'
+                 % (path, back.dtype, back.shape))
+    import random
+    random.seed(SEED)
+    raw = fivek.preprocess_raw_aug(source, os.path.join(root, 'tiff_pack'))
+    with open(os.path.join(root, 'tiff_pack', 'meta_raw.pkl'), 'rb') as f:
+        meta = pickle.load(f)
+    if raw.shape != (4 * DATA_TIFFS, 80, 80, 3) or \
+            not np.isfinite(raw).all() or raw.min() < 0 or raw.max() > 1 or \
+            len(meta['filenames']) != DATA_TIFFS:
+        fail('data: preprocess_raw_aug gave %s in [%s, %s], %d names'
+             % (raw.shape, raw.min(), raw.max(), len(meta['filenames'])))
+    tiff_s = time.perf_counter() - t0
+    say('data: the FiveK layout in %s: image_raw.npy [%d, 80, 80, 3] f32 '
+        '(%.3f GB, make_synthetic_pack in chunks of %d on 8 threads, no '
+        'row tiled) and meta_raw.pkl in %.1f s; folds %s; %d artist PNGs of '
+        '%dx%d u8 (make_synthetic_pack retouched, the port\'s PNG codec) '
+        'in %.1f s; %d 16-bit TIFFs (deflate, strips) written, read back '
+        'equal and through preprocess_raw_aug to [%d, 80, 80, 3] in %.1f s'
+        % (root, DATA_PACK_ROWS, DATA_PACK_ROWS * 80 * 80 * 3 * 4 / 1e9,
+           chunk, pack_s, json.dumps(DATA_FOLDS), ids, h, w, artist_s,
+           DATA_TIFFS, len(raw), tiff_s))
+    return {'pack_s': pack_s, 'artist_s': artist_s, 'tiff_s': tiff_s}
+
+
+def _splitmix64(state):
+    """``hostloader.cpp``'s splitmix64 step on a Python int: (new state,
+    draw)."""
+    mask = (1 << 64) - 1
+    state = (state + 0x9e3779b97f4a7c15) & mask
+    z = state
+    z = ((z ^ (z >> 30)) * 0xbf58476d1ce4e5b9) & mask
+    z = ((z ^ (z >> 27)) * 0x94d049bb133111eb) & mask
+    return state, z ^ (z >> 31)
+
+
+def _loader_checks(raw_path, target_path, cfg):
+    """The native loader on the card's host: same seed, same crops; u8 the
+    f32 crops quantized; crops 0-3 the subwindows or flips of the pack that
+    the draws name (splitmix64 here in Python); the assembly rate of one
+    plain iteration's bundles and of a chunk of 10 against a numpy copy of
+    the same bytes."""
+    import numpy as np
+    from exposure_tpu_torch.core.streaming import (
+        assemble_stream,
+        bundle_shapes,
+    )
+    from exposure_tpu_torch.data.native_provider import NativePackProvider
+    from exposure_tpu_torch.native import NativePack
+    pack = NativePack(raw_path)
+    data = np.load(raw_path, mmap_mode='r')
+    seed = 12345
+    a = pack.sample(64, 64, augment=True, seed=seed)
+    if not np.array_equal(a, pack.sample(64, 64, augment=True, seed=seed)):
+        fail('data: one seed gave two crop batches')
+    u8 = pack.sample_into(np.empty(a.shape, np.uint8), augment=True,
+                          seed=seed)
+    if not np.array_equal(u8, (np.clip(a, 0, 1) * np.float32(255) +
+                               np.float32(0.5)).astype(np.uint8)):
+        fail('data: the u8 crops are not the f32 crops quantized')
+    n, hh, ww, _ = pack.shape
+    for i in range(4):
+        state = seed ^ ((0x5851f42d4c957f2d * (i + 1)) & ((1 << 64) - 1))
+        state, z = _splitmix64(state)
+        idx = z % n
+        state, z = _splitmix64(state)
+        sx = z % (hh - 64 + 1)
+        state, z = _splitmix64(state)
+        sy = z % (ww - 64 + 1)
+        state, z = _splitmix64(state)
+        want = data[idx, sx:sx + 64, sy:sy + 64]
+        if z & 1:
+            want = want[:, ::-1]
+        if not np.array_equal(a[i], want):
+            fail('data: crop %d is not image %d at (%d, %d), flip %d'
+                 % (i, idx, sx, sy, z & 1))
+    pack.close()
+
+    def providers():
+        return (NativePackProvider(raw_path, 64, 0.3, seed=SEED),
+                NativePackProvider(target_path, 64, 1.0, seed=SEED + 1))
+    rates = {}
+    for dtype in ('float32', 'uint8'):
+        cfg.stream_dtype = dtype
+        fake, real = providers()
+        for name, keys in (('plain_iteration', [(cfg.giters, 0, 1),
+                                                (0, cfg.citers, 1)]),
+                           ('chunk_of_10', [(cfg.giters, cfg.citers, 10)])):
+            dt = np.uint8 if dtype == 'uint8' else np.float32
+            bufs = [tuple(np.empty(s, dt) for s in bundle_shapes(
+                cfg, False, *key)) for key in keys]
+            nbytes = sum(x.nbytes for pair in bufs for x in pair)
+            times, copies = [], []
+            copy_src = np.ones(nbytes, np.uint8)
+            copy_dst = np.empty_like(copy_src)
+            for _ in range(5):
+                t0 = time.perf_counter()
+                for key, out in zip(keys, bufs):
+                    assemble_stream(cfg, False, fake, real, *key, out=out)
+                times.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                np.copyto(copy_dst, copy_src)
+                copies.append(time.perf_counter() - t0)
+            rates['%s_%s' % (name, dtype)] = {
+                'mb': nbytes / 1e6, 'assembly_ms': 1e3 * _median(times),
+                'assembly_gb_s': nbytes / _median(times) / 1e9,
+                'numpy_copy_gb_s': nbytes / _median(copies) / 1e9}
+        fake.close()
+        real.close()
+    cfg.stream_dtype = 'float32'
+    say('data: loader on the card\'s host: one seed, one crop batch; u8 the '
+        'f32 crops quantized; crops 0-3 the pack windows the draws name; '
+        'assembly (median of 5, host clock) against a numpy copy of the '
+        'same bytes: %s' % json.dumps(rates))
+    return rates
+
+
+def _data_trainer(cfg, tmp, tag, stream_dtype=None, paths=None):
+    """A Trainer of ``cfg``, resident or streaming in ``stream_dtype`` from
+    the packs ``paths``, trained alone through its special iterations
+    (0 .. critic_initialization - 1), timed by ``_timed_trainer``.  Returns
+    ``(trainer, run)``: ``run`` holds the record, the init seconds and the
+    memory the trainer took (its own peak over the init and those
+    iterations, above what was allocated before it)."""
+    import random
+    import torch
+    from exposure_tpu_torch.core.trainer import Trainer
+    from exposure_tpu_torch.data.native_provider import NativePackProvider
+    cfg = cfg.copy()
+    cfg.name = 'example/' + tag
+    if stream_dtype:
+        cfg.update(stream_data=True, stream_dtype=stream_dtype)
+        cfg.fake_data_provider = lambda: NativePackProvider(
+            paths[0], output_size=64, augmentation=0.3, seed=SEED)
+        cfg.real_data_provider = lambda: NativePackProvider(
+            paths[1], output_size=64, augmentation=1.0, seed=SEED + 1)
+    random.seed(SEED)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, model_root=tmp, device=DEVICE)
+    run = {'tag': tag, 'init_s': time.perf_counter() - t0, 'caught': {},
+           'stream': bool(stream_dtype), 'transient': 0}
+    run['record'] = _timed_trainer(trainer, run['caught'])
+    if stream_dtype:
+        trainer.stream_timings = []
+    t0 = time.perf_counter()
+    trainer.train(last_iter=cfg.critic_initialization - 1)
+    torch.cuda.synchronize()
+    run['specials_s'] = time.perf_counter() - t0
+    run['peak'] = torch.cuda.max_memory_allocated() - base
+    return trainer, run
+
+
+def _interleaved(trainers, runs, plain):
+    """The plain iterations of every trainer in turns, one iteration each
+    in turn, so that the host's drift reaches them alike, under the sync
+    debug mode ('warn'); each iteration's transient memory (its peak above
+    what was allocated before it) is kept."""
+    import torch
+    with warnings.catch_warnings(record=True) as flagged:
+        warnings.simplefilter('always')
+        for run in runs:
+            run['caught']['warnings'] = flagged
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            for it in plain:
+                for trainer, run in zip(trainers, runs):
+                    before = torch.cuda.memory_allocated()
+                    torch.cuda.reset_peak_memory_stats()
+                    trainer.train(last_iter=it)
+                    run['transient'] = max(
+                        run['transient'],
+                        torch.cuda.max_memory_allocated() - before)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            for run in runs:
+                run['caught'].clear()
+    torch.cuda.synchronize()
+
+
+def _data_numbers(trainer, run, plain):
+    """What a data-phase run reports: finite metrics of every iteration,
+    ms per update and per plain iteration (CUDA events), host syncs in the
+    plain iterations' steps, memory; for streaming the assembly, upload
+    and wait per bundle by shape."""
+    import numpy as np
+    cfg, record, tag = trainer.cfg, run['record'], run['tag']
+    metrics = dict(record['metrics'])
+    bad = {it: m for it, m in metrics.items() if not np.isfinite(m).all()}
+    if sorted(metrics) != list(range(DATA_LAST_ITER + 1)) or bad:
+        fail('data: %s: metrics of iterations %s, non-finite %s'
+             % (tag, sorted(metrics), bad))
+    iters = {it: (s.elapsed_time(e), n) for it, s, e, n in record['iters']}
+
+    def ms(key):
+        return [s.elapsed_time(e) for k, s, e in record['phases']
+                if k == key]
+    numbers = {
+        'init_s': run['init_s'], 'specials_s': run['specials_s'],
+        'g_update_ms': _median(ms((cfg.giters, 0))) / cfg.giters,
+        'c_update_ms': _median(ms((0, cfg.citers))) / cfg.citers,
+        'plain_iteration_ms': _median([iters[it][0] for it in plain]),
+        'plain_iteration_ms_all': [iters[it][0] for it in plain],
+        'plain_iteration_syncs': [iters[it][1] for it in plain],
+        'step_sync_sites': sorted(record['sync_sites']),
+        # its own peak over the init and iterations 0-1 (packs, state,
+        # the warmup and the bursts), and the most a plain iteration took
+        # above what was allocated before it
+        'peak_memory_gib': run['peak'] / 2 ** 30,
+        'plain_transient_gib': run['transient'] / 2 ** 30,
+        'emd': metrics[DATA_LAST_ITER][2],
+    }
+    if run['stream']:
+        timings = trainer.stream_timings
+        numbers['bundles'] = len(timings)
+        if any('copy' not in t for t in timings):
+            fail('data: %s: a bundle went to the card without its copy '
+                 'events' % tag)
+
+        def event_ms(rows, name):
+            return _median([s.elapsed_time(e) for s, e in
+                            (r[name] for r in rows)])
+        by_key = {}
+        for t in timings:
+            by_key.setdefault(str(t['key']), []).append(t)
+        numbers['per_bundle'] = {
+            key: {'count': len(rows),
+                  'assembly_ms': 1e3 * _median([r['assembly_s']
+                                                for r in rows]),
+                  'upload_ms': event_ms(rows, 'copy'),
+                  'wait_ms': event_ms(rows, 'wait')}
+            for key, rows in by_key.items()}
+    return numbers
+
+
+def _u8_first_step(cfg, paths):
+    """The streaming step at full width on the card: on the first u8
+    bundle of a run, on that bundle dequantized on the host, and on that
+    again (a control), from the same state, pool and draws, with cuDNN's
+    and torch's deterministic algorithms (cuDNN's default algorithms add in
+    an order that can differ from call to call): the device's dequantization
+    equal to the host's, and every tensor of the steps equal bit for bit.
+    Returns the number of state tensors compared."""
+    import random
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.core.replay import PoolState
+    from exposure_tpu_torch.core.steps import (
+        build_streaming_outer_step,
+        dequant_stream,
+    )
+    from exposure_tpu_torch.core.streaming import assemble_stream
+    from exposure_tpu_torch.core.train_state import init_train_state
+    from exposure_tpu_torch.data.native_provider import NativePackProvider
+    from exposure_tpu_torch.models.networks import build_models
+    from exposure_tpu_torch.utils.draws import Draws
+    from exposure_tpu_torch.utils.ops import tf32_off
+    cfg = cfg.copy()
+    cfg.stream_dtype = 'uint8'
+    nets = build_models(cfg)
+    state = init_train_state(cfg, *nets[1:], seed=SEED, device=DEVICE)
+    fake = NativePackProvider(paths[0], 64, 0.3, seed=SEED)
+    real = NativePackProvider(paths[1], 64, 1.0, seed=SEED + 1)
+    random.seed(SEED)
+    pool_images = torch.from_numpy(fake.get_next_batch(
+        cfg.replay_memory_size)[0]).to(DEVICE)
+    g, r = assemble_stream(cfg, False, fake, real, cfg.giters, cfg.citers)
+    fake.close()
+    real.close()
+    inv = np.float32(1.0 / 255.0)
+    host = (g.astype(np.float32) * inv, r.astype(np.float32) * inv)
+    for u8, f32 in zip((g, r), host):
+        on_card = dequant_stream(torch.from_numpy(u8).to(DEVICE)).cpu()
+        if not torch.equal(on_card, torch.from_numpy(f32)):
+            fail('data: the card\'s dequantization differs from the host\'s')
+    step = build_streaming_outer_step(cfg, *nets[1:], nets[0], cfg.giters,
+                                      cfg.citers)
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    outs = []
+    try:
+        with tf32_off(), warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            for gb, rb in ((g, r), host, host):
+                pool = PoolState.create(pool_images.clone(),
+                                        cfg.num_state_dim)
+                draws = Draws(torch.Generator(DEVICE).manual_seed(SEED),
+                              DEVICE)
+                outs.append(step(state, pool,
+                                 torch.from_numpy(gb).to(DEVICE),
+                                 torch.from_numpy(rb).to(DEVICE), draws,
+                                 cfg.lr_g(1), cfg.lr_c(1),
+                                 1 / cfg.max_iter_step))
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2])
+
+    def differing(x, y):
+        a, b = x[0].tensors(), y[0].tensors()
+        out = [k for k in a if not torch.equal(a[k], b[k])]
+        if not torch.equal(x[1].images, y[1].images):
+            out.append('pool')
+        if not torch.equal(torch.stack(list(x[2])), torch.stack(list(y[2]))):
+            out.append('metrics')
+        return out
+    control, u8 = differing(outs[1], outs[2]), differing(outs[0], outs[1])
+    if control or u8:
+        fail('data: the u8 step against the f32 step on its dequantized '
+             'bundle: %d differ (%s); the f32 step against itself, the '
+             'control: %d differ (%s)' % (len(u8), u8[:3], len(control),
+                                          control[:3]))
+    return len(outs[0][0].tensors())
+
+
+def phase_data():
+    """The data path and streaming training: the host loader built by g++;
+    the FiveK layout at the dataset's size; ``example``'s three providers
+    in it; the loader on the card's host; ``example`` at full width
+    trained resident and streaming (f32, u8); one streaming step on the
+    card against the CPU; the streaming-trained state served through K1.
+    Returns what the summary lines report of it."""
+    import contextlib
+    import tempfile
+    import numpy as np
+    from exposure_tpu_torch.data.fivek import FiveKDataProvider
+    from exposure_tpu_torch.data.native_provider import NativePackProvider
+    from exposure_tpu_torch.native import build as native_build
+    from exposure_tpu_torch.tools import train_check as check
+    from exposure_tpu_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    lib = native_build.build()
+    say('data: host loader %s built by g++ %s in %.2f s'
+        % (os.path.relpath(lib.path, REPO), ' '.join(native_build.GXX_FLAGS),
+           lib.build_seconds))
+    numbers = {'build_s': lib.build_seconds}
+    with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
+        numbers['tree'] = _fivek_tree(root)
+        cfg = load_config('example')
+        cfg.update(critic_initialization=DATA_CRITIC_INIT,
+                   checkpoint_interval=DATA_CKPT_INTERVAL)
+        FiveKDataProvider._raw_image_pack = None
+        loads, sizes = {}, {}
+        for knob in ('fake_data_provider', 'fake_data_provider_test',
+                     'real_data_provider'):
+            t0 = time.perf_counter()
+            prov = cfg[knob]()
+            loads[knob] = time.perf_counter() - t0
+            sizes[knob] = prov.num_images
+            if knob == 'real_data_provider':
+                target = os.path.join(root, 'target.npy')
+                np.save(target, prov.data)
+        want = {'fake_data_provider': 8000, 'fake_data_provider_test': 2000,
+                'real_data_provider': 8000}
+        if sizes != want:
+            fail('data: the example providers hold %s crops, want %s'
+                 % (sizes, want))
+        raw_path = os.path.join(root, 'data', 'fivek_dataset',
+                                'sup_batched80aug_daylight', 'image_raw.npy')
+        numbers['loader'] = _loader_checks(raw_path, target, cfg.copy())
+
+        models = os.path.join(root, 'models')
+        paths = (raw_path, target)
+        trainers, runs = [], []
+        for tag, dtype in (('resident', None), ('stream_float32', 'float32'),
+                           ('stream_uint8', 'uint8')):
+            trainer, run = _data_trainer(cfg, models, tag, dtype, paths)
+            trainers.append(trainer)
+            runs.append(run)
+        plain = list(range(cfg.critic_initialization, DATA_LAST_ITER + 1))
+        try:
+            _interleaved(trainers, runs, plain)
+        finally:
+            for trainer in trainers[::-1]:     # each tees the one before
+                trainer.close()
+        rows = {run['tag']: _data_numbers(trainer, run, plain)
+                for trainer, run in zip(trainers, runs)}
+        resident, trainer = trainers[0], trainers[2]
+        packs = {'fake': resident.fake_images.nbytes,
+                 'real': resident.real_images.nbytes}
+        if packs != {'fake': 614400000, 'real': 393216000}:
+            fail('data: device packs %s bytes' % packs)
+        say('data: example\'s providers in the tree: %s crops, loaded in %s '
+            's; the resident Trainer\'s device packs %.1f MB (FiveK 2k_train) '
+            'and %.1f MB (FiveK_C 2k_target) on the card (predicted 614.4 '
+            'and 393.2)' % (json.dumps(sizes), json.dumps(loads),
+                            packs['fake'] / 1e6, packs['real'] / 1e6))
+        numbers['provider_load_s'] = loads
+        numbers['device_pack_bytes'] = packs
+        numbers['resident'] = rows['resident']
+        numbers['stream'] = {k: rows['stream_' + k]
+                             for k in ('float32', 'uint8')}
+        for tag, row in rows.items():
+            say('data: %s: %s' % (tag, json.dumps(row)))
+        base = rows['resident']['plain_iteration_ms']
+        say('data: ms per plain iteration (iterations %d-%d of the three '
+            'trainers in turns, medians, CUDA events): resident %.4f, '
+            'streaming f32 %.4f (%+.2f%%), u8 %.4f (%+.2f%%); paired '
+            'differences, median: f32 %+.4f ms, u8 %+.4f ms' % (
+                plain[0], plain[-1], base,
+                rows['stream_float32']['plain_iteration_ms'],
+                100 * (rows['stream_float32']['plain_iteration_ms'] / base
+                       - 1),
+                rows['stream_uint8']['plain_iteration_ms'],
+                100 * (rows['stream_uint8']['plain_iteration_ms'] / base
+                       - 1),
+                _median([a - b for a, b in zip(
+                    rows['stream_float32']['plain_iteration_ms_all'],
+                    rows['resident']['plain_iteration_ms_all'])]),
+                _median([a - b for a, b in zip(
+                    rows['stream_uint8']['plain_iteration_ms_all'],
+                    rows['resident']['plain_iteration_ms_all'])])))
+        syncs = [row['plain_iteration_syncs'] for row in rows.values()]
+        if any(any(s) for s in syncs):
+            fail('data: host syncs in the plain iterations\' steps: %s (at '
+                 '%s)' % (syncs, [row['step_sync_sites']
+                                  for row in rows.values()]))
+        numbers['u8_step_tensors_equal'] = _u8_first_step(cfg, paths)
+        say('data: the streaming step at full width on the card on a u8 '
+            'bundle and on it dequantized on the host (the card\'s '
+            'dequantization equal to the host\'s; deterministic cuDNN, a '
+            'second f32 step as the control): %d state tensors, the pool '
+            'and the metrics equal bit for bit'
+            % numbers['u8_step_tensors_equal'])
+        t0 = time.perf_counter()
+        stream_cfg = cfg.copy()
+        stream_cfg.fake_data_provider = lambda: NativePackProvider(
+            raw_path, 64, 0.3, seed=SEED)
+        stream_cfg.real_data_provider = lambda: NativePackProvider(
+            target, 64, 1.0, seed=SEED + 1)
+        report = check.card_against_cpu(stream_cfg, DEVICE, giters=1,
+                                        citers=1, seed=SEED, stream='uint8')
+        say('data: one streaming step (u8 bundle, giters 1, citers 1, '
+            'example at full width) on the card against the CPU, %.1f s: '
+            'metrics %s; gradients over the largest %s (bound %g); moments '
+            '%s; Adam replayed, ulps %s (bound %g); parameters in lr %s '
+            '(bound %g); ids %s; pool %s' % (
+                time.perf_counter() - t0, json.dumps(report['metrics']),
+                json.dumps(report['grad_frac']), check.GRAD_FRAC,
+                json.dumps(report['moment_frac']),
+                json.dumps(report['replay']), check.REPLAY_ULPS,
+                json.dumps(report['param_lrs']), check.PARAM_LRS,
+                json.dumps(report['ids']), json.dumps(report['pool'])))
+        if report['failures']:
+            fail('data: the streaming step on the card is off the CPU: %s'
+                 % report['failures'])
+        numbers['check'] = report
+        stream_run = cfg.copy()
+        stream_run.name = trainer.cfg.name
+        numbers['launches_serve'] = _serve_trained(stream_run, models,
+                                                   trainer, 'data')
+        FiveKDataProvider._raw_image_pack = None
+    numbers['phase_s'] = time.perf_counter() - t_phase
+    say('data: phase %.1f s (budget %d s)' % (numbers['phase_s'],
+                                              DATA_BUDGET_S))
+    return numbers
+
+
 def main():
     import numpy as np
     import torch
@@ -2100,6 +2702,7 @@ def main():
     phase_small_reference()
     evaluation = phase_evaluate()
     training = phase_train()
+    data = phase_data()
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
                for _ in range(MAIN_BATCHES)]
@@ -2159,6 +2762,16 @@ def main():
                       for k, v in rows.items()},
             'shape': shape, 'card': card}, **extra)
 
+    say(json.dumps({'data': {
+        'card': card, 'host_loader_build_s': data['build_s'],
+        'fivek_tree_s': data['tree'],
+        'provider_load_s': data['provider_load_s'],
+        'device_pack_bytes': data['device_pack_bytes'],
+        'assembly': data['loader'], 'resident': data['resident'],
+        'stream': data['stream'],
+        'u8_step_tensors_equal': data['u8_step_tensors_equal'],
+        'launches_serve': data['launches_serve'],
+        'phase_s': data['phase_s']}}))
     proxy = PROXY_CASE[0]
     say(json.dumps({'kernels': [
         # the main path's replay launches, with the modes' and the tools';
@@ -2167,12 +2780,14 @@ def main():
                     'exposure_tpu/ops/pallas_chain.py:479',
                     k1_timing[REPLAY_CASE[0]], k1_worst,
                     k1_main['replay'] + totals['dyn_chain'] +
-                    evaluation['launches'] + training['launches_serve'],
+                    evaluation['launches'] + training['launches_serve'] +
+                    data['launches_serve'],
                     'dyn_chain', 'dyn_chain_kernel',
                     launches_main_path_replay=k1_main['replay'],
                     launches_other_paths=totals['dyn_chain'],
                     launches_evaluation=evaluation['launches'],
-                    launches_training_serve=training['launches_serve']),
+                    launches_training_serve=training['launches_serve'],
+                    launches_streaming_serve=data['launches_serve']),
         # the same kernel on one full-resolution image, the evaluator's
         # replay: every launch of the evaluation path (its sizes vary; the
         # time is this shape's)

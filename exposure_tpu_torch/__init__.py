@@ -17,7 +17,13 @@ Subpackages
 - ``exposure_tpu_torch.models``   policy network and serving-side agent
   helpers.
 - ``exposure_tpu_torch.core``     serving rollout, weight importer and the
-  ``RetouchPipeline``.
+  ``RetouchPipeline``; evaluation; training (steps, the streaming bundles,
+  the ``Trainer``).
+- ``exposure_tpu_torch.data``     the providers (FiveK, artist, folder,
+  procedural, native packs), the folds and the device sampler.
+- ``exposure_tpu_torch.native``   the C++ host loader, built by g++ at
+  first use.
+- ``exposure_tpu_torch.tools``    the kernel, evaluation and training tools.
 """
 
 __version__ = "0.1.0"

@@ -1,22 +1,29 @@
 """The outer training iteration on one device (torch counterpart of
-``exposure_tpu/core/steps.py::build_outer_step``).
+``exposure_tpu/core/steps.py::build_outer_step`` and
+``build_streaming_outer_step``).
 
 One call of the step runs ``giters`` generator+value updates, then
 ``citers`` critic WGAN-GP updates, each a plain eager PyTorch update with
-no host synchronisation: the dataset packs and the replay pool live on the
-device, fresh crops are sampled there (``data/device_sampler.py``), and the
-metrics stay device tensors until the trainer reads them.
+no host synchronisation; the metrics stay device tensors until the trainer
+reads them.  Two data paths:
+
+- device-resident (``build_outer_step``): the dataset packs and the replay
+  pool live on the device and fresh crops are sampled there
+  (``data/device_sampler.py``);
+- streaming (``build_streaming_outer_step``): the fresh crops arrive as a
+  bundle assembled on the host (``core/streaming.py``, the native host
+  loader), float32 or uint8, for packs too large for the device.
 
 Randomness comes from the caller's ``utils/draws.py::Draws``: by default a
 ``torch.Generator``, in the tests the JAX step's own draws replayed.  The
-JAX step's ``shard_map`` over a data-parallel mesh, its fused N-iteration
-variant and its streaming variants are economies of the TPU's dispatch;
-this step is the one-device, one-iteration program (``ROADMAP.md`` lists
-the rest).
+JAX step's ``shard_map`` over a data-parallel mesh and its fused
+N-iteration variants are economies of the TPU's dispatch; this step is the
+one-device, one-iteration program (``ROADMAP.md`` lists the rest).
 """
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from exposure_tpu_torch.core.losses import critic_loss, generator_value_loss
@@ -188,6 +195,74 @@ def build_outer_step(cfg, policy, critic_mod, value_mod, filters,
         for _ in range(citers):
             real_batch = sample_batch(real_pack, draws, local_batch)
             state, outs = c_update(state, pool, real_batch, draws, lr_c)
+            c_outs.append(outs)
+        return _finalize(state, pool, g_outs, c_outs)
+
+    return step
+
+
+_INV_255 = float(np.float32(1.0 / 255.0))
+
+
+def dequant_stream(x):
+    """A uint8 streaming bundle as float32: ``x * float32(1/255)``, the
+    JAX expression (a product, not a quotient, so that the bits match; the
+    native loader quantized ``round(clamp(v, 0, 1) * 255)``).  A float32
+    bundle passes through."""
+    if x.dtype == torch.uint8:
+        return x.to(torch.float32) * _INV_255
+    return x
+
+
+def build_streaming_outer_step(cfg, policy, critic_mod, value_mod, filters,
+                               giters, citers, taps=None):
+    """The streaming train step for fixed (giters, citers): the updates of
+    ``build_outer_step`` (the same phase bodies and ``_finalize``), with
+    the fresh crops taken from a host-assembled bundle instead of the
+    device sampler.  Returns ``step(state, pool, g_fresh, real_batches,
+    draws, lr_g, lr_c, progress) -> (state, pool, StepMetrics)`` where
+
+    - ``g_fresh``: [giters, 2B + P, S, S, C] float32 or uint8; generator
+      update ``i`` takes ``g_fresh[i][:B]`` (the selection's backfill),
+      ``[B:2B]`` (over-length replacements) and ``[2B:2B + P]`` (dropped
+      pool slots); in supervised mode each crop carries its ground truth
+      as C more channels ([..., 2C]);
+    - ``real_batches``: [citers, B, S, S, C] float32 or uint8.
+
+    The draws are the resident step's without the sampler's: per generator
+    update ``rank``, ``dropout``/``noise`` and ``keep`` (JAX's ``k_sel``,
+    ``k_step``, ``k_keep``), per critic update ``terminated`` and
+    ``alpha`` (``k_fake``, ``k_gp``)."""
+    local_batch = cfg.batch_size
+    supervised = bool(cfg.get('supervised', False))
+    if supervised and citers:
+        raise ValueError('supervised mode has no critic updates')
+    img_channels = cfg.get('real_img_channels', 3)
+    g_update, c_update = _make_phase_bodies(
+        cfg, policy, critic_mod, value_mod, filters, local_batch, taps)
+
+    def pair(x):
+        if supervised:
+            return x[..., :img_channels], x[..., img_channels:]
+        return x, None
+
+    def step(state, pool, g_fresh, real_batches, draws, lr_g, lr_c,
+             progress):
+        g_fresh = dequant_stream(g_fresh)
+        real_batches = dequant_stream(real_batches)
+        b = local_batch
+        g_outs = []
+        for i in range(giters):
+            fresh = g_fresh[i]
+            triplet = (pair(fresh[:b]), pair(fresh[b:2 * b]),
+                       pair(fresh[2 * b:2 * b + pool.size]))
+            state, pool, outs = g_update(state, pool, triplet, draws, lr_g,
+                                         progress)
+            g_outs.append(outs)
+        c_outs = []
+        for i in range(citers):
+            state, outs = c_update(state, pool, real_batches[i], draws,
+                                   lr_c)
             c_outs.append(outs)
         return _finalize(state, pool, g_outs, c_outs)
 

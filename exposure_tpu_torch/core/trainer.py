@@ -26,8 +26,19 @@ Differences from the JAX trainer, each by design:
   from ``(seed + 1, iteration)`` as the JAX loop folds the iteration into
   ``PRNGKey(seed + 1)``, so a resumed run draws what an uninterrupted one
   would have.  The streams differ from JAX's (``utils/draws.py``).
-- ``stream_data`` (ROADMAP.md item 10), ``profile_dir`` and more than one
-  device (item 11) raise ``NotImplementedError``.
+- ``stream_data=True`` keeps no packs on the device: the fresh crops of
+  every update come in bundles assembled on the host (the native loader,
+  ``core/streaming.py``), float32 or uint8 (``stream_dtype``), planned in
+  chunks of ``stream_iters_per_dispatch`` plain iterations (default 10)
+  with the JAX ``plan_fused_chunk``, one assembly a chunk.  The chunk's
+  iterations then run one plain step at a time on slices of its bundle
+  (the JAX fused step equals its iterations dispatched one by one).  One
+  producer thread makes the bundles in the schedule's order, up to
+  ``prefetch_slots`` (default 2) ahead, where the JAX trainer keeps a
+  thread a bundle shape; the visualization's batches are made in that
+  order too, so a streaming run is a function of its seed.
+- ``profile_dir`` and more than one device (``ROADMAP.md`` item 11) raise
+  ``NotImplementedError``.
 """
 
 import os
@@ -45,7 +56,12 @@ from exposure_tpu_torch.core.checkpoint import (
 from exposure_tpu_torch.core.losses import apply
 from exposure_tpu_torch.core.replay import PoolState
 from exposure_tpu_torch.core.rollout import rollout
-from exposure_tpu_torch.core.steps import StepMetrics, build_outer_step
+from exposure_tpu_torch.core.steps import (
+    StepMetrics,
+    build_outer_step,
+    build_streaming_outer_step,
+)
+from exposure_tpu_torch.core.streaming import BundleFeeder
 from exposure_tpu_torch.core.train_state import init_train_state
 from exposure_tpu_torch.models.networks import build_models
 from exposure_tpu_torch.utils.draws import Draws
@@ -95,6 +111,41 @@ def pool_health_warning(citers, supervised, terminated_frac):
     return None
 
 
+def plan_fused_chunk(it, cfg, n_fuse, supervised):
+    """How many consecutive iterations from ``it`` one streaming bundle
+    serves (``exposure_tpu/core/trainer.py::plan_fused_chunk``): 1 for a
+    special iteration, else the largest c <= n_fuse such that [it, it + c)
+    holds no special iteration and ends on a checkpoint iteration ((j + 1)
+    % checkpoint_interval == 0) or a visualization iteration (j %
+    write_image_interval == 0) if it holds one."""
+    def special(i):
+        return is_special_iteration(i, cfg, supervised)
+
+    if n_fuse <= 1 or special(it):
+        return 1
+    end = min(it + n_fuse - 1, cfg.max_iter_step)
+    ckpt = cfg.get('checkpoint_interval', 500)
+    wii = cfg.get('write_image_interval', 0)
+    for j in range(it, end + 1):
+        if j > it and special(j):
+            return j - it
+        if (j + 1) % ckpt == 0 and j < end:
+            return j - it + 1              # end ON the checkpoint iter
+        if wii and j % wii == 0 and j < end:
+            return j - it + 1              # end ON the viz iter
+    return end - it + 1
+
+
+def _with_critic(metrics, c_metrics):
+    """An iteration's metrics: the generator phase's, with the critic
+    phase's EMD, gradient norm and pool statistics."""
+    return metrics._replace(
+        emd=c_metrics.emd,
+        critic_gradient_norm=c_metrics.critic_gradient_norm,
+        pool_avg_trajectory=c_metrics.pool_avg_trajectory,
+        pool_terminated_frac=c_metrics.pool_terminated_frac)
+
+
 def iteration_seed(seed, it):
     """The generator seed of iteration ``it`` under config seed ``seed``."""
     return ((int(seed) + 1) * _ITERATION_STRIDE + int(it)) % (1 << 63)
@@ -111,11 +162,9 @@ class Trainer:
         self.cfg = cfg
         if cfg.gan not in ('w', 'ls'):
             raise ValueError('gan must be w or ls, got %r' % (cfg.gan,))
-        for knob, why in (('stream_data', 'ROADMAP.md item 10'),
-                          ('profile_dir', 'a later port of the profiler')):
-            if cfg.get(knob, None):
-                raise NotImplementedError('%s is not ported yet: %s'
-                                          % (knob, why))
+        if cfg.get('profile_dir', None):
+            raise NotImplementedError('profile_dir is not ported yet: a '
+                                      'later port of the profiler')
         if num_devices not in (None, 1):
             raise NotImplementedError(
                 'training on %s devices waits for DDP: ROADMAP.md item 11'
@@ -147,12 +196,22 @@ class Trainer:
 
         self.fake_provider = cfg.fake_data_provider()
         self.real_provider = cfg.real_data_provider()
-        fake_pack = self.fake_provider.device_pack(self.device)
-        real_pack = self.real_provider.device_pack(self.device)
-        self.fake_meta = (fake_pack.output_size, fake_pack.augment)
-        self.real_meta = (real_pack.output_size, real_pack.augment)
-        self.fake_images, self.real_images = fake_pack.images, \
-            real_pack.images
+        self.streaming = bool(cfg.get('stream_data', False))
+        self.feeder, self._stream = None, None
+        # a list to collect each bundle's assembly, upload and wait times
+        # (``BundleFeeder.timings``), or None
+        self.stream_timings = None
+        if self.streaming:
+            # host-assembled bundles a step (core/streaming.py)
+            self.fake_images = self.real_images = None
+            self.fake_meta = self.real_meta = None
+        else:
+            fake_pack = self.fake_provider.device_pack(self.device)
+            real_pack = self.real_provider.device_pack(self.device)
+            self.fake_meta = (fake_pack.output_size, fake_pack.augment)
+            self.real_meta = (real_pack.output_size, real_pack.augment)
+            self.fake_images, self.real_images = fake_pack.images, \
+                real_pack.images
 
         pool_batch, _ = self.fake_provider.get_next_batch(
             cfg.replay_memory_size)
@@ -170,7 +229,9 @@ class Trainer:
         self._books = None
 
     def close(self):
-        """Close the metrics file and stop teeing stdout into the log."""
+        """Stop the streaming producer, close the metrics file and stop
+        teeing stdout into the log."""
+        self._close_stream()
         self._logger.close()
         if self.tee is not None:
             self.tee.close()
@@ -203,10 +264,92 @@ class Trainer:
     def _get_step(self, giters, citers):
         key = (giters, citers)
         if key not in self._steps:
-            self._steps[key] = build_outer_step(
-                self.cfg, self.policy, self.critic, self.value,
-                self.filters, self.fake_meta, self.real_meta, giters, citers)
+            if self.streaming:
+                self._steps[key] = build_streaming_outer_step(
+                    self.cfg, self.policy, self.critic, self.value,
+                    self.filters, giters, citers)
+            else:
+                self._steps[key] = build_outer_step(
+                    self.cfg, self.policy, self.critic, self.value,
+                    self.filters, self.fake_meta, self.real_meta, giters,
+                    citers)
         return self._steps[key]
+
+    # --- streaming -----------------------------------------------------
+    def stream_schedule(self, start):
+        """The streaming run's bundles from iteration ``start`` on:
+        ``(it, chunk, keys)`` for each group of iterations, ``keys`` the
+        ``(giters, citers, n_iters)`` of its bundles in the order they are
+        used.  A chunk of plain iterations takes one bundle.  Another
+        iteration takes, as the JAX trainer dispatches it, its generator
+        updates in bundles of the config's ``giters`` (the warmup:
+        ``warmup_giters // giters`` of them), then its critic updates in
+        bundles of the config's ``citers`` (a burst: ``critic_burst //
+        citers``)."""
+        cfg = self.cfg
+        n_fuse = int(cfg.get('stream_iters_per_dispatch', 10))
+        it = start
+        while it <= cfg.max_iter_step:
+            chunk = plan_fused_chunk(it, cfg, n_fuse, self.supervised)
+            if chunk > 1:
+                citers = 0 if self.supervised else cfg.citers
+                keys = [(cfg.giters, citers, chunk)]
+            else:
+                giters, citers, _, _ = self.schedule(it)
+                keys = [(cfg.giters, 0, 1)] * max(giters // cfg.giters, 1)
+                if citers > 0:
+                    keys += [(0, cfg.citers, 1)] * max(
+                        citers // cfg.citers, 1)
+            yield it, chunk, keys
+            it += chunk
+
+    def _stream_items(self, start):
+        """What the producer makes, in the order it is used: each bundle,
+        and after an iteration with a visualization its batches."""
+        wii = self.cfg.get('write_image_interval', 0)
+        for it, chunk, keys in self.stream_schedule(start):
+            for key in keys:
+                yield 'bundle', key
+            for j in range(it, it + chunk):
+                if wii and j % wii == 0:
+                    yield 'call', self._viz_batches
+
+    def _stream_iterations(self, start):
+        """For each iteration from ``start``: ``(it, generator bundles,
+        critic bundles)``, each an iterator of ``(g_fresh, real)`` device
+        tensors taken from the producer when the step needs it."""
+        feeder = self.feeder
+        for it, chunk, keys in self.stream_schedule(start):
+            if chunk > 1:
+                g, r = feeder.next()
+                for j in range(chunk):
+                    yield (it + j, iter([(g[j], r[j][:0])]),
+                           iter([(g[j][:0], r[j])] if r.shape[1] else []))
+                continue
+            n_g = sum(1 for k in keys if k[1] == 0)
+            yield (it, (feeder.next() for _ in range(n_g)),
+                   (feeder.next() for _ in range(len(keys) - n_g)))
+
+    def _stream_bundles(self, it):
+        """The bundles of iteration ``it``; the producer restarts at ``it``
+        when the stream was at another iteration (a restore)."""
+        if self._stream is not None:
+            nxt = next(self._stream, None)
+            if nxt is not None and nxt[0] == it:
+                return nxt[1:]
+            self._close_stream()
+        self.feeder = BundleFeeder(
+            self.cfg, self.supervised, self.fake_provider, self.real_provider,
+            self._stream_items(it), self.device,
+            slots=self.cfg.get('prefetch_slots', 2))
+        self.feeder.timings = self.stream_timings
+        self._stream = self._stream_iterations(it)
+        return next(self._stream)[1:]
+
+    def _close_stream(self):
+        if self.feeder is not None:
+            self.feeder.close()
+        self.feeder, self._stream = None, None
 
     def schedule(self, it):
         """``(giters, citers, lr_g, lr_c)`` of iteration ``it``."""
@@ -236,17 +379,34 @@ class Trainer:
         giters, citers, lr_g, lr_c = self.schedule(it)
         progress = it / self.cfg.max_iter_step
         draws = self.iteration_draws(it, generator)
+        if self.streaming:
+            return self._run_streaming(it, draws, citers, lr_g, lr_c,
+                                       progress)
         data = (self.fake_images, self.real_images)
         self.state, self.pool, metrics = self._get_step(giters, 0)(
             self.state, self.pool, *data, draws, lr_g, lr_c, progress)
         if citers > 0:
             self.state, self.pool, c_metrics = self._get_step(0, citers)(
                 self.state, self.pool, *data, draws, lr_g, lr_c, progress)
-            metrics = metrics._replace(
-                emd=c_metrics.emd,
-                critic_gradient_norm=c_metrics.critic_gradient_norm,
-                pool_avg_trajectory=c_metrics.pool_avg_trajectory,
-                pool_terminated_frac=c_metrics.pool_terminated_frac)
+            metrics = _with_critic(metrics, c_metrics)
+        self.state = self.state.replace(step=it + 1)
+        return citers, metrics
+
+    def _run_streaming(self, it, draws, citers, lr_g, lr_c, progress):
+        """``run_iteration`` on the stream: a step for each bundle, the
+        generator's then the critic's, the metrics of the last of each (as
+        the JAX trainer's streaming dispatches give them)."""
+        g_bundles, c_bundles = self._stream_bundles(it)
+        metrics = None
+        for g_fresh, real in g_bundles:
+            self.state, self.pool, metrics = self._get_step(
+                g_fresh.shape[0], 0)(self.state, self.pool, g_fresh, real,
+                                     draws, lr_g, lr_c, progress)
+        for g_fresh, real in c_bundles:
+            self.state, self.pool, c_metrics = self._get_step(
+                0, real.shape[0])(self.state, self.pool, g_fresh, real,
+                                  draws, lr_g, lr_c, progress)
+            metrics = _with_critic(metrics, c_metrics)
         self.state = self.state.replace(step=it + 1)
         return citers, metrics
 
@@ -324,8 +484,11 @@ class Trainer:
             print('# checkpoint saved:', path)
         wii = cfg.get('write_image_interval', 0)
         if wii and it % wii == 0:
+            # streaming: the producer made the batches in schedule order
+            raw, real_imgs = self.feeder.next() if self.streaming \
+                else (None, None)
             try:
-                self.visualize(it)
+                self.visualize(it, raw=raw, real_imgs=real_imgs)
             except Exception as e:  # viz must never kill training
                 print('# visualization failed:', e)
 

@@ -1,4 +1,5 @@
-"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+"""Build and bind the hand-written CUDA kernels of ``csrc/`` (and the
+host loader of ``native/``, through the same builder).
 
 Each kernel source is compiled with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, at first use, under
@@ -6,15 +7,19 @@ a shared library with a plain C interface, at first use, under
 ctypes.  Every pointer and the CUDA stream are passed as ``c_void_p``; a
 launcher returns ``cudaGetLastError()`` and the Python wrapper raises when
 it is not 0.  A library is named by a hash of its source, of every
-header it includes from ``csrc/`` (``#include "..."``, followed through
-headers) and of the flags, so an edited source or header builds anew.
-Nothing here runs at import time: the CPU tests import every module of
-the package.
+header it includes from the source's directory (``#include "..."``,
+followed through headers) and of the compiler flags, so an edited source,
+header or flag builds anew; flags that ask for the host's own instruction
+set (``-march=native``) hash the host's CPU too.  A build writes a file of
+its own and renames it into place, so processes that build one library at
+once all end with the same file.  Nothing here runs at import time: the
+CPU tests import every module of the package.
 """
 
 import ctypes
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -55,10 +60,36 @@ def _nvcc():
     return found
 
 
-def source_digest(src, csrc_dir=CSRC_DIR):
+def _gxx():
+    found = shutil.which('g++')
+    if not found:
+        raise RuntimeError('g++ not found: put a C++ compiler on PATH to '
+                           'build the host loader')
+    return found
+
+
+def _host_cpu():
+    """What ``-march=native`` resolves from: the machine and, on Linux,
+    the CPU's model and feature flags."""
+    lines = [platform.machine()]
+    try:
+        with open('/proc/cpuinfo') as f:
+            for line in f:
+                if line.startswith(('model name', 'flags')):
+                    lines.append(line.strip())
+                    if len(lines) == 3:
+                        break
+    except OSError:
+        pass
+    return '\n'.join(lines)
+
+
+def source_digest(src, csrc_dir=CSRC_DIR, flags=NVCC_FLAGS):
     """Hash of ``src``, of every file it includes from ``csrc_dir`` (each
-    once, headers followed recursively) and of the nvcc flags."""
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    once, headers followed recursively) and of the compiler ``flags``."""
+    h = hashlib.sha256(' '.join(flags).encode())
+    if '-march=native' in flags:
+        h.update(_host_cpu().encode())
     seen, todo = set(), [os.path.abspath(src)]
     while todo:
         path = todo.pop()
@@ -77,29 +108,33 @@ def source_digest(src, csrc_dir=CSRC_DIR):
     return h.hexdigest()[:16]
 
 
-def build(name, bind):
-    """Compile ``csrc/<name>.cu`` (once per source digest), load it and
-    declare its C interface with ``bind(lib)``.  Builds of different
+def build(name, bind, src=None, compiler=_nvcc, flags=NVCC_FLAGS):
+    """Compile ``src`` (default ``csrc/<name>.cu``) with ``compiler()`` and
+    ``flags`` (default nvcc for Hopper), once per source digest, load it
+    and declare its C interface with ``bind(lib)``.  Builds of different
     libraries may run at once, from different threads."""
     with _LOCK:
         lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with lock:
         if name in _LIBRARIES:
             return _LIBRARIES[name]
-        src = os.path.join(CSRC_DIR, name + '.cu')
-        digest = source_digest(src)
+        src = src or os.path.join(CSRC_DIR, name + '.cu')
+        digest = source_digest(src, os.path.dirname(os.path.abspath(src)),
+                               flags)
         path = os.path.join(BUILD_DIR, 'lib%s-%s.so' % (name, digest))
         seconds, log = 0.0, ''
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = '%s.%d.tmp' % (path, os.getpid())
+            tmp = '%s.%d.%d.tmp' % (path, os.getpid(), threading.get_ident())
             t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, src],
+            exe = compiler()
+            proc = subprocess.run([exe, *flags, '-o', tmp, src],
                                   capture_output=True, text=True)
             seconds = time.perf_counter() - t0
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
-                raise RuntimeError('nvcc failed on %s:\n%s' % (src, log))
+                raise RuntimeError('%s failed on %s:\n%s'
+                                   % (os.path.basename(exe), src, log))
             os.replace(tmp, path)
         lib = KernelLibrary(ctypes.CDLL(path), path, seconds, log)
         bind(lib.lib)

@@ -11,11 +11,10 @@ The JAX module takes ``cv2`` for the saturation and for the crops' resize
 when it is installed; this one never does, so that its numbers do not
 depend on the machine: the saturation is the numpy formula (the JAX
 module's branch without ``cv2``) and the crops are reduced by striding.
-Restricting the targets to a fold (``--set``) needs the fold files of the
-data slice and raises until that is ported (``ROADMAP.md`` item 10).
+``--set FOLD`` keeps the targets of a FiveK fold (``data/folds.py``).
 
 Usage: python -m exposure_tpu_torch.tools.histogram_intersection
-<output_dir> <target_dir>
+<output_dir> <target_dir> [--set FOLD]
 """
 
 import argparse
@@ -59,18 +58,28 @@ def get_histograms(images):
     return hists, statistics
 
 
-def read_images(src, tag=None, fold=None, seed=None):
+def read_images(src, tag=None, fold=None, data_root='.', seed=None):
+    """Four square crops an image of ``src`` (those named ``<id>.<ext>``
+    with ``id`` in FiveK fold ``fold``, read under ``data_root``, when it
+    is given), each subsampled to 80x80 and cut into four 64x64 patches,
+    at offsets from the global ``random`` module (seeded with ``seed``)."""
     from exposure_tpu_torch.utils.image_io import read_image
-    if fold is not None:
-        raise NotImplementedError(
-            'restricting the images to a fold needs data/folds, which is '
-            'not ported yet: ROADMAP.md item 10')
     if seed is not None:
         random.seed(seed)
+    fold_ids = None
+    if fold is not None:
+        from exposure_tpu_torch.data.folds import read_set
+        fold_ids = set(read_set(fold, data_root))
     images = []
     for f in sorted(os.listdir(src)):
         if tag and tag not in f:
             continue
+        if fold_ids is not None:
+            try:
+                if int(f.split('.')[0]) not in fold_ids:
+                    continue
+            except ValueError:
+                continue
         image = read_image(os.path.join(src, f))
         longer_edge = min(image.shape[0], image.shape[1])
         for _ in range(4):

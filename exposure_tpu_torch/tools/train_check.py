@@ -3,10 +3,14 @@ the CPU.
 
     python -m exposure_tpu_torch.tools.train_check [--config synthetic_explore]
         [--giters 1] [--citers 1] [--seed 0] [--tf32]
+        [--stream float32|uint8]
 
 Both devices start from the same state (``init_train_state``), pool and
 dataset packs, and take the same draws: drawn on the CPU, recorded, then
-replayed on the card (``utils/draws.py``).  Dropout is off and TF32 is off
+replayed on the card (``utils/draws.py``).  ``--stream`` checks the
+streaming step instead (``build_streaming_outer_step``): both devices take
+the same host bundle, assembled from the config's providers
+(``core/streaming.py``) in that dtype.  Dropout is off and TF32 is off
 (``--tf32`` turns it on for the card: a control run, whose gradients the
 check must refuse).  The iteration is that of training iteration 1 (its
 learning rates and progress) on a pool where every third record has
@@ -55,7 +59,11 @@ import numpy as np
 import torch
 
 from exposure_tpu_torch.core.replay import PoolState
-from exposure_tpu_torch.core.steps import build_outer_step
+from exposure_tpu_torch.core.steps import (
+    build_outer_step,
+    build_streaming_outer_step,
+)
+from exposure_tpu_torch.core.streaming import assemble_stream
 from exposure_tpu_torch.core.train_state import (
     apply_lr_update,
     clip_tree,
@@ -96,17 +104,24 @@ def _host(tree):
     return {k: v.detach().cpu() for k, v in tree.items()}
 
 
-def _run(cfg, nets, state, pool, packs, draws, device, giters, citers,
-         rates, tf32):
+def _run(cfg, nets, state, pool, data, draws, device, giters, citers,
+         rates, tf32, stream):
+    """One step on ``device``: ``data`` is the two packs ``(images, size,
+    augment)``, or with ``stream`` the bundle's two tensors."""
     filters, policy, critic, value = nets
     taps = []
-    step = build_outer_step(cfg, policy, critic, value, filters,
-                            packs[0][1:], packs[1][1:], giters, citers,
-                            taps=taps)
+    if stream:
+        step = build_streaming_outer_step(cfg, policy, critic, value,
+                                          filters, giters, citers, taps=taps)
+    else:
+        step = build_outer_step(cfg, policy, critic, value, filters,
+                                data[0][1:], data[1][1:], giters, citers,
+                                taps=taps)
+        data = (data[0][0], data[1][0])
     with contextlib.nullcontext() if tf32 else tf32_off():
         st, pl, metrics = step(state.to(device), pool.to(device),
-                               packs[0][0].to(device),
-                               packs[1][0].to(device), draws, *rates)
+                               data[0].to(device), data[1].to(device),
+                               draws, *rates)
     taps = [{k: _host(v) if isinstance(v, dict) else v.detach().cpu()
              for k, v in tap.items()} for tap in taps]
     return (st.to('cpu'), pl.to('cpu'),
@@ -166,29 +181,35 @@ def _tie_margin(pdf, noise):
 
 
 def card_against_cpu(cfg, device='cuda', giters=1, citers=1, seed=0,
-                     it=1, tf32=False):
+                     it=1, tf32=False, stream=None):
     """Run one outer iteration (``giters`` generator and ``citers`` critic
     updates) on the CPU and on ``device`` from the same state and draws,
-    TF32 off (``tf32``: left as the caller set it).  Returns the report:
-    ``{'metrics', 'grad_frac', 'moment_frac', 'replay', 'param_lrs',
-    'ids', 'pool', 'failures'}``."""
+    TF32 off (``tf32``: left as the caller set it); with ``stream``
+    (``'float32'`` or ``'uint8'``) the streaming step on one host bundle of
+    that dtype.  Returns the report: ``{'metrics', 'grad_frac',
+    'moment_frac', 'replay', 'param_lrs', 'ids', 'pool', 'failures'}``."""
     cfg = cfg.copy()
     cfg.dropout_keep_prob = 1.0
     nets = build_models(cfg)
     state = init_train_state(cfg, *nets[1:], seed=seed)
     random.seed(seed)           # the providers draw from ``random``
     fake, real = cfg.fake_data_provider(), cfg.real_data_provider()
-    packs = [(p.images, p.output_size, p.augment)
-             for p in (fake.device_pack(), real.device_pack())]
     pool = _pool(cfg, fake, seed)
+    if stream:
+        cfg.stream_dtype = stream
+        data = tuple(torch.from_numpy(x) for x in assemble_stream(
+            cfg, False, fake, real, giters, citers))
+    else:
+        data = [(p.images, p.output_size, p.augment)
+                for p in (fake.device_pack(), real.device_pack())]
     lr_g, lr_c = cfg.lr_g(it), cfg.lr_c(it)
     rates = (lr_g, lr_c, it / cfg.max_iter_step)
     draws = Draws(torch.Generator().manual_seed(seed), record=True)
-    cpu = _run(cfg, nets, state, pool, packs, draws, 'cpu', giters, citers,
-               rates, tf32)
+    cpu = _run(cfg, nets, state, pool, data, draws, 'cpu', giters, citers,
+               rates, tf32, stream)
     replay = ReplayedDraws(draws.log, device)
-    card = _run(cfg, nets, state, pool, packs, replay, device, giters,
-                citers, rates, tf32)
+    card = _run(cfg, nets, state, pool, data, replay, device, giters,
+                citers, rates, tf32, stream)
     if replay.left():
         raise RuntimeError('the card took %d draws fewer than the CPU'
                            % replay.left())
@@ -285,6 +306,8 @@ def main(argv=None):
     parser.add_argument('--seed', type=int, default=0)
     parser.add_argument('--tf32', action='store_true',
                         help='the card in TF32: a control the check refuses')
+    parser.add_argument('--stream', choices=('float32', 'uint8'),
+                        help='check the streaming step on a host bundle')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('train_check needs a CUDA device')
@@ -292,7 +315,8 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = True
         torch.backends.cuda.matmul.allow_tf32 = True
     report = card_against_cpu(load_config(args.config), 'cuda', args.giters,
-                              args.citers, args.seed, tf32=args.tf32)
+                              args.citers, args.seed, tf32=args.tf32,
+                              stream=args.stream)
     print(json.dumps(report))
     if report['failures']:
         raise SystemExit(1)

@@ -2,42 +2,29 @@
 
 The JAX package's configs are Python modules that import ``exposure_tpu``
 (and with it ``jax``) to name their filter classes, so the port cannot
-load them.  It keeps its own table of the knobs serving, ``agent_step``,
-the evaluator and ``build_models`` read, for the chain ``example`` ->
-``synthetic`` -> ``synthetic_explore`` and the ``test`` and ``masked``
-configs the tests use.  The procedural configs (all but ``example``, whose
-providers read the FiveK files) also carry their three data providers,
-with the arguments of ``configs/config_synthetic.py`` and
-``configs/config_test.py``.  The knobs that the
-JAX ``agent_step`` reads with ``cfg.get`` and a default (``replay_inject_*``,
+load them.  It keeps its own table: one row for each of the 15 modules of
+``configs/``, each derived from its parent as the module is (``example``
+-> ``synthetic`` -> ``synthetic_explore`` -> ``synthetic_inject*``, ...),
+with every knob of the JAX config and its three data providers, with the
+JAX arguments.  ``example`` and ``sintel`` read the FiveK files relative to
+the working directory, as the JAX configs do.  The knobs that the JAX
+``agent_step`` reads with ``cfg.get`` and a default (``replay_inject_*``,
 ``entropy_respike*``) are in the table with those defaults, and so are the
 ones the JAX trainer reads so (``critic_burst``, ``warmup_giters``,
 ``checkpoint_interval``, ``seed``).  The learning-rate schedules
 ``lr_g``/``lr_c`` are callables of the iteration.  Filters are named by the
 JAX class ``__name__``; ``ops.filters.build_filters`` maps each name to
-its port.  ``tests/test_torch_serving.py`` holds every entry equal to
-``exposure_tpu.utils.load_config(name)``.
+its port.  Left out: ``iters_per_dispatch`` and ``dispatch_pipeline_depth``,
+which size the JAX trainer's fused dispatches (the port runs one iteration
+a step).  ``tests/test_torch_serving.py`` holds every row equal to
+``exposure_tpu.utils.load_config(name)`` in both directions.
 """
+
+from exposure_tpu_torch.utils.dict_util import Dict
 
 _BANK = ('ExposureFilter', 'GammaFilter', 'ImprovedWhiteBalanceFilter',
          'SaturationPlusFilter', 'ToneFilter', 'ContrastFilter',
          'WNBFilter', 'ColorFilter')
-
-
-class Dict(dict):
-    """A dict whose items are also attributes."""
-
-    def __getattr__(self, attr):
-        try:
-            return self[attr]
-        except KeyError as e:
-            raise AttributeError(attr) from e
-
-    def __setattr__(self, key, value):
-        self[key] = value
-
-    def copy(self):
-        return Dict(self)
 
 
 def _example():
@@ -47,7 +34,9 @@ def _example():
         curve_steps=8,
         gamma_range=3,
         exposure_range=3.5,
+        wb_range=1.1,
         color_curve_range=(0.90, 1.10),
+        lab_curve_range=(0.90, 1.10),
         tone_curve_range=(0.5, 2),
         masking=False,
         minimum_strength=0.3,
@@ -72,9 +61,14 @@ def _example():
         source_img_size=64,
         base_channels=32,
         dropout_keep_prob=0.5,
+        share_feed_dict=True,
+        shared_feature_extractor=True,
         fc1_size=128,
+        bnw=False,
         feature_extractor_dims=4096,
         real_img_channels=3,
+        real_img_size=64,
+        img_channels=3,
         # evaluation and the data providers
         supervised=False,
         batch_size=64,
@@ -97,6 +91,8 @@ def _example():
         critic_initialization=10,
         clamp_critic=0.01,
         median_filter_size=101,
+        z_type='uniform',
+        z_dim_per_filter=16,
         # the schedule and the optimizers
         max_iter_step=20000,
         parameter_lr_mul=1,
@@ -104,6 +100,7 @@ def _example():
         adam_beta1=0.5,
         adam_beta2=0.9,
         num_samples=64,
+        summary_freq=100,
         # the trainer's cfg.get knobs, at the JAX trainer's defaults
         critic_burst=100,
         warmup_giters=100,
@@ -114,10 +111,37 @@ def _example():
         realtime_vis=False,
         write_image_interval=400,
     )
-    cfg.num_state_dim = 3 + len(cfg.filters)
+    _filter_dims(cfg)
     cfg.lr_g = _decayed(cfg, 0.3)
     cfg.lr_c = _decayed(cfg, 1.0)
+    return _fivek_inputs(cfg)
+
+
+def _filter_dims(cfg):
+    cfg.num_state_dim = 3 + len(cfg.filters)
+    cfg.z_dim = 3 + len(cfg.filters) * cfg.z_dim_per_filter
+
+
+def _fivek_inputs(cfg):
+    """The FiveK RAW providers of ``configs/config_example.py``: the
+    ``2k_train`` fold for training, ``u_test`` for testing, read from
+    ``data/`` under the working directory."""
+    from exposure_tpu_torch.data.fivek import FiveKDataProvider
+    cfg.fake_data_provider = lambda: FiveKDataProvider(
+        set_name='2k_train', raw=True, bnw=cfg.bnw, output_size=64,
+        default_batch_size=cfg.batch_size, augmentation=0.3)
+    cfg.fake_data_provider_test = lambda: FiveKDataProvider(
+        set_name='u_test', raw=True, bnw=cfg.bnw, output_size=64,
+        default_batch_size=cfg.batch_size, augmentation=0.0)
+    cfg.real_data_provider = lambda: _artist(cfg)
     return cfg
+
+
+def _artist(cfg):
+    from exposure_tpu_torch.data.artist import ArtistDataProvider
+    return ArtistDataProvider(
+        set_name='2k_target', name='FiveK_C', bnw=cfg.bnw, output_size=64,
+        default_batch_size=cfg.batch_size, augmentation=1.0)
 
 
 def _decayed(cfg, mul, base_lr=5e-5, decay=0.1, segments=3):
@@ -131,17 +155,38 @@ def _decayed(cfg, mul, base_lr=5e-5, decay=0.1, segments=3):
     return schedule
 
 
-def _synthetic_providers(cfg, n_train, n_test):
+def _synthetic_providers(cfg, n_train, n_test, texture=0.0, spread=0.0):
     """The three procedural providers of a config: un-retouched inputs for
-    training and for testing, and the retouched targets."""
+    training and for testing, and the retouched targets (``spread`` widens
+    the targets only, as ``configs/config_synthetic_wide.py`` does)."""
     from exposure_tpu_torch.data.synthetic import SyntheticDataProvider
     cfg.fake_data_provider = lambda: SyntheticDataProvider(
-        n=n_train, size=80, style='raw', seed=0,
+        n=n_train, size=80, style='raw', seed=0, texture=texture,
         output_size=64, augmentation=0.3,
         default_batch_size=cfg.batch_size)
     cfg.fake_data_provider_test = lambda: SyntheticDataProvider(
-        n=n_test, size=80, style='raw', seed=1,
+        n=n_test, size=80, style='raw', seed=1, texture=texture,
         output_size=64, augmentation=0.0,
+        default_batch_size=cfg.batch_size)
+    cfg.real_data_provider = lambda: SyntheticDataProvider(
+        n=n_train, size=64, style='retouched', seed=2, texture=texture,
+        spread=spread, output_size=64, augmentation=1.0,
+        default_batch_size=cfg.batch_size)
+    return cfg
+
+
+def _paired_providers(cfg, n_train, n_test):
+    """Supervised mode's providers: paired (input, ground truth) crops for
+    training and testing; the targets only feed the visualization."""
+    from exposure_tpu_torch.data.synthetic import (
+        PairedSyntheticDataProvider,
+        SyntheticDataProvider,
+    )
+    cfg.fake_data_provider = lambda: PairedSyntheticDataProvider(
+        n=n_train, size=80, seed=0, output_size=64, augmentation=0.3,
+        default_batch_size=cfg.batch_size)
+    cfg.fake_data_provider_test = lambda: PairedSyntheticDataProvider(
+        n=n_test, size=80, seed=1, output_size=64, augmentation=0.0,
         default_batch_size=cfg.batch_size)
     cfg.real_data_provider = lambda: SyntheticDataProvider(
         n=n_train, size=64, style='retouched', seed=2,
@@ -163,6 +208,7 @@ def _test():
         critic_initialization=1,
         citers=2,
         critic_burst=4,
+        summary_freq=5,
         write_image_interval=0,
         warmup_giters=6,
         checkpoint_interval=2)
@@ -183,7 +229,63 @@ def _masked():
     cfg = _synthetic()
     cfg.masking = True
     cfg.filters = tuple(cfg.filters) + ('VignetFilter', 'LevelFilter')
-    cfg.num_state_dim = 3 + len(cfg.filters)
+    _filter_dims(cfg)
+    return cfg
+
+
+def _synthetic_tex():
+    return _synthetic_providers(_synthetic(), n_train=2048, n_test=256,
+                                texture=1.0)
+
+
+def _synthetic_tex_explore():
+    cfg = _synthetic_tex()
+    cfg.exploration_penalty = 0.2
+    return cfg
+
+
+def _synthetic_wide():
+    return _synthetic_providers(_synthetic(), n_train=2048, n_test=256,
+                                spread=1.0)
+
+
+def _injecting(prob):
+    """``synthetic_explore`` with replay-pool injection at ``prob`` until
+    75% of training (``configs/config_synthetic_inject*.py``)."""
+    def make():
+        cfg = _synthetic_explore()
+        cfg.replay_inject_prob = prob
+        cfg.replay_inject_until = 0.75
+        return cfg
+    return make
+
+
+def _synthetic_respike():
+    cfg = _synthetic_explore()
+    cfg.entropy_respike = 1.0
+    cfg.entropy_respike_center = 0.5
+    cfg.entropy_respike_width = 0.15
+    return cfg
+
+
+def _supervised():
+    cfg = _example()
+    cfg.update(supervised=True, critic_burst=0, max_iter_step=5000)
+    return _paired_providers(cfg, n_train=2048, n_test=256)
+
+
+def _supervised_test():
+    cfg = _test()
+    cfg.update(supervised=True, citers=2, critic_burst=0)
+    return _paired_providers(cfg, n_train=64, n_test=32)
+
+
+def _sintel():
+    """``example`` with any folder of images as the targets."""
+    from exposure_tpu_torch.data.folder import FolderDataProvider
+    cfg = _example()
+    cfg.real_data_provider = lambda: FolderDataProvider(
+        folder='data/sintel/outputs', default_batch_size=cfg.batch_size)
     return cfg
 
 
@@ -193,6 +295,16 @@ CONFIGS = {
     'example': _example,
     'synthetic': _synthetic,
     'synthetic_explore': _synthetic_explore,
+    'synthetic_inject': _injecting(0.1),
+    'synthetic_inject15': _injecting(0.15),
+    'synthetic_inject2': _injecting(0.2),
+    'synthetic_respike': _synthetic_respike,
+    'synthetic_tex': _synthetic_tex,
+    'synthetic_tex_explore': _synthetic_tex_explore,
+    'synthetic_wide': _synthetic_wide,
+    'supervised': _supervised,
+    'supervised_test': _supervised_test,
+    'sintel': _sintel,
     'test': _test,
     'masked': _masked,
 }

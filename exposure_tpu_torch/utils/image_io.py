@@ -7,9 +7,12 @@ bytes wherever it runs.  ``read_png`` takes non-interlaced files of every
 colour type (gray, RGB, palette, gray + alpha, RGBA) at 1 to 16 bits with
 all five scanline filters; ``write_png`` writes 8-bit and 16-bit gray, RGB
 and RGBA with filter 0 on every line.  A file is a PNG when it starts with
-the PNG signature (reading) or its name ends in ``.png`` (writing).  Any
-other format (``.jpg``, ``.tif``) goes to ``imageio``, imported when it is
-needed; without that package the call raises an error that names it.
+the PNG signature (reading) or its name ends in ``.png`` (writing).
+``read_tiff`` reads baseline TIFF files (strips, chunky gray or RGB, 8 or
+16 bits, either byte order, uncompressed or deflate), which is what the
+FiveK Lightroom exports are.  Any other format (``.jpg``, a tiled or LZW
+TIFF) goes to ``imageio``, imported when it is needed; without that
+package the call raises an error that names it.
 
 The rest is the JAX package's numpy code: the centre crop, the image grid
 and the ProPhotoRGB/XYZ/Lab pipeline.
@@ -31,8 +34,9 @@ def _imageio(path):
         import imageio.v2 as imageio
     except ImportError:
         raise RuntimeError(
-            '%s is not a PNG: reading or writing it needs the imageio '
-            'package, which is not installed' % path) from None
+            '%s is neither a PNG nor a baseline TIFF: reading or writing it '
+            'needs the imageio package, which is not installed'
+            % path) from None
     return imageio
 
 
@@ -196,14 +200,102 @@ def write_png(path, arr):
                 _chunk(b'IEND', b''))
 
 
-def _is_png(path):
+class TiffNotRead(ValueError):
+    """A TIFF feature outside the baseline subset ``read_tiff`` reads."""
+
+
+# TIFF field types -> (numpy code, bytes): BYTE, ASCII, SHORT, LONG
+_TIFF_TYPES = {1: ('u1', 1), 2: ('u1', 1), 3: ('u2', 2), 4: ('u4', 4)}
+
+
+def _tiff_tags(data, path):
+    """``(byte order, {tag: tuple of values})`` of a TIFF's first image."""
+    order = {b'II': '<', b'MM': '>'}.get(data[:2])
+    if order is None or struct.unpack(order + 'H', data[2:4])[0] != 42:
+        raise TiffNotRead('%s is not a classic TIFF' % path)
+    ifd, = struct.unpack(order + 'I', data[4:8])
+    count, = struct.unpack(order + 'H', data[ifd:ifd + 2])
+    tags = {}
+    for k in range(count):
+        pos = ifd + 2 + 12 * k
+        tag, kind, n = struct.unpack(order + 'HHI', data[pos:pos + 8])
+        if kind not in _TIFF_TYPES:
+            continue        # rationals and the rest: nothing read needs them
+        code, size = _TIFF_TYPES[kind]
+        if n * size > 4:
+            pos, = struct.unpack(order + 'I', data[pos + 8:pos + 12])
+        else:
+            pos += 8
+        tags[tag] = tuple(int(v) for v in np.frombuffer(
+            data, order + code, n, pos))
+    return order, tags
+
+
+def read_tiff(path):
+    """Decode a baseline TIFF's first image: strips, chunky gray or RGB
+    (an extra alpha sample is kept), unsigned 8 or 16 bits, either byte
+    order, no compression or deflate, with or without the horizontal
+    predictor.  Returns uint8 or uint16 of shape [H, W] or [H, W, C].
+    Anything else raises ``TiffNotRead``."""
     with open(path, 'rb') as f:
-        return f.read(8) == PNG_SIGNATURE
+        data = f.read()
+    order, tags = _tiff_tags(data, path)
+
+    def one(tag, default=None):
+        values = tags.get(tag, (default,))
+        if values[0] is None:
+            raise TiffNotRead('%s: no TIFF tag %d' % (path, tag))
+        return values[0]
+
+    width, height = one(256), one(257)
+    channels = one(277, 1)
+    depth = set(tags.get(258, (1,)))
+    compression, predictor = one(259, 1), one(317, 1)
+    if len(depth) != 1 or depth.pop() not in (8, 16) or \
+            one(262) not in (0, 1, 2) or one(284, 1) != 1 or \
+            compression not in (1, 8, 32946) or predictor not in (1, 2) or \
+            set(tags.get(339, (1,))) != {1} or 322 in tags:
+        raise TiffNotRead('%s: not a baseline strip TIFF of unsigned 8 or '
+                          '16-bit chunky samples, uncompressed or deflate'
+                          % path)
+    dtype = np.dtype(order + ('u1' if one(258) == 8 else 'u2'))
+    rows_per_strip = min(one(278, height), height)
+    strips = []
+    for offset, n in zip(tags[273], tags[279]):
+        strip = data[offset:offset + n]
+        strips.append(zlib.decompress(strip) if compression != 1 else strip)
+    row_bytes = width * channels * dtype.itemsize
+    out = np.empty((height, width * channels), dtype)
+    for s, strip in enumerate(strips):
+        top = s * rows_per_strip
+        rows = min(rows_per_strip, height - top)
+        if rows <= 0:
+            break
+        out[top:top + rows] = np.frombuffer(
+            strip, dtype, rows * row_bytes // dtype.itemsize).reshape(rows, -1)
+    out = out.reshape(height, width, channels)
+    if predictor == 2:      # each sample stored as a difference to its left
+        out = np.cumsum(out, axis=1, dtype=dtype)
+    out = out.astype(dtype.newbyteorder('='))
+    if one(262) == 0:       # WhiteIsZero
+        out = np.iinfo(out.dtype).max - out
+    return out[:, :, 0] if channels == 1 else out
+
+
+def _signature(path):
+    with open(path, 'rb') as f:
+        return f.read(8)
 
 
 def _read_array(path):
-    if _is_png(path):
+    head = _signature(path)
+    if head == PNG_SIGNATURE:
         return read_png(path)
+    if head[:4] in (b'II*\0', b'MM\0*'):
+        try:
+            return read_tiff(path)
+        except TiffNotRead:
+            pass
     return np.asarray(_imageio(path).imread(path))
 
 

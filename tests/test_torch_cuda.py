@@ -40,7 +40,11 @@ Training: one outer step of the ``test`` config on the card against the
 CPU from the same state and draws, within ``tools/train_check.py``'s
 bounds; three iterations of ``Trainer`` on the card by default, restored
 bit for bit from its checkpoint; a state on the card saved and restored on
-the card and on the CPU."""
+the card and on the CPU.
+
+Streaming: the bundle producer's uploads from pinned buffers equal the
+host assembly, with at most ``slots + 2`` buffers a shape; a streaming run
+of ``test`` on the card, equal to a second run from the same seed."""
 
 import numpy as np
 import pytest
@@ -825,3 +829,83 @@ def test_checkpoint_round_trip_on_the_card(cuda_device, tmp_path):
             got = restored.tensors()[k]
             assert got.device.type == torch.device(device).type, k
             assert torch.equal(got.cpu(), v.cpu()), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'uint8'])
+def test_bundle_feeder_uploads_from_pinned_buffers(cuda_device, tmp_path,
+                                                   dtype):
+    """The streaming producer on the card: each bundle lands on the device
+    equal to the host assembly of the same provider seeds, the compute
+    stream waits on its copy, the copy's events time it, and a shape keeps
+    at most ``slots + 2`` pinned buffers however many bundles pass."""
+    from exposure_tpu_torch.core.streaming import (
+        BundleFeeder, assemble_stream)
+    from exposure_tpu_torch.data.native_provider import NativePackProvider
+    from exposure_tpu_torch.data.synthetic import make_synthetic_pack
+    raw, real = str(tmp_path / 'raw.npy'), str(tmp_path / 'real.npy')
+    np.save(raw, make_synthetic_pack(12, 80, 'raw', 0))
+    np.save(real, make_synthetic_pack(12, 64, 'retouched', 1))
+    cfg = load_config('test')
+    cfg.stream_dtype = dtype
+
+    def providers():
+        return (NativePackProvider(raw, 64, 0.3, seed=3),
+                NativePackProvider(real, 64, 1.0, seed=4))
+    keys = [(1, 0, 1), (0, 2, 1), (1, 2, 3)] * 4
+    feeder = BundleFeeder(cfg, False, *providers(),
+                          [('bundle', k) for k in keys], cuda_device,
+                          slots=2)
+    feeder.timings = []
+    host = providers()
+    try:
+        for key in keys:
+            got = feeder.next()
+            want = assemble_stream(cfg, False, *host, *key)
+            for a, b in zip(got, want):
+                assert a.device.type == 'cuda' and a.dtype == (
+                    torch.uint8 if dtype == 'uint8' else torch.float32)
+                assert torch.equal(a.cpu(), torch.from_numpy(b))
+        torch.cuda.synchronize()
+        assert len(feeder.timings) == len(keys)
+        for row in feeder.timings:
+            start, done = row['copy']
+            assert start.elapsed_time(done) >= 0
+        assert max(feeder._count.values()) <= feeder.slots + 2
+    finally:
+        feeder.close()
+
+
+@pytest.mark.cuda
+def test_streaming_trainer_on_the_card(cuda_device, tmp_path):
+    """A streaming run of ``test`` on the card by default: finite metrics,
+    and the same parameters as a second run from the same seed."""
+    import random
+    from exposure_tpu_torch.core.trainer import Trainer
+    from exposure_tpu_torch.data.native_provider import NativePackProvider
+    from exposure_tpu_torch.data.synthetic import make_synthetic_pack
+    raw, real = str(tmp_path / 'raw.npy'), str(tmp_path / 'real.npy')
+    np.save(raw, make_synthetic_pack(24, 80, 'raw', 0))
+    np.save(real, make_synthetic_pack(24, 64, 'retouched', 1))
+    states = []
+    for run in ('a', 'b'):
+        cfg = load_config('test')
+        cfg.update(name='stream/' + run, max_iter_step=5, stream_data=True,
+                   stream_iters_per_dispatch=3, stream_dtype='uint8')
+        cfg.fake_data_provider = lambda: NativePackProvider(
+            raw, 64, 0.3, seed=0)
+        cfg.real_data_provider = lambda: NativePackProvider(
+            real, 64, 0.0, seed=1)
+        random.seed(0)
+        torch.backends.cudnn.deterministic = True
+        trainer = Trainer(cfg, model_root=str(tmp_path))
+        try:
+            metrics = trainer.train()
+        finally:
+            trainer.close()
+            torch.backends.cudnn.deterministic = False
+        assert np.isfinite(np.asarray(metrics)).all()
+        assert trainer.pool.images.device.type == 'cuda'
+        states.append(trainer.state.tensors())
+    a, b = states
+    assert all(torch.equal(a[k], b[k]) for k in a)

@@ -270,8 +270,20 @@ def test_read_images_and_compare_dirs(tmp_path, monkeypatch):
                             seed=4),
         j_hist.compare_dirs(str(tmp_path / 'out'), str(tmp_path / 'target'),
                             seed=4), rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError, match='item 10'):
-        t_hist.read_images(str(tmp_path / 'out'), fold='u_test')
+    # a FiveK fold keeps the files named by its ids (0 and 2 here)
+    folds = tmp_path / 'data' / 'folds'
+    folds.mkdir(parents=True)
+    (folds / 'FiveK_test.txt').write_text('# ids\n0\n\n2\n')
+    got = t_hist.read_images(str(tmp_path / 'out'), fold='u_test',
+                             data_root=str(tmp_path), seed=4)
+    want = j_hist.read_images(str(tmp_path / 'out'), fold='u_test',
+                              data_root=str(tmp_path), seed=4)
+    assert len(got) == len(want) == 2 * 16
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(FileNotFoundError, match='FiveK_train_first2k'):
+        t_hist.read_images(str(tmp_path / 'out'), fold='2k_train',
+                           data_root=str(tmp_path))
 
 
 @pytest.mark.parametrize('kw', [
@@ -357,7 +369,8 @@ def test_resize_matches_the_cv2_branch(src, dst):
 
 @pytest.mark.parametrize('name', ['synthetic', 'synthetic_explore', 'test',
                                   'masked'])
-def test_config_providers_build_what_the_jax_configs_build(name):
+def test_config_providers_build_what_the_jax_configs_build(name, tmp_path,
+                                                           monkeypatch):
     jcfg, tcfg = j_load_config(name), t_load_config(name)
     assert tcfg.batch_size == jcfg.batch_size
     assert tcfg.real_img_channels == jcfg.real_img_channels
@@ -377,7 +390,11 @@ def test_config_providers_build_what_the_jax_configs_build(name):
         assert t.augmentation == j.augmentation
         assert t.default_batch_size == j.default_batch_size
         assert t.indices == j.indices
-    assert 'fake_data_provider' not in t_load_config('example')
+    # the flagship's factories read the FiveK tree under the working
+    # directory (tests/test_torch_data_paths.py holds them to JAX's there)
+    monkeypatch.chdir(str(tmp_path))
+    with pytest.raises(FileNotFoundError, match='FiveK_train_first2k'):
+        t_load_config('example').fake_data_provider()
 
 
 def test_quality_report_matches(monkeypatch):

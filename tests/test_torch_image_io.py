@@ -259,10 +259,16 @@ def test_other_formats_go_to_imageio_or_name_it(tmp_path, monkeypatch):
     imageio.imwrite(tif, (img * 65535).astype(np.uint16))
     np.testing.assert_array_equal(tio.read_tiff16(tif), jio.read_tiff16(tif))
     np.testing.assert_array_equal(tio.read_image(tif), jio.read_image(tif))
+    jpg = str(tmp_path / 'b.jpg')
+    imageio.imwrite(jpg, (img * 255).astype(np.uint8))
+    np.testing.assert_array_equal(tio.read_image(jpg), jio.read_image(jpg))
+    want = tio.read_tiff16(tif)
     monkeypatch.setitem(sys.modules, 'imageio', None)
     monkeypatch.setitem(sys.modules, 'imageio.v2', None)
     with pytest.raises(RuntimeError, match='imageio'):
-        tio.read_image(tif)
+        tio.read_image(jpg)
+    # a baseline TIFF needs no package either (the port's own reader)
+    np.testing.assert_array_equal(tio.read_tiff16(tif), want)
     with pytest.raises(RuntimeError, match='imageio'):
         tio.write_image(str(tmp_path / 'a.jpg'), img)
     png = str(tmp_path / 'a.png')

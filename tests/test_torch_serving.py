@@ -56,14 +56,27 @@ AGENT_STEP_DEFAULTS = {
     'seed': 0}
 
 
+# knobs of the JAX configs the port's table leaves out, each with why
+NOT_IN_TABLE = {
+    'iters_per_dispatch': 'sizes the JAX fused N-iteration dispatch; the '
+                          'port runs one iteration a step',
+    'dispatch_pipeline_depth': 'defers the JAX bookkeeping behind the TPU '
+                               'dispatch; the port keeps it synchronous',
+}
+
+
 @pytest.mark.parametrize('name', sorted(CONFIGS))
 def test_config_table_matches_load_config(name):
     jcfg, tcfg = j_load_config(name), t_load_config(name)
     assert list(tcfg.filters) == [c.__name__ for c in jcfg.filters]
+    # every knob of the JAX config is in the row, or named above
+    missing = sorted(set(jcfg) - set(tcfg) - set(NOT_IN_TABLE))
+    assert not missing, missing
     for knob in ('exploration_penalty', 'filter_usage_penalty',
                  'early_stop_penalty', 'gan', 'use_TD', 'giters', 'citers',
                  'lr_g', 'lr_c', *AGENT_STEP_DEFAULTS):
         assert knob in tcfg, knob
+    assert not set(NOT_IN_TABLE) & set(tcfg)
     for knob, value in tcfg.items():
         if knob in ('filters', 'name'):
             continue
@@ -73,8 +86,9 @@ def test_config_table_matches_load_config(name):
                 assert value(t) == jcfg[knob](t), (knob, t)
             continue
         if callable(value):
-            # a data provider factory: tests/test_torch_eval_tools.py holds
-            # what it builds equal to the JAX config's
+            # a data provider factory: tests/test_torch_eval_tools.py and
+            # tests/test_torch_data_paths.py hold what it builds equal to
+            # the JAX config's
             assert knob.endswith('_data_provider') or \
                 knob.endswith('_data_provider_test')
             assert callable(jcfg[knob])
@@ -361,7 +375,8 @@ def test_port_imports_without_jax_or_flax():
 
         class Refuse:
             def find_spec(self, name, path=None, target=None):
-                if name.split('.')[0] in ('jax', 'jaxlib', 'flax'):
+                if name.split('.')[0] in ('jax', 'jaxlib', 'flax',
+                                          'exposure_tpu'):
                     raise ImportError('refused: ' + name)
                 return None
 
@@ -388,7 +403,26 @@ def test_port_imports_without_jax_or_flax():
         import exposure_tpu_torch.tools.quality_report
         import exposure_tpu_torch.utils.image_io
         import exposure_tpu_torch.utils.viz
+        import exposure_tpu_torch.core.steps
+        import exposure_tpu_torch.core.streaming
+        import exposure_tpu_torch.core.trainer
+        import exposure_tpu_torch.data.artist
+        import exposure_tpu_torch.data.fivek
+        import exposure_tpu_torch.data.folder
+        import exposure_tpu_torch.data.folds
+        import exposure_tpu_torch.data.native_provider
+        import exposure_tpu_torch.native
+        import exposure_tpu_torch.native.build
+        import exposure_tpu_torch.tools.bench_host_assembly
+        import exposure_tpu_torch.tools.train_check
+        import exposure_tpu_torch.utils.dict_util
+        import exposure_tpu_torch.utils.prefetch
+        from exposure_tpu_torch.utils.config import CONFIGS, load_config
+        for name in CONFIGS:
+            load_config(name)
+        import chip_smoke
         import evaluate_torch
+        import train_torch
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                       'exposure_tpu')]

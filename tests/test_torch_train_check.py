@@ -54,3 +54,26 @@ def test_a_wrong_update_fails(plant, monkeypatch):
     assert any('off Adam replayed' in f for f in report['failures'])
     if plant == 'doubled':
         assert any(f.startswith('opt_c mu') for f in report['failures'])
+
+
+@pytest.mark.parametrize('stream', ['float32', 'uint8'])
+def test_the_streaming_step_against_itself_passes(stream):
+    report = card_against_cpu(load_config('test'), 'cpu', stream=stream)
+    assert report['failures'] == []
+    assert max(report['grad_frac'].values()) == 0.0
+    assert report['pool']['states_equal']
+
+
+def test_a_wrong_streaming_update_fails(monkeypatch):
+    update, calls = steps.apply_lr_update, []
+
+    def planted(grads, opt, params, lr, b1, b2):
+        calls.append(lr)
+        if len(calls) <= UPDATES:
+            return update(grads, opt, params, lr, b1, b2)
+        return PLANTS['skipped'](grads, opt, params, lr, b1, b2, update)
+
+    monkeypatch.setattr(steps, 'apply_lr_update', planted)
+    report = card_against_cpu(load_config('test'), 'cpu', stream='uint8')
+    assert len(calls) == 2 * UPDATES
+    assert any('off Adam replayed' in f for f in report['failures'])

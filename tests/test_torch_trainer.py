@@ -195,7 +195,7 @@ def test_card_by_default_and_refusals(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         Trainer(_cfg(), restore=True)
-    for knob in ('stream_data', 'profile_dir'):
+    for knob in ('profile_dir',):
         with pytest.raises(NotImplementedError, match=knob):
             Trainer(_cfg(**{knob: 'x'}), restore=True, device='cpu')
     with pytest.raises(NotImplementedError, match='item 11'):
