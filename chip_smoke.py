@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --turns PARENT_CHECKOUT   # A/B of two checkouts
     python3 chip_smoke.py --turns PARENT_CHECKOUT --kernels   # kernels alone
+    python3 chip_smoke.py --world 4      # training on 4 nccl ranks, 4 cards
 
 Phases, one line or a few each (a failing phase exits non-zero):
 
@@ -92,6 +93,22 @@ Phases, one line or a few each (a failing phase exits non-zero):
    the CPU (``tools/train_check.py``, ``stream='uint8'``); the
    streaming-trained state served through K1 (6 launches). Its numbers
    are the JSON line ``{"data": ...}`` before the kernels line;
+9e. parallel (``parallel/``, in the FiveK tree of 9d): (a) a world-size-1
+   ``nccl`` group, under which ``example``'s resident and streaming step
+   at full width equal the step without a group bit for bit
+   (deterministic cuDNN, a control step), and a world-1 ``Trainer`` of
+   ``example`` through iterations 0-6, then (b), then 7-11; (b) two
+   spawned ranks sharing the card over ``gloo`` with CUDA tensors, the
+   same run at B=64 as 32 + 32 and pool 128 as 64 + 64: the parameters'
+   digests equal across the ranks after every iteration, finite metrics,
+   one ``metrics.jsonl``, a resume bit for bit, the all-reduce's ms for
+   each update's bucket, peak memory a rank; (c) ``dryrun_multigpu(2)``:
+   two ranks' resident and streaming steps, resume, the pad path, and the
+   trained artifact serving [512, 512, 512, 3] u8 K=5 as 256 + 256 through
+   K2, K1 and K3, within 2 LSB of the plain chain and 1 LSB of one
+   process's pipeline. Its numbers are the JSON line
+   ``{"parallel": ...}``, and K1-K3's launches in (c) their kernels rows'
+   ``launches_parallel_serve``;
 10. main path: the trained ``synthetic_explore`` policy served from the
    in-repo artifact at full width on B=512 batches of seeded 512x512 u8
    images through ``RetouchPipeline.map_batches`` (dynamic, selected
@@ -136,6 +153,9 @@ output with a value that differs from the parent's fails the run, unless
 ``TURNS_MAY_DIFFER`` names it.  Each turn also times every kernel, so the two
 trees' kernel times come from one card.
 ``--kernels`` leaves the served path out (one turn a tree).
+``--world N``, on a machine of N cards, trains ``example`` on N ``nccl``
+ranks, one a card, against world 1 in turns (phase 9e's (b) over NVLink)
+and prints the ``{"world": ...}`` line.
 """
 
 import json
@@ -2476,7 +2496,7 @@ def _u8_first_step(cfg, paths):
     from exposure_tpu_torch.data.native_provider import NativePackProvider
     from exposure_tpu_torch.models.networks import build_models
     from exposure_tpu_torch.utils.draws import Draws
-    from exposure_tpu_torch.utils.ops import tf32_off
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms, tf32_off
     cfg = cfg.copy()
     cfg.stream_dtype = 'uint8'
     nets = build_models(cfg)
@@ -2497,30 +2517,14 @@ def _u8_first_step(cfg, paths):
             fail('data: the card\'s dequantization differs from the host\'s')
     step = build_streaming_outer_step(cfg, *nets[1:], nets[0], cfg.giters,
                                       cfg.citers)
-    saved = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark,
-             torch.are_deterministic_algorithms_enabled())
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.use_deterministic_algorithms(True, warn_only=True)
     outs = []
-    try:
-        with tf32_off(), warnings.catch_warnings():
-            warnings.simplefilter('ignore')
-            for gb, rb in ((g, r), host, host):
-                pool = PoolState.create(pool_images.clone(),
-                                        cfg.num_state_dim)
-                draws = Draws(torch.Generator(DEVICE).manual_seed(SEED),
-                              DEVICE)
-                outs.append(step(state, pool,
-                                 torch.from_numpy(gb).to(DEVICE),
-                                 torch.from_numpy(rb).to(DEVICE), draws,
-                                 cfg.lr_g(1), cfg.lr_c(1),
-                                 1 / cfg.max_iter_step))
-    finally:
-        torch.backends.cudnn.deterministic = saved[0]
-        torch.backends.cudnn.benchmark = saved[1]
-        torch.use_deterministic_algorithms(saved[2])
+    with tf32_off(), deterministic_algorithms():
+        for gb, rb in ((g, r), host, host):
+            pool = PoolState.create(pool_images.clone(), cfg.num_state_dim)
+            draws = Draws(torch.Generator(DEVICE).manual_seed(SEED), DEVICE)
+            outs.append(step(state, pool, torch.from_numpy(gb).to(DEVICE),
+                             torch.from_numpy(rb).to(DEVICE), draws,
+                             cfg.lr_g(1), cfg.lr_c(1), 1 / cfg.max_iter_step))
 
     def differing(x, y):
         a, b = x[0].tensors(), y[0].tensors()
@@ -2539,15 +2543,15 @@ def _u8_first_step(cfg, paths):
     return len(outs[0][0].tensors())
 
 
-def phase_data():
+def phase_data(root):
     """The data path and streaming training: the host loader built by g++;
-    the FiveK layout at the dataset's size; ``example``'s three providers
-    in it; the loader on the card's host; ``example`` at full width
-    trained resident and streaming (f32, u8); one streaming step on the
-    card against the CPU; the streaming-trained state served through K1.
-    Returns what the summary lines report of it."""
+    the FiveK layout at the dataset's size in ``root`` (``phase_parallel``
+    trains in it too); ``example``'s three providers in it; the loader on
+    the card's host; ``example`` at full width trained resident and
+    streaming (f32, u8); one streaming step on the card against the CPU;
+    the streaming-trained state served through K1.  Returns what the
+    summary lines report of it."""
     import contextlib
-    import tempfile
     import numpy as np
     from exposure_tpu_torch.data.fivek import FiveKDataProvider
     from exposure_tpu_torch.data.native_provider import NativePackProvider
@@ -2560,7 +2564,7 @@ def phase_data():
         % (os.path.relpath(lib.path, REPO), ' '.join(native_build.GXX_FLAGS),
            lib.build_seconds))
     numbers = {'build_s': lib.build_seconds}
-    with tempfile.TemporaryDirectory() as root, contextlib.chdir(root):
+    with contextlib.chdir(root):
         numbers['tree'] = _fivek_tree(root)
         cfg = load_config('example')
         cfg.update(critic_initialization=DATA_CRITIC_INIT,
@@ -2682,7 +2686,263 @@ def phase_data():
     return numbers
 
 
+PARALLEL_BUDGET_S = 150
+PARALLEL_CONFIG = 'example'
+PARALLEL_ONE_BACKEND = 'nccl'   # the world-size-1 group's
+PARALLEL_WORLD = 2              # ranks sharing the one card, over gloo
+PARALLEL_LAST_ITER = 11         # iterations 0-11, as phase_data's specials
+PARALLEL_CKPT_INTERVAL = 6      # checkpoints at 6 and 12: the resume's
+PARALLEL_DEADLINE_S = 300       # a spawned world's, then it is killed
+
+
+def _release():
+    """Free this process's cached card memory (``empty_cache``) before
+    spawned ranks share the card with it (the earlier phases leave tens of
+    GiB cached)."""
+    import gc
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _worlds_in_turns(root, work, mesh, world, backend, tag):
+    """``example``'s ``TrainerRun`` (``tools/parallel_check.py``) on
+    ``mesh``, a world-size-1 group in this process, through iterations 0-6;
+    then a spawned world of ``world`` ranks over ``backend`` through
+    iterations 0-11; then world 1's 7-11, so that both worlds' plain
+    iterations come in turns.  Fails unless every rank's metrics are finite,
+    every resume is bit for bit, the ranks' parameters agree after every
+    iteration and rank 0 alone wrote ``metrics.jsonl``.  Returns ``(world
+    1's findings, each rank's, the spawned world's seconds)``."""
+    import numpy as np
+    from exposure_tpu_torch.data.fivek import FiveKDataProvider
+    from exposure_tpu_torch.parallel.launch import spawn_ranks
+    from exposure_tpu_torch.tools import parallel_check as pc
+    job = dict(config=PARALLEL_CONFIG, root=root, seed=SEED,
+               last_iter=PARALLEL_LAST_ITER,
+               knobs=dict(critic_initialization=DATA_CRITIC_INIT,
+                          checkpoint_interval=PARALLEL_CKPT_INTERVAL))
+    FiveKDataProvider._raw_image_pack = None
+    one = pc.TrainerRun(mesh, dict(job, name='%s/world_1' % PARALLEL_CONFIG,
+                                   model_root=os.path.join(work, 'one')))
+    one.run(0, 6)
+    FiveKDataProvider._raw_image_pack = None
+    _release()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(pc.trainer_rank, world, (dict(
+        job, name='%s/world_%d' % (PARALLEL_CONFIG, world),
+        model_root=os.path.join(work, 'many')),), device=DEVICE,
+        backend=backend, deadline_s=PARALLEL_DEADLINE_S, rendezvous_dir=work)
+    seconds = time.perf_counter() - t0
+    one.run(7, PARALLEL_LAST_ITER)
+    one = one.finish()
+    FiveKDataProvider._raw_image_pack = None
+    for label, runs in (('world 1', [one]), ('world %d' % world, ranks)):
+        for run in runs:
+            bad = {it: m for it, m in run['metrics'].items()
+                   if not np.isfinite(m).all()}
+            if bad or sorted(run['metrics']) != list(
+                    range(PARALLEL_LAST_ITER + 1)):
+                fail('%s: %s rank %d: metrics of iterations %s, non-finite '
+                     '%s' % (tag, label, run['rank'],
+                             sorted(run['metrics']), bad))
+            if not run['resume_equal']:
+                fail('%s: %s: the resumed run differs from the one not '
+                     'stopped' % (tag, label))
+    if not all(r['params_equal_every_iteration'] for r in ranks):
+        fail('%s: the ranks\' parameters differ after an iteration' % tag)
+    if ranks[0]['metrics_files'] != 1 or any(
+            r['metrics'] != ranks[0]['metrics'] for r in ranks):
+        fail('%s: rank 0 wrote %s metrics.jsonl; the ranks\' metrics agree: '
+             '%s' % (tag, ranks[0]['metrics_files'], all(
+                 r['metrics'] == ranks[0]['metrics'] for r in ranks)))
+    return one, ranks, seconds
+
+
+def _plain_ms(run):
+    return [run['iteration_ms'][it]
+            for it in range(DATA_CRITIC_INIT, PARALLEL_LAST_ITER + 1)]
+
+
+def _world_numbers(one, ranks, world, backend):
+    """What the ``parallel`` and ``world`` lines report of a world-1 run
+    and a world's ranks."""
+    key = 'world_%d_%s' % (world, backend)
+    return {
+        'config': PARALLEL_CONFIG,
+        'plain_iteration_ms': {
+            'world_1_%s' % PARALLEL_ONE_BACKEND: _median(_plain_ms(one)),
+            key: _median([_median(_plain_ms(r)) for r in ranks])},
+        'plain_iteration_ms_all': {'world_1': _plain_ms(one),
+                                   key + '_by_rank': [_plain_ms(r)
+                                                      for r in ranks]},
+        'allreduce_ms': {'world_1': one['allreduce_ms'],
+                         key: [r['allreduce_ms'] for r in ranks]},
+        'allreduce_bytes': ranks[0]['allreduce_bytes'],
+        'peak_memory_gib': {'world_1': one['peak_memory_gib'],
+                            key + '_by_rank': [r['peak_memory_gib']
+                                               for r in ranks]},
+        # allocated after the trainer's init, the peak after each iteration
+        'memory_gib_by_iteration': {
+            label: {'init': run['init_memory_gib'],
+                    'peak': run['peak_memory_gib_by_iteration']}
+            for label, run in (('world_1', one), (key + '_rank_0',
+                                                  ranks[0]))},
+        'params_equal_iterations': ranks[0]['iterations_compared'],
+        'resume_step': ranks[0]['resume_step'],
+        'emd_%d' % PARALLEL_LAST_ITER: {
+            'world_1': one['metrics'][PARALLEL_LAST_ITER][2],
+            key: ranks[0]['metrics'][PARALLEL_LAST_ITER][2]},
+    }
+
+
+def phase_parallel(root, card):
+    """Data-parallel training and serving on the card (``parallel/``):
+
+    (a) a world-size-1 ``nccl`` group in this process: ``example``'s
+    resident and streaming step at full width under it, bit for bit the
+    step without a group (deterministic cuDNN, a control step); then a
+    world-1 ``Trainer`` of ``example`` (packs from the FiveK tree in
+    ``root``, ``critic_initialization`` cut as ``phase_data`` cuts it):
+    iterations 0-6, then (b), then 7-11, so that both worlds' plain
+    iterations come in turns on one card;
+    (b) two spawned ranks sharing the card over ``gloo`` with CUDA tensors:
+    the same run at B=64 as 32 + 32 and pool 128 as 64 + 64, iterations
+    0-11, the parameters' digests equal across the ranks after every
+    iteration, finite metrics, one ``metrics.jsonl``, a resume bit for bit,
+    the all-reduce's ms for each update's bucket, peak memory per rank;
+    (c) ``dryrun_multigpu(2)`` on the card: the trained ``synthetic_explore``
+    artifact serving [512, 512, 512, 3] u8, K=5, as 256 + 256 through K2,
+    K1 and K3, within the JAX bounds of the plain chain and 1 LSB of one
+    process's pipeline; its launches by kernel.
+
+    Prints the ``{"parallel": ...}`` line's numbers and returns them."""
+    import tempfile
+    from exposure_tpu_torch.parallel.dryrun import dryrun_multigpu
+    from exposure_tpu_torch.parallel.mesh import data_parallel_mesh
+    from exposure_tpu_torch.tools import parallel_check as pc
+    from exposure_tpu_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    _release()
+    with tempfile.TemporaryDirectory() as work:
+        mesh = data_parallel_mesh(1, backend=PARALLEL_ONE_BACKEND,
+                                  device=DEVICE, rank=0,
+                                  init_file=os.path.join(work, 'rdv-one'))
+        try:
+            t0 = time.perf_counter()
+            eq = pc.step_equality(mesh, load_config(PARALLEL_CONFIG),
+                                  seed=SEED)
+            if any(a or b for a, b in eq.values()):
+                fail('parallel: the step under a world-size-1 %s group '
+                     'differs from the step without one, or the control '
+                     'from itself: %s' % (mesh.backend, eq))
+            say('parallel: (a) %s\'s resident and streaming step at full '
+                'width under a world-size-1 %s group, and without a group '
+                'twice (the control; deterministic cuDNN): every state '
+                'tensor, the pool and the metrics equal bit for bit, %.1f s'
+                % (PARALLEL_CONFIG, mesh.backend, time.perf_counter() - t0))
+            one, two, two_s = _worlds_in_turns(root, work, mesh,
+                                               PARALLEL_WORLD, 'gloo',
+                                               'parallel')
+        finally:
+            mesh.close()
+        numbers = dict(_world_numbers(one, two, PARALLEL_WORLD, 'gloo'),
+                       card=card, world_2_s=two_s,
+                       one_rank_step_equal={k: not (a or b)
+                                            for k, (a, b) in eq.items()})
+        batch = load_config(PARALLEL_CONFIG).batch_size
+        say('parallel: (b) %s at full width on %d ranks sharing the card '
+            'over gloo (B=%d as %d a rank), iterations 0-%d in %.1f s with '
+            'the spawn: parameters equal across the ranks after each of '
+            '%d iterations, finite metrics, one metrics.jsonl, a resume '
+            'from checkpoint %d bit for bit; world 1 (%s, in this process, '
+            'iterations 0-6 before and 7-11 after) likewise' % (
+                PARALLEL_CONFIG, PARALLEL_WORLD, batch,
+                batch // PARALLEL_WORLD, PARALLEL_LAST_ITER, two_s,
+                numbers['params_equal_iterations'], numbers['resume_step'],
+                PARALLEL_ONE_BACKEND))
+        say('parallel: ms per plain iteration (CUDA events, medians of '
+            'iterations %d-%d), all-reduce ms and bytes a bucket, peak '
+            'memory GiB: %s' % (DATA_CRITIC_INIT, PARALLEL_LAST_ITER,
+                                json.dumps({k: numbers[k] for k in (
+                                    'plain_iteration_ms', 'allreduce_ms',
+                                    'allreduce_bytes', 'peak_memory_gib')})))
+        t0 = time.perf_counter()
+        _release()
+        dry = dryrun_multigpu(
+            PARALLEL_WORLD, device=DEVICE, backend='gloo',
+            serve_batch=BATCH, serve_hw=(RES, RES),
+            artifact=os.path.join(REPO, ARTIFACT), deadline_s=
+            PARALLEL_DEADLINE_S, work_dir=work)
+    numbers['dryrun'] = {k: dry[k] for k in (
+        'g_loss', 'emd', 'streaming_g_loss', 'served', 'grouped_max_lsb',
+        'resume_equal', 'pad_ok', 'superset_ok', 'superset_max_lsb',
+        'map_batches_ok', 'dyn_ok', 'dyn_max_lsb', 'pipeline_max_lsb',
+        'superset_route', 'launches', 'launches_by_rank')}
+    numbers['dryrun_s'] = time.perf_counter() - t0
+    numbers['launches'] = dry['launches']
+    if DEVICE == 'cuda' and any(v == 0 for v in dry['launches'].values()):
+        fail('parallel: the dry run\'s serving launched %s'
+             % dry['launches'])
+    say('parallel: (c) dryrun_multigpu(%d) on the card, %.1f s: served %s '
+        'u8 as %d + %d; max LSB against the plain chain: dynamic %d, '
+        'grouped %d, superset %d (bound 2); the gathered output against '
+        'one process\'s pipeline %d (bound 1); launches %s' % (
+            PARALLEL_WORLD, numbers['dryrun_s'], dry['served'],
+            BATCH // PARALLEL_WORLD, BATCH // PARALLEL_WORLD,
+            dry['dyn_max_lsb'], dry['grouped_max_lsb'],
+            dry['superset_max_lsb'], dry['pipeline_max_lsb'],
+            json.dumps(dry['launches'])))
+    numbers['phase_s'] = time.perf_counter() - t_phase
+    say('parallel: phase %.1f s (budget %d s)' % (numbers['phase_s'],
+                                                  PARALLEL_BUDGET_S))
+    return numbers
+
+
+def world(n):
+    """``--world N``, on a machine of N cards: ``example``'s training on N
+    ``nccl`` ranks, one a card, against a world-size-1 ``nccl`` run on card
+    0 in turns (``_worlds_in_turns``), in the FiveK tree of ``phase_data``
+    made anew in a temp dir.  Prints the ``{"world": ...}`` line and the
+    device line."""
+    import contextlib
+    import tempfile
+    import torch
+    card = phase_card()
+    sys.path.insert(0, REPO)
+    from exposure_tpu_torch.parallel.mesh import data_parallel_mesh
+    if torch.cuda.device_count() < n:
+        fail('world: %d cards asked for, %d here'
+             % (n, torch.cuda.device_count()))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root, \
+            tempfile.TemporaryDirectory() as work:
+        with contextlib.chdir(root):
+            _fivek_tree(root)
+        mesh = data_parallel_mesh(1, backend='nccl', device='cuda:0', rank=0,
+                                  init_file=os.path.join(work, 'rdv-one'))
+        try:
+            one, ranks, seconds = _worlds_in_turns(root, work, mesh, n,
+                                                   'nccl', 'world')
+        finally:
+            mesh.close()
+    numbers = dict(_world_numbers(one, ranks, n, 'nccl'), card=card,
+                   world_s=seconds, phase_s=time.perf_counter() - t0)
+    say('world: %s at full width on %d nccl ranks, one a card: parameters '
+        'equal across the ranks after each of %d iterations, finite '
+        'metrics, one metrics.jsonl, a resume from checkpoint %d bit for '
+        'bit; world 1 likewise, in turns' % (
+            PARALLEL_CONFIG, n, numbers['params_equal_iterations'],
+            numbers['resume_step']))
+    say(json.dumps({'world': numbers}))
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
 def main():
+    import tempfile
     import numpy as np
     import torch
     t_start = time.perf_counter()
@@ -2702,7 +2962,9 @@ def main():
     phase_small_reference()
     evaluation = phase_evaluate()
     training = phase_train()
-    data = phase_data()
+    with tempfile.TemporaryDirectory() as fivek_root:
+        data = phase_data(fivek_root)
+        parallel = phase_parallel(fivek_root, card)
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
                for _ in range(MAIN_BATCHES)]
@@ -2772,6 +3034,8 @@ def main():
         'u8_step_tensors_equal': data['u8_step_tensors_equal'],
         'launches_serve': data['launches_serve'],
         'phase_s': data['phase_s']}}))
+    say(json.dumps({'parallel': parallel}))
+    served = parallel['launches']
     proxy = PROXY_CASE[0]
     say(json.dumps({'kernels': [
         # the main path's replay launches, with the modes' and the tools';
@@ -2781,13 +3045,14 @@ def main():
                     k1_timing[REPLAY_CASE[0]], k1_worst,
                     k1_main['replay'] + totals['dyn_chain'] +
                     evaluation['launches'] + training['launches_serve'] +
-                    data['launches_serve'],
+                    data['launches_serve'] + served['dyn_chain'],
                     'dyn_chain', 'dyn_chain_kernel',
                     launches_main_path_replay=k1_main['replay'],
                     launches_other_paths=totals['dyn_chain'],
                     launches_evaluation=evaluation['launches'],
                     launches_training_serve=training['launches_serve'],
-                    launches_streaming_serve=data['launches_serve']),
+                    launches_streaming_serve=data['launches_serve'],
+                    launches_parallel_serve=served['dyn_chain']),
         # the same kernel on one full-resolution image, the evaluator's
         # replay: every launch of the evaluation path (its sizes vary; the
         # time is this shape's)
@@ -2810,8 +3075,10 @@ def main():
                     shape='[%d, 64, 64, 3] f32, K=1' % BATCH),
         chain_entry('switch_chain', 'exposure_tpu_torch/csrc/switch_chain.cu',
                     'exposure_tpu/ops/pallas_chain.py:345',
-                    k2_timing['f32'], k2_worst, totals['switch_chain'],
-                    'switch_chain', 'switch_chain_f32'),
+                    k2_timing['f32'], k2_worst,
+                    totals['switch_chain'] + served['switch_chain'],
+                    'switch_chain', 'switch_chain_f32',
+                    launches_parallel_serve=served['switch_chain']),
         # the same wrapper's bf16 kernel; nothing in the package asks for
         # it (direct callers only), so no path launches it
         chain_entry('switch_chain_bf16',
@@ -2828,9 +3095,11 @@ def main():
                         op: c['differ'] for op, c in packed.items()}),
         chain_entry('static_chain', 'exposure_tpu_torch/csrc/static_chain.cu',
                     'exposure_tpu/ops/pallas_chain.py:417',
-                    k3_timing['replay'], k3_worst, totals['static_chain'],
+                    k3_timing['replay'], k3_worst,
+                    totals['static_chain'] + served['static_chain'],
                     'static_chain', 'static_chain_kernel',
-                    shape=shape + ', one signature (E, G, S+, T, Ct)'),
+                    shape=shape + ', one signature (E, G, S+, T, Ct)',
+                    launches_parallel_serve=served['static_chain']),
         probe_entry('mono_probe',
                     'exposure_tpu/tools/bench_kernel_probe.py:41',
                     probe_worst['mono_probe'],
@@ -3159,5 +3428,7 @@ if __name__ == '__main__':
               '--kernels' in flags)
     elif len(args) > 1 and args[0] == '--turns':
         turns(args[1], '--kernels' in flags)
+    elif len(args) > 1 and args[0] == '--world':
+        world(int(args[1]))
     else:
         main()

@@ -15,10 +15,18 @@ reads them.  Two data paths:
   loader), float32 or uint8, for packs too large for the device.
 
 Randomness comes from the caller's ``utils/draws.py::Draws``: by default a
-``torch.Generator``, in the tests the JAX step's own draws replayed.  The
-JAX step's ``shard_map`` over a data-parallel mesh and its fused
-N-iteration variants are economies of the TPU's dispatch; this step is the
-one-device, one-iteration program (``ROADMAP.md`` lists the rest).
+``torch.Generator``, in the tests the JAX step's own draws replayed.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): each rank runs the step
+on its shard (``batch_size // world`` crops an update, its slice of the
+pool and of the packs or bundle) and averages where the JAX step's
+``lax.pmean`` does, with one all-reduce a phase of an update: a generator
+update's gradients with its ``g_loss``, ``v_loss`` and mean reward in one
+flat bucket, a critic update's gradients with its EMD, gradient norm and
+``c_average`` (the EMA takes the average), and the pool's two statistics
+at the end.  Without a mesh, or with a world of one without a process
+group, the step is the one-device program, untouched.  The JAX fused
+N-iteration variants wait for a later slice (``ROADMAP.md``).
 """
 
 from typing import NamedTuple
@@ -38,6 +46,7 @@ from exposure_tpu_torch.data.device_sampler import (
     channels_to_paired,
     sample_batch,
 )
+from exposure_tpu_torch.parallel.mesh import local_batch_size
 
 
 class StepMetrics(NamedTuple):
@@ -55,11 +64,26 @@ def _leaves(params):
     return {k: v.detach().requires_grad_(True) for k, v in params.items()}
 
 
+def pmean_bucket(mesh, tensors, scalars):
+    """The means over ranks of ``tensors`` and 0-d ``scalars``, in one
+    all-reduce of one flat float32 bucket; both unchanged without a process
+    group."""
+    if mesh is None or not mesh.grouped:
+        return tensors, scalars
+    flat = mesh.pmean(torch.cat([t.reshape(-1) for t in tensors] +
+                                [s.reshape(1) for s in scalars]))
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].view_as(t))
+        i += t.numel()
+    return out, list(flat[i:])
+
+
 def _make_phase_bodies(cfg, policy, critic_mod, value_mod, filters,
-                       local_batch, taps=None):
+                       local_batch, taps=None, mesh=None):
     """The generator-phase and critic-phase update cores.  ``taps``: a
     list each update appends its gradients to (and a generator update its
-    selection), or None."""
+    selection), or None; ``mesh``: the ranks to average over, or None."""
     betas = (cfg.get('adam_beta1', 0.5), cfg.get('adam_beta2', 0.9))
 
     def g_update(st, pl, fresh_triplet, draws, lr_g, progress):
@@ -76,8 +100,11 @@ def _make_phase_bodies(cfg, policy, critic_mod, value_mod, filters,
         names = [(tree, k) for tree in ('gen', 'val') for k in params[tree]]
         grads = torch.autograd.grad(loss, [params[t][k] for t, k in names],
                                     allow_unused=True)
-        grads = {(t, k): torch.zeros_like(params[t][k]) if g is None else g
-                 for (t, k), g in zip(names, grads)}
+        grads = [torch.zeros_like(params[t][k]) if g is None else g
+                 for (t, k), g in zip(names, grads)]
+        grads, (g_loss, v_loss, reward) = pmean_bucket(
+            mesh, grads, [aux.g_loss, aux.v_loss, torch.mean(aux.reward)])
+        grads = dict(zip(names, grads))
 
         if taps is not None:
             taps.append({
@@ -100,7 +127,7 @@ def _make_phase_bodies(cfg, policy, critic_mod, value_mod, filters,
                       cfg.over_length_keep_prob,
                       batch_gt=b_gt, fresh_gt_for_batch=fresh2_gt,
                       fresh_gt_for_pool=fresh_pool_gt)
-        return st, pl, (aux.g_loss, aux.v_loss, torch.mean(aux.reward))
+        return st, pl, (g_loss, v_loss, reward)
 
     def c_update(st, pool, real_batch, draws, lr_c):
         fake_batch, _ = sample_terminated(pool, draws, local_batch)
@@ -109,6 +136,8 @@ def _make_phase_bodies(cfg, policy, critic_mod, value_mod, filters,
                                 draws, cfg)
         names = list(crit)
         grads = torch.autograd.grad(loss, [crit[k] for k in names])
+        grads, (emd, cgn, c_average) = pmean_bucket(
+            mesh, grads, [aux.emd, aux.critic_gradient_norm, aux.c_average])
         if taps is not None:
             taps.append({'crit': dict(zip(names, grads))})
         crit_params, opt_c = apply_lr_update(
@@ -117,19 +146,23 @@ def _make_phase_bodies(cfg, policy, critic_mod, value_mod, filters,
             # weight clipping when the gradient penalty is off
             crit_params = clip_tree(crit_params, cfg.clamp_critic)
         st = st.replace(crit_params=crit_params, opt_c=opt_c,
-                        ema=st.ema.update(aux.c_average))
-        return st, (aux.emd, aux.critic_gradient_norm)
+                        ema=st.ema.update(c_average))
+        return st, (emd, cgn)
 
     return g_update, c_update
 
 
-def _finalize(state, pool, g_outs, c_outs):
+def _finalize(state, pool, g_outs, c_outs, mesh=None):
     """The iteration's metrics, device tensors: the means over the updates
-    (the critic gradient norm of the last critic update).  A phase that ran
-    no update gives NaN for its metrics, as the JAX mean of nothing does
-    (the trainer takes them from the other phase)."""
+    (the critic gradient norm of the last critic update) and the pool's
+    statistics, averaged over ranks.  A phase that ran no update gives NaN
+    for its metrics, as the JAX mean of nothing does (the trainer takes
+    them from the other phase)."""
     device = pool.images.device
     nan = torch.full((), float('nan'), device=device)
+    _, (avg_traj, terminated_frac) = pmean_bucket(
+        mesh, [], [pool.average_trajectory(),
+                   torch.mean(pool.terminated_mask().to(torch.float32))])
 
     def mean(xs):
         return torch.stack(xs).mean() if xs else nan
@@ -143,24 +176,35 @@ def _finalize(state, pool, g_outs, c_outs):
         critic_gradient_norm=cgns[-1] if cgns else torch.zeros(
             (), device=device),
         reward=mean(rewards),
-        pool_avg_trajectory=pool.average_trajectory(),
-        pool_terminated_frac=torch.mean(
-            pool.terminated_mask().to(torch.float32)),
+        pool_avg_trajectory=avg_traj,
+        pool_terminated_frac=terminated_frac,
     )
     return state, pool, metrics
 
 
+def _check_divisibility(cfg, mesh):
+    """The local batch of ``mesh``'s ranks; raises when the world size does
+    not divide ``batch_size`` and ``replay_memory_size`` (JAX asserts)."""
+    if mesh is None:
+        return cfg.batch_size
+    local_batch_size(cfg.replay_memory_size, mesh)
+    return local_batch_size(cfg.batch_size, mesh)
+
+
 def build_outer_step(cfg, policy, critic_mod, value_mod, filters,
-                     fake_meta, real_meta, giters, citers, taps=None):
+                     fake_meta, real_meta, giters, citers, taps=None,
+                     mesh=None):
     """The train step for fixed (giters, citers).
 
     ``fake_meta``/``real_meta`` are the packs' ``(output_size, augment)``;
     their images are passed at call time.  ``taps``: a list that every
     update appends its gradients to (``tools/train_check.py`` compares the
-    card's with the CPU's).  Returns
+    card's with the CPU's).  ``mesh``: this rank's ``parallel.mesh.Mesh``
+    (its shards of the packs and the pool are passed in), or None for one
+    device.  Returns
     ``step(state, pool, fake_images, real_images, draws, lr_g, lr_c,
     progress) -> (state, pool, StepMetrics)``."""
-    local_batch = cfg.batch_size
+    local_batch = _check_divisibility(cfg, mesh)
     supervised = bool(cfg.get('supervised', False))
     if supervised and citers:
         raise ValueError('supervised mode has no critic updates')
@@ -168,7 +212,8 @@ def build_outer_step(cfg, policy, critic_mod, value_mod, filters,
     real_size, real_augment = real_meta
     img_channels = cfg.get('real_img_channels', 3)
     g_update, c_update = _make_phase_bodies(
-        cfg, policy, critic_mod, value_mod, filters, local_batch, taps)
+        cfg, policy, critic_mod, value_mod, filters, local_batch, taps,
+        mesh)
 
     def step(state, pool, fake_images, real_images, draws, lr_g, lr_c,
              progress):
@@ -196,7 +241,7 @@ def build_outer_step(cfg, policy, critic_mod, value_mod, filters,
             real_batch = sample_batch(real_pack, draws, local_batch)
             state, outs = c_update(state, pool, real_batch, draws, lr_c)
             c_outs.append(outs)
-        return _finalize(state, pool, g_outs, c_outs)
+        return _finalize(state, pool, g_outs, c_outs, mesh)
 
     return step
 
@@ -215,7 +260,7 @@ def dequant_stream(x):
 
 
 def build_streaming_outer_step(cfg, policy, critic_mod, value_mod, filters,
-                               giters, citers, taps=None):
+                               giters, citers, taps=None, mesh=None):
     """The streaming train step for fixed (giters, citers): the updates of
     ``build_outer_step`` (the same phase bodies and ``_finalize``), with
     the fresh crops taken from a host-assembled bundle instead of the
@@ -229,17 +274,21 @@ def build_streaming_outer_step(cfg, policy, critic_mod, value_mod, filters,
       as C more channels ([..., 2C]);
     - ``real_batches``: [citers, B, S, S, C] float32 or uint8.
 
+    Under ``mesh`` a rank is given its shard of both along axis 1
+    (``P(None, DATA_AXIS)``), B and P its local sizes.
+
     The draws are the resident step's without the sampler's: per generator
     update ``rank``, ``dropout``/``noise`` and ``keep`` (JAX's ``k_sel``,
     ``k_step``, ``k_keep``), per critic update ``terminated`` and
     ``alpha`` (``k_fake``, ``k_gp``)."""
-    local_batch = cfg.batch_size
+    local_batch = _check_divisibility(cfg, mesh)
     supervised = bool(cfg.get('supervised', False))
     if supervised and citers:
         raise ValueError('supervised mode has no critic updates')
     img_channels = cfg.get('real_img_channels', 3)
     g_update, c_update = _make_phase_bodies(
-        cfg, policy, critic_mod, value_mod, filters, local_batch, taps)
+        cfg, policy, critic_mod, value_mod, filters, local_batch, taps,
+        mesh)
 
     def pair(x):
         if supervised:
@@ -264,6 +313,6 @@ def build_streaming_outer_step(cfg, policy, critic_mod, value_mod, filters,
             state, outs = c_update(state, pool, real_batches[i], draws,
                                    lr_c)
             c_outs.append(outs)
-        return _finalize(state, pool, g_outs, c_outs)
+        return _finalize(state, pool, g_outs, c_outs, mesh)
 
     return step

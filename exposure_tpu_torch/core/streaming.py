@@ -22,6 +22,13 @@ that event has completed (the producer waits on it), so a buffer is never
 refilled while its copy is in flight.  Each bundle shape has at most
 ``slots + 2`` buffers: ``slots`` ready, one being filled, one whose copy may
 be in flight.  On the CPU the bundle is copied out of its buffer.
+
+Under a data-parallel mesh (``parallel/mesh.py``) each rank's producer
+assembles the whole bundle on the shared seeds, exactly as one device
+does, then keeps the rank's shard along axis 1 (``P(None, DATA_AXIS)``)
+in its pinned buffer: the upload is ``1 / world`` of the bundle, the host
+assembly that of the whole one.  The ranks check that their first bundles
+agree (a digest).
 """
 
 import queue
@@ -31,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from exposure_tpu_torch.parallel.mesh import digest
 from exposure_tpu_torch.utils.prefetch import AsyncPrefetcher
 
 
@@ -117,13 +125,16 @@ class BundleFeeder:
     (for other uses of the providers, such as the visualization's
     batches).  ``next()`` returns the next item's result.
 
+    ``mesh``: a data-parallel ``Mesh`` whose rank's shard of each bundle
+    along axis 1 is the tensors handed out (None: the whole bundle).
+
     ``timings``: set it to a list to have each bundle append ``{'key',
     'assembly_s'}`` (host clock, in the producer) and, on the card, the
     CUDA events ``copy`` (start and end on the side stream) and ``wait``
     (around the compute stream's wait on the copy)."""
 
     def __init__(self, cfg, supervised, fake_provider, real_provider, plan,
-                 device, slots=2):
+                 device, slots=2, mesh=None):
         self.cfg = cfg
         self.supervised = supervised
         self.fake_provider = fake_provider
@@ -134,6 +145,9 @@ class BundleFeeder:
         self.dtype = torch.uint8 if stream_dtype(cfg) == np.uint8 \
             else torch.float32
         self.timings = None
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self._full = {}             # bundle key -> whole-bundle host arrays
+        self._digest = None         # the first bundle's, until checked
         self._plan = iter(plan)
         # the producer's: bundle key -> free buffer pairs, buffers made
         self._free, self._count = {}, {}
@@ -155,6 +169,9 @@ class BundleFeeder:
             if self._count.get(key, 0) < self.slots + 2:
                 self._count[key] = self._count.get(key, 0) + 1
                 shapes = bundle_shapes(self.cfg, self.supervised, *key)
+                if self.mesh is not None:
+                    shapes = tuple(s[:1] + (s[1] // self.mesh.world,) + s[2:]
+                                   for s in shapes)
                 return tuple(torch.empty(s, dtype=self.dtype,
                                          pin_memory=self.cuda)
                              for s in shapes)
@@ -174,10 +191,24 @@ class BundleFeeder:
             return kind, what()
         t0 = time.perf_counter()
         bufs = self._buffers(what)
+        if self.mesh is None:
+            assemble_stream(self.cfg, self.supervised, self.fake_provider,
+                            self.real_provider, *what,
+                            out=tuple(x.numpy() for x in bufs))
+            return kind, (what, bufs, time.perf_counter() - t0, None)
+        if what not in self._full:
+            shapes = bundle_shapes(self.cfg, self.supervised, *what)
+            self._full[what] = tuple(np.empty(s, stream_dtype(self.cfg))
+                                     for s in shapes)
+        full = self._full[what]
         assemble_stream(self.cfg, self.supervised, self.fake_provider,
-                        self.real_provider, *what,
-                        out=tuple(x.numpy() for x in bufs))
-        return kind, (what, bufs, time.perf_counter() - t0)
+                        self.real_provider, *what, out=full)
+        for dst, src in zip(bufs, full):
+            np.copyto(dst.numpy(), self.mesh.shard(src, axis=1))
+        check = None
+        if self._digest is None:
+            check = self._digest = digest(*full)
+        return kind, (what, bufs, time.perf_counter() - t0, check)
 
     # --- the consumer ----------------------------------------------------
     def next(self):
@@ -191,7 +222,10 @@ class BundleFeeder:
         kind, value = self._prefetcher.get_next()
         if kind == 'call':
             return value
-        key, bufs, assembly_s = value
+        key, bufs, assembly_s, check = value
+        if check is not None and not self.mesh.all_equal(check):
+            raise RuntimeError('the ranks assembled different bundles: '
+                               'seed the providers alike on every rank')
         record = None if self.timings is None else {
             'key': key, 'assembly_s': assembly_s}
         if not self.cuda:

@@ -37,11 +37,29 @@ Differences from the JAX trainer, each by design:
   ``prefetch_slots`` (default 2) ahead, where the JAX trainer keeps a
   thread a bundle shape; the visualization's batches are made in that
   order too, so a streaming run is a function of its seed.
-- ``profile_dir`` and more than one device (``ROADMAP.md`` item 11) raise
-  ``NotImplementedError``.
+- Data parallelism: ``num_devices=N`` trains as rank r of a world of N
+  processes, one a GPU (``parallel/mesh.py``; the JAX trainer's one
+  process over an N-device mesh).  Parameters and optimizer state are
+  replicated; rank r keeps rows ``[r * n / N, (r + 1) * n / N)`` of each
+  device pack (padded to a multiple of N by wrapping rows around), of the
+  replay pool and of its paired ground truth, and of every streaming
+  bundle along axis 1, as ``P(DATA_AXIS)`` places them.  Every rank draws
+  the full pool and bundles from the providers, which draw from the global
+  ``random`` module: each rank seeds it with the config's seed, and the
+  ranks check that the pool batch and the first bundle agree (a digest).
+  Each rank's draws come from (seed, iteration, rank); rank 0 draws the
+  one-device run's.  Rank 0 alone writes the scripts backup, the log,
+  ``metrics.jsonl``, checkpoints, dumps and the grid (drawn from the
+  gathered pool), with a barrier after each checkpoint; every rank
+  restores.  The steps average gradients and metrics over the ranks
+  (``core/steps.py``).
+- ``profile_dir``: rank 0 traces iterations ``PROFILE_START``..
+  ``PROFILE_STOP`` with ``torch.profiler`` into it (TensorBoard's format,
+  as ``jax.profiler``'s trace), stopped on leaving ``train``.
 """
 
 import os
+import random
 import shutil
 import time
 
@@ -64,6 +82,12 @@ from exposure_tpu_torch.core.steps import (
 from exposure_tpu_torch.core.streaming import BundleFeeder
 from exposure_tpu_torch.core.train_state import init_train_state
 from exposure_tpu_torch.models.networks import build_models
+from exposure_tpu_torch.parallel.mesh import (
+    data_parallel_mesh,
+    digest,
+    local_batch_size,
+    pad_to_devices,
+)
 from exposure_tpu_torch.utils.draws import Draws
 from exposure_tpu_torch.utils.image_io import make_image_grid, write_image
 from exposure_tpu_torch.utils.logging_util import MedianWindow, MetricLogger, Tee
@@ -71,6 +95,11 @@ from exposure_tpu_torch.utils.ops import tf32_off
 
 _REALTIME_VIS_FAILED = [False]
 _ITERATION_STRIDE = 1 << 32   # seeds (seed + 1) * stride + iteration
+_RANK_STRIDE = 0x9E3779B97F4A7C15   # odd: ranks' seeds never collide
+# the iterations the profiler traces when the config names a profile_dir
+# (the JAX trainer's window)
+PROFILE_START = 20
+PROFILE_STOP = 30
 
 
 def _show_realtime(img, title):
@@ -146,47 +175,58 @@ def _with_critic(metrics, c_metrics):
         pool_terminated_frac=c_metrics.pool_terminated_frac)
 
 
-def iteration_seed(seed, it):
-    """The generator seed of iteration ``it`` under config seed ``seed``."""
-    return ((int(seed) + 1) * _ITERATION_STRIDE + int(it)) % (1 << 63)
+def iteration_seed(seed, it, rank=0):
+    """The generator seed of iteration ``it`` under config seed ``seed`` on
+    rank ``rank`` (rank 0's is the one-device run's)."""
+    return ((int(seed) + 1) * _ITERATION_STRIDE + int(it) +
+            int(rank) * _RANK_STRIDE) % (1 << 63)
 
 
 class Trainer:
     """Training of one run, ``<model_root>/<cfg.name>``, on ``device``:
     ``train()`` runs the schedule, ``restore()`` resumes from a checkpoint.
     ``restore=True`` leaves the scripts backup and the log tee out, as the
-    JAX trainer does."""
+    JAX trainer does.  ``num_devices``: the world size, None or 1 for one
+    device; more joins the process group this process belongs to (formed by
+    ``torchrun`` or ``parallel/launch.py``), which must be that size."""
 
     def __init__(self, cfg, restore=False, num_devices=None,
                  model_root='models', device='cuda'):
         self.cfg = cfg
         if cfg.gan not in ('w', 'ls'):
             raise ValueError('gan must be w or ls, got %r' % (cfg.gan,))
-        if cfg.get('profile_dir', None):
-            raise NotImplementedError('profile_dir is not ported yet: a '
-                                      'later port of the profiler')
-        if num_devices not in (None, 1):
-            raise NotImplementedError(
-                'training on %s devices waits for DDP: ROADMAP.md item 11'
-                % num_devices)
-        self.device = torch.device(device)
-        if self.device.type == 'cuda' and not torch.cuda.is_available():
+        if torch.device(device).type == 'cuda' and \
+                not torch.cuda.is_available():
             raise RuntimeError(
                 'Trainer runs on the card by default and no CUDA device is '
                 'available; pass device=\'cpu\' to train on the host')
+        self.mesh = data_parallel_mesh(num_devices, device=device)
+        self.device = self.mesh.device
+        self.rank, self.world = self.mesh.rank, self.mesh.world
+        if self.world > 1:
+            local_batch_size(cfg.replay_memory_size, self.mesh)
+            local_batch_size(cfg.batch_size, self.mesh)
         self.supervised = bool(cfg.get('supervised', False))
         self.dir = os.path.join(model_root, cfg.name)
         safe = cfg.name.replace('/', '-')
         self.image_dir = os.path.join(self.dir, 'images-' + safe)
         self.dump_dir = os.path.join(self.dir, 'dump-' + safe)
-        for d in (self.dir, self.image_dir, self.dump_dir):
-            os.makedirs(d, exist_ok=True)
-
         self.tee = None
-        if not restore:
-            self.backup_scripts()
-            self.tee = Tee(os.path.join(self.dir, 'log.txt'))
-        print('# exposure_tpu_torch: training on %s' % self.device)
+        if self.rank == 0:
+            for d in (self.dir, self.image_dir, self.dump_dir):
+                os.makedirs(d, exist_ok=True)
+            if not restore:
+                self.backup_scripts()
+                self.tee = Tee(os.path.join(self.dir, 'log.txt'))
+        if self.world > 1:
+            self._say('# exposure_tpu_torch: %d-rank data-parallel world '
+                      '(%s), training on %s' % (self.world, self.mesh.backend,
+                                                self.device))
+            # the providers draw from the global random module: alike on
+            # every rank, so that each rank's shard is of the same batch
+            random.seed(cfg.get('seed', 0))
+        else:
+            print('# exposure_tpu_torch: training on %s' % self.device)
 
         self.filters, self.policy, self.critic, self.value = \
             build_models(cfg)
@@ -206,8 +246,8 @@ class Trainer:
             self.fake_images = self.real_images = None
             self.fake_meta = self.real_meta = None
         else:
-            fake_pack = self.fake_provider.device_pack(self.device)
-            real_pack = self.real_provider.device_pack(self.device)
+            fake_pack = self._device_pack(self.fake_provider)
+            real_pack = self._device_pack(self.real_provider)
             self.fake_meta = (fake_pack.output_size, fake_pack.augment)
             self.real_meta = (real_pack.output_size, real_pack.augment)
             self.fake_images, self.real_images = fake_pack.images, \
@@ -215,6 +255,9 @@ class Trainer:
 
         pool_batch, _ = self.fake_provider.get_next_batch(
             cfg.replay_memory_size)
+        if self.world > 1:
+            self._check_alike('pool batch', digest(pool_batch))
+            pool_batch = self.mesh.shard(np.asarray(pool_batch))
         pool_gt = None
         if self.supervised:
             # a paired provider yields [P, 2, S, S, C] (input, ground truth)
@@ -224,18 +267,46 @@ class Trainer:
                                      cfg.num_state_dim, pool_gt)
 
         self._steps = {}
-        self._logger = MetricLogger(os.path.join(self.dir, 'metrics.jsonl'))
+        self._logger = MetricLogger(os.path.join(
+            self.dir, 'metrics.jsonl')) if self.rank == 0 else None
         self._metrics_last = None
         self._books = None
+        self._prof, self._prof_done = None, False
 
     def close(self):
-        """Stop the streaming producer, close the metrics file and stop
-        teeing stdout into the log."""
+        """Stop the streaming producer and the profiler, close the metrics
+        file, stop teeing stdout into the log and leave a process group the
+        trainer formed."""
         self._close_stream()
-        self._logger.close()
+        self._stop_profile()
+        if self._logger is not None:
+            self._logger.close()
+            self._logger = None
         if self.tee is not None:
             self.tee.close()
             self.tee = None
+        self.mesh.close()
+
+    def _say(self, *args):
+        """``print`` on rank 0."""
+        if self.rank == 0:
+            print(*args)
+
+    def _check_alike(self, what, value):
+        """Raise unless every rank drew the same ``what`` (its digest)."""
+        if not self.mesh.all_equal(value):
+            raise RuntimeError(
+                'the ranks drew different %s: seed the providers alike on '
+                'every rank' % what)
+
+    def _device_pack(self, provider):
+        """``provider``'s device pack: rank r's rows of it padded to a
+        multiple of the world size, on this rank's device."""
+        if self.world == 1:
+            return provider.device_pack(self.device)
+        pack = provider.device_pack('cpu')
+        rows = self.mesh.shard(pad_to_devices(pack.images, self.world))
+        return pack._replace(images=rows.to(self.device))
 
     def backup_scripts(self):
         """Snapshot the configs into the run dir, so that runs describe
@@ -267,12 +338,12 @@ class Trainer:
             if self.streaming:
                 self._steps[key] = build_streaming_outer_step(
                     self.cfg, self.policy, self.critic, self.value,
-                    self.filters, giters, citers)
+                    self.filters, giters, citers, mesh=self.mesh)
             else:
                 self._steps[key] = build_outer_step(
                     self.cfg, self.policy, self.critic, self.value,
                     self.filters, self.fake_meta, self.real_meta, giters,
-                    citers)
+                    citers, mesh=self.mesh)
         return self._steps[key]
 
     # --- streaming -----------------------------------------------------
@@ -341,7 +412,7 @@ class Trainer:
         self.feeder = BundleFeeder(
             self.cfg, self.supervised, self.fake_provider, self.real_provider,
             self._stream_items(it), self.device,
-            slots=self.cfg.get('prefetch_slots', 2))
+            slots=self.cfg.get('prefetch_slots', 2), mesh=self.mesh)
         self.feeder.timings = self.stream_timings
         self._stream = self._stream_iterations(it)
         return next(self._stream)[1:]
@@ -368,7 +439,8 @@ class Trainer:
     def iteration_draws(self, it, generator):
         """The ``Draws`` of iteration ``it``: ``generator`` reseeded for it.
         Both phases draw from it, the generator's first."""
-        generator.manual_seed(iteration_seed(self.cfg.get('seed', 0), it))
+        generator.manual_seed(iteration_seed(self.cfg.get('seed', 0), it,
+                                             self.rank))
         return Draws(generator, self.device)
 
     def run_iteration(self, it, generator):
@@ -426,10 +498,41 @@ class Trainer:
                 'timed_iters': 0, 'timed_secs': 0.0, 'last_t': None}
         generator = torch.Generator(device=self.device)
         with tf32_off():
-            for it in range(self.state.step, end + 1):
-                citers, metrics = self.run_iteration(it, generator)
-                self._process_record(it, citers, metrics, self._books)
+            try:
+                for it in range(self.state.step, end + 1):
+                    self._profile(it)
+                    citers, metrics = self.run_iteration(it, generator)
+                    self._process_record(it, citers, metrics, self._books)
+            finally:
+                self._stop_profile()
         return self._metrics_last
+
+    def _profile(self, it):
+        """Rank 0 traces iterations ``PROFILE_START``..``PROFILE_STOP`` into
+        ``cfg.profile_dir`` (once a trainer), as the JAX trainer does."""
+        profile_dir = self.cfg.get('profile_dir', None)
+        if not profile_dir or self.rank != 0 or self._prof_done:
+            return
+        if self._prof is None and it >= PROFILE_START:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == 'cuda':
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(
+                activities=activities,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    profile_dir))
+            self._prof.start()
+            self._say('# profiling iterations %d-%d into %s'
+                      % (it, PROFILE_STOP, profile_dir))
+        elif self._prof is not None and it > PROFILE_STOP:
+            self._stop_profile()
+
+    def _stop_profile(self):
+        """Stop the trace, which writes it."""
+        if self._prof is not None:
+            prof, self._prof = self._prof, None
+            self._prof_done = True
+            prof.stop()
 
     def _process_record(self, it, citers, metrics, books):
         """Bookkeeping of one iteration: the metric read (one host sync),
@@ -440,7 +543,9 @@ class Trainer:
         m = StepMetrics(*torch.stack(list(metrics)).cpu().tolist())
         self._metrics_last = m
         if not np.isfinite(np.asarray(m)).all():
-            dump = save_checkpoint(self.dir, self.state, it, keep=10)
+            # the metrics are averaged: every rank stops here
+            dump = save_checkpoint(self.dir, self.state, it, keep=10) \
+                if self.rank == 0 else 'rank 0'
             raise FloatingPointError(
                 'non-finite training metrics at iteration %d: %s (state '
                 'dumped at %s)' % (it, m, dump))
@@ -455,47 +560,68 @@ class Trainer:
             warn = pool_health_warning(citers, self.supervised,
                                        m.pool_terminated_frac)
             if warn:
-                print('# WARNING (it %d): %s' % (it, warn))
+                self._say('# WARNING (it %d): %s' % (it, warn))
             books['g'].add(m.g_loss)
             books['v'].add(m.v_loss)
             books['emd'].add(m.emd)
-            print('it%6d,%5.0f ms/it, g_loss=%.2f, v_loss=%.2f, EMD=%.3f, '
-                  'cgn=%.2f' % (it, ms, books['g'].median(),
-                                books['v'].median(), books['emd'].median(),
-                                m.critic_gradient_norm))
-            self._logger.log(
-                it, g_loss=m.g_loss, v_loss=m.v_loss, emd=m.emd,
-                cgn=m.critic_gradient_norm, reward=m.reward,
-                pool_avg_traj=m.pool_avg_trajectory,
-                pool_term_frac=m.pool_terminated_frac, ms_per_iter=ms)
+            self._say('it%6d,%5.0f ms/it, g_loss=%.2f, v_loss=%.2f, EMD=%.3f, '
+                      'cgn=%.2f' % (it, ms, books['g'].median(),
+                                    books['v'].median(),
+                                    books['emd'].median(),
+                                    m.critic_gradient_norm))
+            if self._logger is not None:
+                self._logger.log(
+                    it, g_loss=m.g_loss, v_loss=m.v_loss, emd=m.emd,
+                    cgn=m.critic_gradient_norm, reward=m.reward,
+                    pool_avg_traj=m.pool_avg_trajectory,
+                    pool_term_frac=m.pool_terminated_frac, ms_per_iter=ms)
         if it % 100 == 0:
             elapsed = time.time() - books['start_t']
             eta = elapsed / (it - books['start_iter'] + 1) / 3600 * (
                 cfg.max_iter_step - it)
-            print('#--------------------------------------------')
-            print('# Task: %s  ela. %.2f min  ETA: %.1f h'
-                  % (cfg.name, elapsed / 60.0, eta))
-            print('# Replay pool: avg. traj. %.2f, terminated %.0f%%'
-                  % (m.pool_avg_trajectory, 100 * m.pool_terminated_frac))
+            self._say('#--------------------------------------------')
+            self._say('# Task: %s  ela. %.2f min  ETA: %.1f h'
+                      % (cfg.name, elapsed / 60.0, eta))
+            self._say('# Replay pool: avg. traj. %.2f, terminated %.0f%%'
+                      % (m.pool_avg_trajectory, 100 * m.pool_terminated_frac))
         if (it + 1) % cfg.get('checkpoint_interval', 500) == 0:
             # keep=2: the newest file can hold the update that diverged
             # before the guard saw it; the one before is a good restore
-            path = save_checkpoint(self.dir, self.state, it + 1, keep=2)
-            print('# checkpoint saved:', path)
+            if self.rank == 0:
+                path = save_checkpoint(self.dir, self.state, it + 1, keep=2)
+                print('# checkpoint saved:', path)
+            self.mesh.barrier()
         wii = cfg.get('write_image_interval', 0)
         if wii and it % wii == 0:
-            # streaming: the producer made the batches in schedule order
+            # every rank draws the batches, so that the providers' streams
+            # stay alike; streaming: the producer made them in schedule
+            # order
             raw, real_imgs = self.feeder.next() if self.streaming \
-                else (None, None)
-            try:
-                self.visualize(it, raw=raw, real_imgs=real_imgs)
-            except Exception as e:  # viz must never kill training
-                print('# visualization failed:', e)
+                else self._viz_batches()
+            pool = self._gathered_pool()
+            if self.rank == 0:
+                try:
+                    self.visualize(it, pool=pool, raw=raw,
+                                   real_imgs=real_imgs)
+                except Exception as e:  # viz must never kill training
+                    print('# visualization failed:', e)
+
+    def _gathered_pool(self):
+        """The pool the grid shows: the first rows of the global pool, as
+        the JAX trainer's gathered pool gives them (rank 0; None on the
+        others)."""
+        if self.world == 1:
+            return self.pool
+        n = min(self.cfg.num_samples, 16)
+        rows = self.mesh.gather_rows(self.pool.images[:n])
+        return None if rows is None else PoolState.create(
+            rows[:n], self.cfg.num_state_dim)
 
     # ------------------------------------------------------------------
     def restore(self, ckpt=None):
+        """Every rank restores checkpoint ``ckpt`` (the newest: None)."""
         self.state, step = restore_checkpoint(self.dir, self.state, ckpt)
-        print('# restored checkpoint at step', step)
+        self._say('# restored checkpoint at step', step)
         return step
 
     def latest_checkpoint(self):

@@ -113,3 +113,25 @@ def tf32_off():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's and torch's deterministic algorithms inside the block (the
+    default ones add in an order that can differ from call to call on the
+    card), their warnings silenced, restored after it."""
+    import warnings
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2])

@@ -44,7 +44,13 @@ the card and on the CPU.
 
 Streaming: the bundle producer's uploads from pinned buffers equal the
 host assembly, with at most ``slots + 2`` buffers a shape; a streaming run
-of ``test`` on the card, equal to a second run from the same seed."""
+of ``test`` on the card, equal to a second run from the same seed.
+
+Data parallelism: the step under a world-size-1 ``nccl`` group equals the
+step without one bit for bit (deterministic cuDNN, a control step); two
+``gloo`` ranks sharing the card keep the same parameters over three
+iterations of ``test``; ``nccl`` refuses two ranks on one card and names
+``gloo``."""
 
 import numpy as np
 import pytest
@@ -909,3 +915,73 @@ def test_streaming_trainer_on_the_card(cuda_device, tmp_path):
         states.append(trainer.state.tensors())
     a, b = states
     assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+# --- data parallelism on the card (exposure_tpu_torch/parallel) -----------
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['resident', 'streaming'])
+def test_one_rank_nccl_step_is_the_no_group_step(cuda_device, tmp_path,
+                                                 kind):
+    """The step under a world-size-1 ``nccl`` group (its all-reduce runs,
+    then divides by 1) equals the step without a mesh bit for bit, with a
+    second step without a mesh as the control."""
+    import torch_parallel_workers as W
+    from exposure_tpu_torch.parallel.mesh import Mesh, data_parallel_mesh
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    rng = np.random.RandomState(3)
+    cfg = load_config('test')
+    b, p = cfg.batch_size, cfg.replay_memory_size
+    states = np.zeros((p, cfg.num_state_dim), np.float32)
+    states[::3, 1] = 1
+    job = dict(kind=kind, knobs={}, giters=2, citers=2, seed=3,
+               rates=(1e-3, 1e-3, 0.3), meta=(64, True),
+               pool=(rng.rand(p, 64, 64, 3).astype(np.float32), states, None))
+    job['data'] = (rng.rand(40, 80, 80, 3).astype(np.float32),
+                   rng.rand(40, 64, 64, 3).astype(np.float32)) \
+        if kind == 'resident' else (
+            rng.rand(2, 2 * b + p, 64, 64, 3).astype(np.float32),
+            rng.rand(2, b, 64, 64, 3).astype(np.float32))
+    mesh = data_parallel_mesh(1, backend='nccl', device='cuda', rank=0,
+                              init_file=str(tmp_path / 'rdv'))
+    try:
+        assert mesh.grouped and mesh.backend == 'nccl'
+        with deterministic_algorithms():
+            grouped = W.step_rank(mesh, job)
+            alone = Mesh(0, 1, mesh.device, None)
+            plain = [W.step_rank(alone, dict(job, use_mesh=False))
+                     for _ in range(2)]
+    finally:
+        mesh.close()
+    for other in (plain[1], grouped):
+        assert other['metrics'] == plain[0]['metrics']
+        for k, v in plain[0]['tensors'].items():
+            np.testing.assert_array_equal(other['tensors'][k], v, err_msg=k)
+        np.testing.assert_array_equal(other['pool'][0], plain[0]['pool'][0])
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_share_the_card(cuda_device, tmp_path):
+    """Two ``gloo`` ranks over CUDA tensors on one card: three iterations
+    of ``test``, the same parameters on both ranks bit for bit."""
+    import torch_parallel_workers as W
+    from exposure_tpu_torch.parallel.launch import spawn_ranks
+    job = dict(knobs={}, runs=['shared'], last_iter=2, root=str(tmp_path),
+               device='cuda')
+    ranks = spawn_ranks(W.trainer_rank, 2, (job,), device='cuda',
+                        backend='gloo', deadline_s=300,
+                        rendezvous_dir=str(tmp_path))
+    a, b = (r['shared'] for r in ranks)
+    assert np.isfinite(np.asarray(a['metrics'])).all()
+    for k, v in a['tensors'].items():
+        np.testing.assert_array_equal(b['tensors'][k], v, err_msg=k)
+    assert not np.array_equal(a['pool'], b['pool'])
+
+
+@pytest.mark.cuda
+def test_nccl_refuses_two_ranks_on_one_card(cuda_device, tmp_path):
+    from exposure_tpu_torch.parallel.mesh import data_parallel_mesh
+    if torch.cuda.device_count() > 1:
+        pytest.skip('the machine has a card a rank')
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        data_parallel_mesh(2, backend='nccl', device='cuda', rank=0,
+                           init_file=str(tmp_path / 'rdv'))

@@ -1,6 +1,6 @@
 """The port's native host loader (its own copy of ``hostloader.cpp``, built
 by g++ into ``exposure_tpu_torch/build/``) against the JAX package's
-``NativePack`` (built here as ``tests/test_native_loader.py`` builds it),
+``NativePack`` (built by ``torch_train_helpers.jax_native_built``),
 bit for bit: float32 and uint8, augment on and off, the resize path, the
 same-size passthrough, ``sample_into`` against ``sample``; the
 ``NativePackProvider`` seed streams and batches against JAX's; wrong
@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 
+from torch_train_helpers import jax_native_built  # noqa: F401 (a fixture)
 from exposure_tpu_torch import kernels
 from exposure_tpu_torch.data.native_provider import NativePackProvider
 from exposure_tpu_torch.native import NativePack, build as t_build
@@ -23,13 +24,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope='module')
-def jax_native():
-    from exposure_tpu import native
-    if not native.library_available():
-        subprocess.check_call(
-            [sys.executable, '-m', 'exposure_tpu.native.build'], cwd=REPO)
+def jax_native(jax_native_built):
     from exposure_tpu.data.native_provider import NativePackProvider as J
-    return native.NativePack, J
+    return jax_native_built.NativePack, J
 
 
 @pytest.fixture(scope='module')

@@ -31,6 +31,7 @@ import torch
 
 import torch_train_helpers as H
 from torch_train_helpers import few_threads  # noqa: F401 (a fixture)
+from torch_train_helpers import jax_native_built  # noqa: F401 (a fixture)
 from exposure_tpu.core.replay import PoolState as JPool
 from exposure_tpu.core.steps import (
     build_streaming_outer_step as j_build_streaming_outer_step,
@@ -251,7 +252,7 @@ def _native_pair(module, packs):
 
 @pytest.mark.parametrize('case', ['f32', 'u8', 'n_iters_3', 'giters_0',
                                   'procedural_u8', 'paired_u8'])
-def test_assembly_equals_jax(packs, case):
+def test_assembly_equals_jax(packs, jax_native_built, case):
     from exposure_tpu.data import native_provider as j_native
     supervised = case == 'paired_u8'
     name = 'supervised_test' if supervised else 'test'

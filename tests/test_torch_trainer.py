@@ -11,7 +11,8 @@ config.
 - the schedule, ``is_special_iteration`` and ``pool_health_warning``
   against the JAX trainer; supervised mode trains no critic;
 - the entry script trains, checkpoints and resumes; the card is the
-  default device.
+  default device; ``profile_dir`` traces the JAX trainer's window of
+  iterations.
 """
 
 import json
@@ -195,8 +196,30 @@ def test_card_by_default_and_refusals(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         Trainer(_cfg(), restore=True)
-    for knob in ('profile_dir',):
-        with pytest.raises(NotImplementedError, match=knob):
-            Trainer(_cfg(**{knob: 'x'}), restore=True, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 11'):
+    # more than one device needs the process group of its ranks
+    # (tests/test_torch_parallel_*.py train under two)
+    with pytest.raises(ValueError, match='needs a process group'):
         Trainer(_cfg(), restore=True, num_devices=2, device='cpu')
+
+
+def test_profile_dir_traces_the_window(tmp_path, monkeypatch):
+    """``cfg.profile_dir``: the iterations ``PROFILE_START``..
+    ``PROFILE_STOP`` (20-30, as the JAX trainer's; 1-1 here) traced with
+    ``torch.profiler`` into the directory, stopped when ``train``
+    returns."""
+    assert (ttrainer.PROFILE_START, ttrainer.PROFILE_STOP) == (20, 30)
+    monkeypatch.setattr(ttrainer, 'PROFILE_START', 1)
+    monkeypatch.setattr(ttrainer, 'PROFILE_STOP', 1)
+    prof = tmp_path / 'trace'
+    trainer = Trainer(_cfg(profile_dir=str(prof)), model_root=str(tmp_path),
+                      device='cpu')
+    try:
+        trainer.train(last_iter=2)
+        assert trainer._prof is None and trainer._prof_done
+    finally:
+        trainer.close()
+    traces = [f for f in os.listdir(prof) if f.endswith('.pt.trace.json')]
+    assert len(traces) == 1
+    with open(prof / traces[0]) as f:
+        events = json.load(f)['traceEvents']
+    assert any('conv' in str(e.get('name', '')) for e in events)

@@ -10,7 +10,13 @@ ox, oy, flip), the agent step's key in 2 (dropout, noise); the critic keys
 are ``split(fold_in(key, 2), citers)``, each split in 3 (real, fake,
 alpha).  They are listed in the order the port makes them."""
 
+import ctypes
+import fcntl
 import functools
+import os
+import subprocess
+import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +33,39 @@ from exposure_tpu_torch.core.train_state import init_train_state
 from exposure_tpu_torch.models.networks import build_models
 from exposure_tpu_torch.utils.config import load_config as t_load_config
 from exposure_tpu_torch.utils.draws import ReplayedDraws
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _build_jax_native():
+    subprocess.check_call([sys.executable, '-m', 'exposure_tpu.native.build'],
+                          cwd=REPO)
+
+
+@pytest.fixture(scope='module')
+def jax_native_built():
+    """The JAX package's ``native`` module with ``libhostloader.so`` built
+    and loadable, whatever order the suite's workers run the tests in: the
+    build runs under an exclusive lock on a file in the temp dir, only when
+    the library is missing, and once more when the file there does not
+    load (another process's unlocked build may have been writing it)."""
+    from exposure_tpu import native
+    lock_path = os.path.join(tempfile.gettempdir(),
+                             'exposure_tpu-libhostloader.lock')
+    with open(lock_path, 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not native.library_available():
+                _build_jax_native()
+            try:
+                ctypes.CDLL(native._LIB_PATH)
+            except OSError:
+                _build_jax_native()
+                ctypes.CDLL(native._LIB_PATH)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return native
 
 
 @pytest.fixture(scope='module')
@@ -110,12 +149,25 @@ class JaxDraws(ReplayedDraws):
         return super().categorical(name, logits, n)
 
 
+def gumbel_draw(key, n, k):
+    """``jax.random.categorical(key, logits, shape=(n,))`` over [k] float32
+    logits is ``argmax(gumbel + logits)`` with this [n, k] noise, which
+    does not depend on the logits: a process without JAX replays the draw
+    from it (``torch_parallel_workers.GumbelDraws``)."""
+    return ('gumbel', np.asarray(jax.random.gumbel(key, (n, k), jnp.float32)))
+
+
 def step_draws(key, cfg, giters, citers, fake_shape, fake_meta, real_shape,
-               real_meta):
+               real_meta, axis=0, batch=None, pool=None, gumbel=False):
     """Every draw of one JAX outer step, in the port's order, for
-    ``JaxDraws``."""
-    b, p = cfg.batch_size, cfg.replay_memory_size
-    key = jax.random.fold_in(key, 0)
+    ``JaxDraws``: those of device ``axis`` of the mesh (the step key folded
+    with it), whose shards hold ``batch`` crops an update (default the
+    config's), ``pool`` pool slots and ``fake_shape``/``real_shape`` pack
+    rows.  ``gumbel``: the ``terminated`` draws as their Gumbel noise
+    (``gumbel_draw``), not as calls into JAX."""
+    b = cfg.batch_size if batch is None else batch
+    p = cfg.replay_memory_size if pool is None else pool
+    key = jax.random.fold_in(key, axis)
     out = []
     for k in jax.random.split(jax.random.fold_in(key, 1), giters):
         k_sel, k_f1, k_f2, k_f3, k_step, k_keep = jax.random.split(k, 6)
@@ -130,7 +182,8 @@ def step_draws(key, cfg, giters, citers, fake_shape, fake_meta, real_shape,
               if citers else []):
         k_real, k_fake, k_gp = jax.random.split(k, 3)
         out += sampler_draws(k_real, b, real_shape, real_meta)
-        out.append(('terminated', functools.partial(_categorical, k_fake)))
+        out.append(('terminated', gumbel_draw(k_fake, b, p) if gumbel else
+                     functools.partial(_categorical, k_fake)))
         out.append(('alpha', _t(jax.random.uniform(k_gp, (b, 1, 1, 1)))))
     return out
 
@@ -138,3 +191,76 @@ def step_draws(key, cfg, giters, citers, fake_shape, fake_meta, real_shape,
 def tree_max_abs(a, b):
     """``{name: max |a - b|}`` over two state_dicts."""
     return {k: float((a[k] - b[k]).abs().max()) for k in a}
+
+
+# --- the two-rank tests (tests/test_torch_parallel_*.py) ------------------
+def numpy_draws(draws):
+    """A draw list as numpy, for a spawned rank's
+    ``torch_parallel_workers.GumbelDraws``."""
+    return [(name, v if isinstance(v, tuple) else v.numpy())
+            for name, v in draws]
+
+
+def check_rank_metrics(j_metrics, ranks):
+    """Every rank's metrics against the JAX step's (its ``pmean``-ed
+    ones): rtol 1e-4; NaN where a phase ran no update."""
+    for rank in ranks:
+        for (field, want), got in zip(j_metrics._asdict().items(),
+                                      rank['metrics']):
+            if np.isnan(float(want)):
+                assert np.isnan(got), field
+                continue
+            np.testing.assert_allclose(got, float(want), rtol=1e-4,
+                                       atol=1e-6, err_msg=field)
+
+
+def check_rank_states(t0, j_state, ranks, lr):
+    """Every rank's state against the JAX step's: the parameters within 3
+    lr, Adam's moments within 1e-4 of the largest of their tree (rtol
+    1e-3) and their counts, the EMA (rtol 1e-4) and its count."""
+    want = to_torch_state(j_state, t0)
+    for rank in ranks:
+        got = state_from_flax(rank['state'], t0)
+        for tree in ('gen_params', 'val_params', 'crit_params'):
+            worst = max(tree_max_abs(getattr(got, tree),
+                                     getattr(want, tree)).values())
+            assert worst <= 3 * lr, (tree, worst / lr)
+        for opt in ('opt_g', 'opt_v', 'opt_c'):
+            a, b = getattr(got, opt), getattr(want, opt)
+            assert a.count == b.count, opt
+            for moment in ('mu', 'nu'):
+                ma, mb = getattr(a, moment), getattr(b, moment)
+                scale = max(float(v.abs().max()) for v in mb.values())
+                for k in mb:
+                    np.testing.assert_allclose(
+                        ma[k].numpy(), mb[k].numpy(), rtol=1e-3,
+                        atol=1e-4 * scale,
+                        err_msg='%s %s %s' % (opt, moment, k))
+        assert got.ema.count == want.ema.count
+        np.testing.assert_allclose(float(got.ema.biased),
+                                   float(want.ema.biased), rtol=1e-4,
+                                   atol=1e-9)
+
+
+def check_rank_pools(j_pool, ranks):
+    """Rank r's pool against rows ``[r * n / w, (r + 1) * n / w)`` of the
+    JAX pool: states and ground truth equal, images within 1e-5."""
+    n = j_pool.images.shape[0] // len(ranks)
+    for r, rank in enumerate(ranks):
+        images, states, gt = rank['pool']
+        rows = slice(r * n, (r + 1) * n)
+        np.testing.assert_array_equal(states, np.asarray(j_pool.states)[rows])
+        np.testing.assert_allclose(images, np.asarray(j_pool.images)[rows],
+                                   atol=1e-5)
+        if j_pool.ground_truth is not None:
+            np.testing.assert_array_equal(
+                gt, np.asarray(j_pool.ground_truth)[rows])
+
+
+def check_ranks_equal(ranks):
+    """Every rank holds rank 0's state tensors and metrics, bit for bit."""
+    for rank in ranks[1:]:
+        assert rank['tensors'].keys() == ranks[0]['tensors'].keys()
+        for k, v in ranks[0]['tensors'].items():
+            np.testing.assert_array_equal(rank['tensors'][k], v, err_msg=k)
+        np.testing.assert_array_equal(rank['metrics'], ranks[0]['metrics'])
