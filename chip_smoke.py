@@ -108,7 +108,27 @@ Phases, one line or a few each (a failing phase exits non-zero):
    K2, K1 and K3, within 2 LSB of the plain chain and 1 LSB of one
    process's pipeline. Its numbers are the JSON line
    ``{"parallel": ...}``, and K1-K3's launches in (c) their kernels rows'
-   ``launches_parallel_serve``;
+   ``launches_parallel_serve``.  Phases 9c-9e train with
+   ``iters_per_dispatch`` 1 and their bookkeeping at once, so that their
+   numbers keep the plain dispatch's meaning;
+9f. fused (``core/fused.py``, in the FiveK tree of 9d): ``example`` at full
+   width, ``critic_initialization`` 2, chunks of 10 (iterations 2-11 and
+   12-21) from the state after the special iterations: ms per plain
+   iteration fused (one iteration captured as a CUDA graph, replayed) and
+   plain, 10 iterations a turn in turns, CUDA events and the host clock;
+   device kernels, host launch calls and the idle share a plain iteration
+   under ``torch.profiler``; the host syncs the sync debug mode flags in
+   each dispatch (none); peak memory; then, under deterministic cuDNN,
+   the fused run (bookkeeping 2 chunks behind), the plain run and a second
+   plain run (the control) equal bit for bit (every state tensor, the
+   counts, the pool, every metric), resident and streaming u8; the
+   checkpoint at 12 that the pipelined record wrote (chunk 12-21 had already
+   overwritten the buffers) restored bit for bit into a fresh Trainer,
+   which resumed there equals the run not stopped; a world-size-1 ``nccl``
+   group (its all-reduce captured) equal to none; the fused trainer goes
+   on through 23 and its checkpoint 24 is served through K1
+   (``launches_fused_serve``). Its numbers are the JSON line
+   ``{"fused": ...}``;
 10. main path: the trained ``synthetic_explore`` policy served from the
    in-repo artifact at full width on B=512 batches of seeded 512x512 u8
    images through ``RetouchPipeline.map_batches`` (dynamic, selected
@@ -1771,10 +1791,10 @@ def _timed_trainer(trainer, caught):
     def timed_step(giters, citers):
         step = get_step(giters, citers)
 
-        def run(*args):
+        def run(*args, **kw):
             start, end = events()
             start.record()
-            out = step(*args)
+            out = step(*args, **kw)
             end.record()
             record['phases'].append(((giters, citers), start, end))
             return out
@@ -2063,6 +2083,9 @@ def phase_train():
     cfg = load_config(TRAIN_CONFIG)
     cfg.name = TRAIN_CONFIG + '/smoke'
     cfg.checkpoint_interval = TRAIN_CKPT_INTERVAL
+    # the plain dispatch with its bookkeeping at once, as this phase has
+    # timed it since it began (phase_fused times the fused one)
+    cfg.update(iters_per_dispatch=1, dispatch_pipeline_depth=0)
     with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(REPO):
         trainer, numbers = _train_run(cfg, tmp)
         run = os.path.join(tmp, cfg.name)
@@ -2078,9 +2101,10 @@ def phase_train():
             fail('train: run layout: log lines %s, metrics.jsonl steps %s, '
                  'checkpoints %s' % ('it    10,' in log, rows, ckpts))
         say('train: %s (B=%d, pool %d, %d filters, conv channels from %d, '
-            '%d-d features, fc %d), iterations 0-%d of the '
-            'schedule (warmup %d at lr 0, critic bursts of %d through '
-            'iteration %d, then giters %d citers %d), checkpoint every %d: '
+            '%d-d features, fc %d; iters_per_dispatch 1, bookkeeping at '
+            'once), iterations 0-%d of the schedule (warmup %d at lr 0, '
+            'critic bursts of %d through iteration %d, then giters %d '
+            'citers %d), checkpoint every %d: '
             'init %.1f s, training %.1f s; every metric finite; iteration 0 '
             'kept the generator and value bits, Adam counts %d/%d/%d; pool '
             'terminated %.4f after the warmup; %d critic tensors moved; '
@@ -2567,8 +2591,10 @@ def phase_data(root):
     with contextlib.chdir(root):
         numbers['tree'] = _fivek_tree(root)
         cfg = load_config('example')
+        # the plain dispatch, bookkeeping at once (phase_fused: the fused)
         cfg.update(critic_initialization=DATA_CRITIC_INIT,
-                   checkpoint_interval=DATA_CKPT_INTERVAL)
+                   checkpoint_interval=DATA_CKPT_INTERVAL,
+                   iters_per_dispatch=1, dispatch_pipeline_depth=0)
         FiveKDataProvider._raw_image_pack = None
         loads, sizes = {}, {}
         for knob in ('fake_data_provider', 'fake_data_provider_test',
@@ -2624,7 +2650,8 @@ def phase_data(root):
             say('data: %s: %s' % (tag, json.dumps(row)))
         base = rows['resident']['plain_iteration_ms']
         say('data: ms per plain iteration (iterations %d-%d of the three '
-            'trainers in turns, medians, CUDA events): resident %.4f, '
+            'trainers in turns, iters_per_dispatch 1, medians, CUDA '
+            'events): resident %.4f, '
             'streaming f32 %.4f (%+.2f%%), u8 %.4f (%+.2f%%); paired '
             'differences, median: f32 %+.4f ms, u8 %+.4f ms' % (
                 plain[0], plain[-1], base,
@@ -2722,7 +2749,10 @@ def _worlds_in_turns(root, work, mesh, world, backend, tag):
     job = dict(config=PARALLEL_CONFIG, root=root, seed=SEED,
                last_iter=PARALLEL_LAST_ITER,
                knobs=dict(critic_initialization=DATA_CRITIC_INIT,
-                          checkpoint_interval=PARALLEL_CKPT_INTERVAL))
+                          checkpoint_interval=PARALLEL_CKPT_INTERVAL,
+                          # the plain dispatch: gloo's all-reduce goes
+                          # through the host and cannot be captured
+                          iters_per_dispatch=1, dispatch_pipeline_depth=0))
     FiveKDataProvider._raw_image_pack = None
     one = pc.TrainerRun(mesh, dict(job, name='%s/world_1' % PARALLEL_CONFIG,
                                    model_root=os.path.join(work, 'one')))
@@ -2862,12 +2892,13 @@ def phase_parallel(root, card):
                 batch // PARALLEL_WORLD, PARALLEL_LAST_ITER, two_s,
                 numbers['params_equal_iterations'], numbers['resume_step'],
                 PARALLEL_ONE_BACKEND))
-        say('parallel: ms per plain iteration (CUDA events, medians of '
-            'iterations %d-%d), all-reduce ms and bytes a bucket, peak '
-            'memory GiB: %s' % (DATA_CRITIC_INIT, PARALLEL_LAST_ITER,
-                                json.dumps({k: numbers[k] for k in (
-                                    'plain_iteration_ms', 'allreduce_ms',
-                                    'allreduce_bytes', 'peak_memory_gib')})))
+        say('parallel: ms per plain iteration (iters_per_dispatch 1, CUDA '
+            'events, medians of iterations %d-%d), all-reduce ms and bytes '
+            'a bucket, peak memory GiB: %s' % (
+                DATA_CRITIC_INIT, PARALLEL_LAST_ITER,
+                json.dumps({k: numbers[k] for k in (
+                    'plain_iteration_ms', 'allreduce_ms', 'allreduce_bytes',
+                    'peak_memory_gib')})))
         t0 = time.perf_counter()
         _release()
         dry = dryrun_multigpu(
@@ -2897,6 +2928,372 @@ def phase_parallel(root, card):
     numbers['phase_s'] = time.perf_counter() - t_phase
     say('parallel: phase %.1f s (budget %d s)' % (numbers['phase_s'],
                                                   PARALLEL_BUDGET_S))
+    return numbers
+
+
+FUSED_BUDGET_S = 120
+FUSED_CONFIG = 'example'
+FUSED_CHUNK = 10            # iters_per_dispatch: chunks 2-11 and 12-21
+FUSED_LAST_ITER = 21        # iterations 0-21, as phase_data's
+FUSED_CKPT_INTERVAL = 12    # a checkpoint at 12, the chunks' boundary
+FUSED_SERVE_ITER = 23       # the fused trainer goes on through 22-23: a
+                            # checkpoint at 24, which from_run serves
+FUSED_TURNS = ('plain', 'fused', 'fused', 'plain') * 2
+
+
+def _fused_cfg(stream_dtype=None, paths=None):
+    """``example`` as the fused phase trains it: ``critic_initialization``
+    cut as ``phase_data`` cuts it, a checkpoint every
+    ``FUSED_CKPT_INTERVAL``, chunks of ``FUSED_CHUNK``; streaming from the
+    packs ``paths`` in ``stream_dtype`` when it is given."""
+    from exposure_tpu_torch.data.native_provider import NativePackProvider
+    from exposure_tpu_torch.utils.config import load_config
+    cfg = load_config(FUSED_CONFIG)
+    cfg.update(critic_initialization=DATA_CRITIC_INIT,
+               checkpoint_interval=FUSED_CKPT_INTERVAL,
+               iters_per_dispatch=FUSED_CHUNK, dispatch_pipeline_depth=2,
+               stream_iters_per_dispatch=FUSED_CHUNK)
+    cfg.name = '%s/fused_%s' % (FUSED_CONFIG, stream_dtype or 'resident')
+    if stream_dtype:
+        cfg.update(stream_data=True, stream_dtype=stream_dtype)
+        cfg.fake_data_provider = lambda: NativePackProvider(
+            paths[0], output_size=64, augmentation=0.3, seed=SEED)
+        cfg.real_data_provider = lambda: NativePackProvider(
+            paths[1], output_size=64, augmentation=1.0, seed=SEED + 1)
+    return cfg
+
+
+class _Rows:
+    """Every iteration's metrics a trainer's bookkeeping reads (floats),
+    and the state and pool of the records it processes, by the record's
+    last iteration."""
+
+    def __init__(self, trainer):
+        self.metrics, self.records = {}, {}
+        record, chunk = trainer._process_record, trainer._process_chunk
+
+        def kept(it, citers, metrics, books):
+            self.metrics[it] = [float(v) for v in metrics]
+            return record(it, citers, metrics, books)
+
+        def chunk_kept(rec, books):
+            self.records[rec.it0 + rec.chunk - 1] = (rec.state, rec.pool)
+            return chunk(rec, books)
+        trainer._process_record = kept
+        trainer._process_chunk = chunk_kept
+
+
+def _reset(trainer, snap, n_fuse, depth):
+    """``trainer`` back at the snapshot ``(state, pool)``, dispatching
+    ``n_fuse`` iterations a chunk with its bookkeeping ``depth`` behind; a
+    streaming trainer's producer restarts on fresh providers, so that every
+    run from the snapshot trains on the same bundles."""
+    from exposure_tpu_torch.core.fused import clone_pool
+    trainer.state, trainer.pool = snap[0].clone(), clone_pool(snap[1])
+    trainer.n_fuse, trainer.depth = n_fuse, depth
+    if trainer.streaming:
+        trainer._close_stream()
+        for name in ('fake_provider', 'real_provider'):
+            getattr(trainer, name).close()
+        trainer.fake_provider = trainer.cfg.fake_data_provider()
+        trainer.real_provider = trainer.cfg.real_data_provider()
+
+
+def _outcome(trainer, rows, first, last):
+    """``(state, pool, metrics)`` of ``trainer`` after iterations
+    ``first .. last``, cloned."""
+    import torch
+    from exposure_tpu_torch.core.fused import clone_pool
+    return (trainer.state.clone(), clone_pool(trainer.pool),
+            torch.tensor([rows.metrics[it] for it in range(first, last + 1)]))
+
+
+def _differing(a, b):
+    """What differs between two ``(state, pool, metrics)``: tensor paths,
+    ``counts`` (Adam's, the EMA's, the step), ``pool``, ``metrics``."""
+    import torch
+    ta, tb = a[0].tensors(), b[0].tensors()
+    out = [k for k in tb if not torch.equal(ta[k], tb[k])]
+
+    def counts(st):
+        return (st.opt_g.count, st.opt_v.count, st.opt_c.count, st.ema.count,
+                st.step)
+    if counts(a[0]) != counts(b[0]):
+        out.append('counts')
+    if not (torch.equal(a[1].images, b[1].images) and
+            torch.equal(a[1].states, b[1].states)):
+        out.append('pool')
+    if not torch.equal(a[2], b[2]):
+        out.append('metrics')
+    return out
+
+
+def _dispatch(trainer, kind, first, n):
+    """Iterations ``first .. first + n - 1`` as one fused chunk or as ``n``
+    plain iterations (the trainer's dispatch alone, no bookkeeping)."""
+    if kind == 'fused':
+        trainer._run_fused(first, n)
+        return
+    for it in range(first, first + n):
+        trainer.run_iteration(it, trainer._generator)
+
+
+def _fused_turns(trainer, snap):
+    """ms per plain iteration of ``FUSED_CHUNK`` iterations from the
+    snapshot, fused and plain in turns (``FUSED_TURNS``): CUDA events
+    around the dispatch, and the host clock to its end; each turn from the
+    same state and pool."""
+    import torch
+    first = DATA_CRITIC_INIT
+    out = {'fused': [], 'plain': [], 'fused_wall': [], 'plain_wall': []}
+    for kind in FUSED_TURNS:
+        _reset(trainer, snap, FUSED_CHUNK, 0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        _dispatch(trainer, kind, first, FUSED_CHUNK)
+        end.record()
+        end.synchronize()
+        out[kind + '_wall'].append(1e3 * (time.perf_counter() - t0) /
+                                   FUSED_CHUNK)
+        out[kind].append(start.elapsed_time(end) / FUSED_CHUNK)
+    return out
+
+
+def _fused_syncs(trainer, snap, kind):
+    """The host synchronisations the sync debug mode flags in
+    ``FUSED_CHUNK`` iterations dispatched ``kind`` (the bookkeeping's
+    metric read is not in it), with where they were."""
+    import torch
+    _reset(trainer, snap, FUSED_CHUNK, 0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as flagged:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            _dispatch(trainer, kind, DATA_CRITIC_INIT, FUSED_CHUNK)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sorted('%s:%d' % (os.path.relpath(w.filename, REPO), w.lineno)
+                  for w in flagged if 'synchroniz' in str(w.message))
+
+
+def _fused_profile(trainer, snap, kind):
+    """``FUSED_CHUNK`` iterations dispatched ``kind`` under
+    ``torch.profiler`` (``tools.profile_calls``): per plain iteration the
+    device's kernels, the host's launch calls and the device-busy ms, and
+    the idle share of the wall."""
+    from exposure_tpu_torch.tools import profile_calls
+    _reset(trainer, snap, FUSED_CHUNK, 0)
+    return profile_calls(
+        lambda: _dispatch(trainer, kind, DATA_CRITIC_INIT, FUSED_CHUNK),
+        FUSED_CHUNK, DEVICE)
+
+
+def _fused_runs(trainer, snap, numbers, tag):
+    """From the snapshot after the special iterations, under deterministic
+    cuDNN: ``FUSED_CHUNK``-iteration chunks through iteration
+    ``FUSED_LAST_ITER`` fused (bookkeeping 2 behind), and twice plain
+    (bookkeeping at once; the second the control).  Fails unless all three
+    agree bit for bit.  Returns the fused run's outcome."""
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    rows = _Rows(trainer)
+    outs = {}
+    with deterministic_algorithms():
+        for run, n_fuse, depth in (('plain', 1, 0), ('control', 1, 0),
+                                   ('fused', FUSED_CHUNK, 2)):
+            _reset(trainer, snap, n_fuse, depth)
+            rows.metrics.clear()
+            trainer.train(last_iter=FUSED_LAST_ITER)
+            outs[run] = _outcome(trainer, rows, DATA_CRITIC_INIT,
+                                 FUSED_LAST_ITER)
+    fused, control = (_differing(outs[k], outs['plain'])
+                      for k in ('fused', 'control'))
+    runner = trainer._runner(trainer.cfg.giters, trainer.cfg.citers)
+    if fused or control or runner.captures != int(runner.graphs):
+        fail('fused: %s: the fused run against the plain one: %d differ '
+             '(%s); the plain run against itself, the control: %d differ '
+             '(%s); graphs captured %d' % (tag, len(fused), fused[:3],
+                                           len(control), control[:3],
+                                           runner.captures))
+    numbers[tag] = {'tensors_equal': len(outs['plain'][0].tensors()),
+                    'iterations': [DATA_CRITIC_INIT, FUSED_LAST_ITER],
+                    'replays': runner.replays}
+    return outs['fused'], rows
+
+
+def phase_fused(root):
+    """The fused N-iteration dispatch (``core/fused.py``) on the card, in
+    the FiveK tree ``phase_data`` made in ``root``: ``example`` at full
+    width, chunks of 10 (iterations 2-11 and 12-21), resident and streaming
+    (u8); the fused run against the plain one and a control bit for bit;
+    ms per plain iteration fused and plain in turns, launches, idle share,
+    peak memory; a resume from the pipelined checkpoint; a world-size-1
+    ``nccl`` group against none; the fused-trained policy served through
+    K1.  Returns what the summary line reports of it."""
+    import contextlib
+    import random
+    import tempfile
+    import torch
+    from exposure_tpu_torch.core.trainer import Trainer
+    from exposure_tpu_torch.data.fivek import FiveKDataProvider
+    from exposure_tpu_torch.parallel.mesh import data_parallel_mesh
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    t_phase = time.perf_counter()
+    _release()
+    numbers = {'config': FUSED_CONFIG, 'chunk': FUSED_CHUNK}
+    paths = (os.path.join(root, 'data', 'fivek_dataset',
+                          'sup_batched80aug_daylight', 'image_raw.npy'),
+             os.path.join(root, 'target.npy'))
+    with tempfile.TemporaryDirectory() as work, contextlib.chdir(root):
+        models = os.path.join(work, 'models')
+        FiveKDataProvider._raw_image_pack = None
+        cfg = _fused_cfg()
+        random.seed(SEED)       # the providers draw from ``random``
+        trainer = Trainer(cfg, model_root=models, device=DEVICE)
+        try:
+            trainer.train(last_iter=DATA_CRITIC_INIT - 1)   # the specials
+            snap = (trainer.state.clone(), trainer.pool)
+            # (b) speed, in the training's own (default) algorithms
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(trainer, snap, FUSED_CHUNK, 0)
+            t0 = time.perf_counter()
+            _dispatch(trainer, 'fused', DATA_CRITIC_INIT, FUSED_CHUNK)
+            torch.cuda.synchronize()
+            numbers['first_chunk_s'] = time.perf_counter() - t0
+            numbers['peak_memory_gib'] = {
+                'fused_above_trainer': (torch.cuda.max_memory_allocated() -
+                                        base) / 2 ** 30,
+                'reserved': torch.cuda.memory_reserved() / 2 ** 30}
+            turns = _fused_turns(trainer, snap)
+            numbers['turns'] = {'order': FUSED_TURNS, **turns}
+            numbers['ms_per_plain_iteration'] = {
+                k: _median(turns[k]) for k in ('fused', 'plain')}
+            numbers['wall_ms_per_plain_iteration'] = {
+                k: _median(turns[k + '_wall']) for k in ('fused', 'plain')}
+            numbers['profile'] = {k: _fused_profile(trainer, snap, k)
+                                  for k in ('plain', 'fused')}
+            syncs = {k: _fused_syncs(trainer, snap, k)
+                     for k in ('plain', 'fused')}
+            if any(syncs.values()):
+                fail('fused: host syncs in the dispatch of %d iterations: %s'
+                     % (FUSED_CHUNK, syncs))
+            numbers['host_syncs'] = {k: len(v) for k, v in syncs.items()}
+            torch.cuda.reset_peak_memory_stats()
+            _reset(trainer, snap, 1, 0)
+            _dispatch(trainer, 'plain', DATA_CRITIC_INIT, FUSED_CHUNK)
+            torch.cuda.synchronize()
+            numbers['peak_memory_gib']['plain_above_trainer'] = (
+                torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            say('fused: ms per plain iteration, %d iterations a turn in '
+                'turns %s (CUDA events, medians): fused %.4f, plain %.4f; '
+                'host clock fused %.4f, plain %.4f; first chunk with the '
+                'warm-up and capture %.2f s; peak memory GiB %s' % (
+                    FUSED_CHUNK, '/'.join(FUSED_TURNS),
+                    numbers['ms_per_plain_iteration']['fused'],
+                    numbers['ms_per_plain_iteration']['plain'],
+                    numbers['wall_ms_per_plain_iteration']['fused'],
+                    numbers['wall_ms_per_plain_iteration']['plain'],
+                    numbers['first_chunk_s'],
+                    json.dumps(numbers['peak_memory_gib'])))
+            say('fused: under torch.profiler, per plain iteration: %s; '
+                'host syncs the sync debug mode flags in the dispatch of %d '
+                'iterations: %s' % (json.dumps(numbers['profile']),
+                                    FUSED_CHUNK,
+                                    json.dumps(numbers['host_syncs'])))
+            # (a) bit for bit, with a graph captured under deterministic
+            # cuDNN
+            trainer._steps = {k: v for k, v in trainer._steps.items()
+                              if k[0] != 'fused'}
+            fused, rows = _fused_runs(trainer, snap, numbers, 'resident')
+            # (c) the checkpoint the pipelined fused run wrote at 12 (its
+            # record processed after chunk 12-21 ran on the buffers)
+            at12 = rows.records[FUSED_CKPT_INTERVAL - 1]
+            random.seed(SEED)   # the same packs, row for row
+            again = Trainer(cfg, restore=True, model_root=models,
+                            device=DEVICE)
+            try:
+                step = again.restore()
+                restored = _differing((again.state, at12[1], fused[2]),
+                                      (at12[0], at12[1], fused[2]))
+                again.pool = at12[1]
+                again_rows = _Rows(again)
+                with deterministic_algorithms():
+                    again.train(last_iter=FUSED_LAST_ITER)
+                resumed = _differing(_outcome(
+                    again, again_rows, FUSED_CKPT_INTERVAL, FUSED_LAST_ITER),
+                    (fused[0], fused[1],
+                     fused[2][FUSED_CKPT_INTERVAL - DATA_CRITIC_INIT:]))
+            finally:
+                again.close()
+            if step != FUSED_CKPT_INTERVAL or restored or resumed:
+                fail('fused: resume: checkpoint %d restored, %d differ from '
+                     'the pipelined record (%s); resumed at it, %d differ '
+                     'from the run not stopped (%s)' % (
+                         step, len(restored), restored[:3], len(resumed),
+                         resumed[:3]))
+            numbers['resume'] = {'checkpoint': step,
+                                 'tensors_equal': len(at12[0].tensors())}
+            # (d) the captured all-reduce of a world-size-1 nccl group
+            mesh = data_parallel_mesh(1, backend=PARALLEL_ONE_BACKEND,
+                                      device=DEVICE, rank=0,
+                                      init_file=os.path.join(work, 'rdv'))
+            try:
+                random.seed(SEED)
+                grouped = Trainer(cfg.copy(), num_devices=1,
+                                  model_root=os.path.join(work, 'nccl'),
+                                  device=DEVICE)
+                try:
+                    grouped_rows = _Rows(grouped)
+                    _reset(grouped, snap, FUSED_CHUNK, 2)
+                    with deterministic_algorithms():
+                        grouped.train(last_iter=FUSED_LAST_ITER)
+                    nccl = _differing(_outcome(
+                        grouped, grouped_rows, DATA_CRITIC_INIT,
+                        FUSED_LAST_ITER), fused)
+                    backend = grouped.mesh.backend
+                finally:
+                    grouped.close()
+            finally:
+                mesh.close()
+            if nccl or backend != PARALLEL_ONE_BACKEND:
+                fail('fused: under a world-size-1 %s group %d differ from '
+                     'the run without a group (%s)' % (backend, len(nccl),
+                                                       nccl[:3]))
+            numbers['nccl_world_1_equal'] = True
+            # the fused-trained policy, through a checkpoint at 24
+            trainer.n_fuse, trainer.depth = FUSED_CHUNK, 2
+            trainer.train(last_iter=FUSED_SERVE_ITER)
+            numbers['launches_serve'] = _serve_trained(
+                trainer.cfg, models, trainer, 'fused')
+        finally:
+            trainer.close()
+        FiveKDataProvider._raw_image_pack = None
+        # streaming, u8 bundles, from the resident trainer's snapshot (the
+        # same networks and pool sizes; the special iterations not again)
+        random.seed(SEED)
+        stream = Trainer(_fused_cfg('uint8', paths), model_root=models,
+                         device=DEVICE)
+        try:
+            _fused_runs(stream, snap, numbers, 'stream_uint8')
+        finally:
+            stream.close()
+    numbers['phase_s'] = time.perf_counter() - t_phase
+    say('fused: %s at full width, chunks of %d (iterations %d-%d), '
+        'resident and streaming u8: the fused run (bookkeeping 2 chunks '
+        'behind), the plain run and its control (bookkeeping at once) equal '
+        'bit for bit, %d state tensors, the pool and every metric '
+        '(deterministic cuDNN); checkpoint %d written from the pipelined '
+        'record restored bit for bit, and the run resumed there equal to '
+        'the one not stopped; a world-size-1 nccl group equal to none' % (
+            FUSED_CONFIG, FUSED_CHUNK, DATA_CRITIC_INIT, FUSED_LAST_ITER,
+            numbers['resident']['tensors_equal'], FUSED_CKPT_INTERVAL))
+    say('fused: phase %.1f s (budget %d s)' % (numbers['phase_s'],
+                                               FUSED_BUDGET_S))
     return numbers
 
 
@@ -2965,6 +3362,7 @@ def main():
     with tempfile.TemporaryDirectory() as fivek_root:
         data = phase_data(fivek_root)
         parallel = phase_parallel(fivek_root, card)
+        fused = phase_fused(fivek_root)
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
                for _ in range(MAIN_BATCHES)]
@@ -3035,6 +3433,7 @@ def main():
         'launches_serve': data['launches_serve'],
         'phase_s': data['phase_s']}}))
     say(json.dumps({'parallel': parallel}))
+    say(json.dumps({'fused': dict(fused, card=card)}))
     served = parallel['launches']
     proxy = PROXY_CASE[0]
     say(json.dumps({'kernels': [
@@ -3045,14 +3444,16 @@ def main():
                     k1_timing[REPLAY_CASE[0]], k1_worst,
                     k1_main['replay'] + totals['dyn_chain'] +
                     evaluation['launches'] + training['launches_serve'] +
-                    data['launches_serve'] + served['dyn_chain'],
+                    data['launches_serve'] + served['dyn_chain'] +
+                    fused['launches_serve'],
                     'dyn_chain', 'dyn_chain_kernel',
                     launches_main_path_replay=k1_main['replay'],
                     launches_other_paths=totals['dyn_chain'],
                     launches_evaluation=evaluation['launches'],
                     launches_training_serve=training['launches_serve'],
                     launches_streaming_serve=data['launches_serve'],
-                    launches_parallel_serve=served['dyn_chain']),
+                    launches_parallel_serve=served['dyn_chain'],
+                    launches_fused_serve=fused['launches_serve']),
         # the same kernel on one full-resolution image, the evaluator's
         # replay: every launch of the evaluation path (its sizes vary; the
         # time is this shape's)

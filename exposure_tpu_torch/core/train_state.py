@@ -13,9 +13,16 @@ Adam is written out in optax's order of operations (``scale_by_adam`` then
 so it round-trips through the JAX checkpoint (``core/checkpoint.py``).  At
 lr 0 the moments still move (the iteration-0 warmup) and the parameters
 keep their bits.
+
+The counts stay on the host, which knows them exactly: an update's bias
+corrections ``1 - b ** count`` are formed there in float32
+(``bias_corrections``) and reach the step as device tensors, so that a
+step captured in a CUDA graph reads each replay's own (``core/fused.py``);
+the step is the same whether it runs eagerly or replayed.
 """
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -42,17 +49,35 @@ class AdamState:
 
 
 def _bias_correction(decay, count):
-    """``1 - decay**count`` in float32, a 0-d host tensor (the device takes
-    it as a scalar)."""
+    """``1 - decay**count`` in float32, a 0-d host tensor."""
     return 1 - torch.tensor(decay, dtype=torch.float32) ** count
 
 
+@functools.lru_cache(maxsize=1 << 14)
+def _bias_correction_value(decay, count):
+    return float(_bias_correction(decay, count))
+
+
+def bias_corrections(count, n, b1=0.5, b2=0.9):
+    """``[[bc1, bc2]] * n``: the bias corrections of the ``n`` updates that
+    follow ``count``, as python floats holding ``_bias_correction``'s
+    float32 values."""
+    return [[_bias_correction_value(b, count + i) for b in (b1, b2)]
+            for i in range(1, n + 1)]
+
+
 @torch.no_grad()
-def apply_lr_update(grads, opt, params, lr, b1=0.5, b2=0.9):
+def apply_lr_update(grads, opt, params, lr, b1=0.5, b2=0.9, bc=None):
     """One Adam step with an externally supplied learning rate; returns
-    ``(new_params, new_opt)``.  The moments update at lr 0 too."""
+    ``(new_params, new_opt)``.  The moments update at lr 0 too.  ``bc``:
+    the update's ``(bc1, bc2)`` as tensors on the parameters' device (the
+    steps read them from the schedule's scalars, ``core/steps.py``), or
+    None to form them here from the count as 0-d host tensors."""
     count = opt.count + 1
-    bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+    if bc is None:
+        bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
+    else:
+        bc1, bc2 = bc
     new_params, mu, nu = {}, {}, {}
     for name, g in grads.items():
         mu[name] = (1 - b1) * g + b1 * opt.mu[name]
@@ -119,10 +144,18 @@ class TrainState:
     def replace(self, **changes: Any):
         return dataclasses.replace(self, **changes)
 
+    def clone(self):
+        """A copy with every tensor cloned (the counts are ints)."""
+        return self._mapped(torch.Tensor.clone)
+
     def to(self, device):
         """A copy with every tensor on ``device``."""
+        return self._mapped(lambda v: v.to(device))
+
+    def _mapped(self, move):
+        """A copy with ``move`` applied to every tensor."""
         def moved(tree):
-            return {k: v.to(device) for k, v in tree.items()}
+            return {k: move(v) for k, v in tree.items()}
 
         def adam(opt):
             return AdamState(opt.count, moved(opt.mu), moved(opt.nu))
@@ -132,7 +165,7 @@ class TrainState:
             val_params=moved(self.val_params),
             crit_params=moved(self.crit_params), opt_g=adam(self.opt_g),
             opt_v=adam(self.opt_v), opt_c=adam(self.opt_c),
-            ema=EmaState(self.ema.biased.to(device), self.ema.count))
+            ema=EmaState(move(self.ema.biased), self.ema.count))
 
     def tensors(self):
         """``{path: tensor}`` of every tensor the state holds (the Adam

@@ -13,7 +13,10 @@ parallelism:
 - parameters and optimizer state are replicated;
 - gradients and metrics are averaged by ``Mesh.pmean``: an all-reduce SUM
   of one flat buffer, divided by the world size (``gloo`` has no AVG, and
-  SUM then divide is what ``lax.pmean`` does).
+  SUM then divide is what ``lax.pmean`` does).  Under ``nccl`` it is
+  captured in the fused step's CUDA graph (``core/fused.py``); ``gloo`` on
+  CUDA tensors goes through the host and cannot be
+  (``Mesh.check_capturable``).
 
 A world of one needs no process group, and its ``pmean`` is the identity.
 ``nccl`` is the default backend on the card and ``gloo`` on the CPU; two
@@ -61,6 +64,18 @@ class Mesh:
             return flat
         dist.all_reduce(flat, op=dist.ReduceOp.SUM)
         return flat / self.world
+
+    def check_capturable(self):
+        """Raise ``ValueError`` unless ``pmean`` can be captured in a CUDA
+        graph on this rank's device: ``nccl``'s all-reduce runs on the
+        card, ``gloo``'s goes through the host on CUDA tensors (on the CPU
+        nothing is captured, and any backend serves)."""
+        if self.device.type == 'cuda' and self.grouped and \
+                self.backend != 'nccl':
+            raise ValueError(
+                'a %s group cannot be captured in a CUDA graph (its '
+                'all-reduce of CUDA tensors goes through the host): set '
+                'iters_per_dispatch to 1, or train over nccl' % self.backend)
 
     def _host_side(self, x):
         """``gloo`` gathers host tensors only."""

@@ -5,7 +5,10 @@ per-branch cost table through K3) and ``verify_kernel`` (K1, K2 and K3
 against the branchless chain).  The white-box tools of evaluation:
 ``edit_sequence`` (edit one recorded step and replay through K1),
 ``quality_report`` and ``histogram_intersection`` (the quality metric) and
-``pickle_to_tex``.  Run one with ``python -m exposure_tpu_torch.tools.<tool>``;
+``pickle_to_tex``.  Training: ``train_check`` (one outer iteration, the
+card against the CPU), ``parallel_check``, ``bench_host_assembly`` and
+``bench_train_split`` (an outer iteration's phases, plain and replayed as a
+CUDA graph).  Run one with ``python -m exposure_tpu_torch.tools.<tool>``;
 each prints its JAX tool's report keys.
 
 A kernel tool needs a CUDA device and exits non-zero without one.  ``--cpu``,
@@ -83,6 +86,47 @@ def median_seconds(fn, device, runs=7, warmup=2, calls=1):
                 fn()
             times.append((time.perf_counter() - t0) / calls)
     return statistics.median(times)
+
+
+# the host's calls that put work on the device, as the profiler names them
+LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+                'cuLaunchKernelEx', 'cudaGraphLaunch', 'cudaMemcpyAsync',
+                'cudaMemsetAsync')
+
+
+def profile_calls(fn, n, device):
+    """``fn()``, which does ``n`` units of work, under ``torch.profiler``:
+    per unit the device's kernels, the host's launch calls (``LAUNCH_CALLS``,
+    by name in total), the device-busy ms and the wall ms (host clock to the
+    device's end), and the idle share of the wall.  On the CPU the profiler
+    sees no device: the device numbers are None."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.device(device).type == 'cuda'
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    if cuda:
+        torch.cuda.synchronize(device)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        fn()
+        if cuda:
+            torch.cuda.synchronize(device)
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    calls = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and \
+                e.name in LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return {'device_kernels_per_unit': len(kernels) / n if cuda else None,
+            'host_launch_calls_per_unit': sum(calls.values()) / n,
+            'host_launch_calls': calls,
+            'device_busy_ms_per_unit': busy / n if cuda else None,
+            'wall_ms_per_unit': wall / n,
+            'idle_share': 1 - busy / wall if cuda else None}
 
 
 def timing_name(device):

@@ -14,10 +14,11 @@ ones the JAX trainer reads so (``critic_burst``, ``warmup_giters``,
 ``checkpoint_interval``, ``seed``).  The learning-rate schedules
 ``lr_g``/``lr_c`` are callables of the iteration.  Filters are named by the
 JAX class ``__name__``; ``ops.filters.build_filters`` maps each name to
-its port.  Left out: ``iters_per_dispatch`` and ``dispatch_pipeline_depth``,
-which size the JAX trainer's fused dispatches (the port runs one iteration
-a step).  ``tests/test_torch_serving.py`` holds every row equal to
-``exposure_tpu.utils.load_config(name)`` in both directions.
+its port.  ``iters_per_dispatch`` and ``dispatch_pipeline_depth`` size the
+trainer's fused dispatches and the deferral of its bookkeeping
+(``core/trainer.py``): 100 and 2 in ``example`` and the configs derived
+from it, 1 and 0 in ``test``.  ``tests/test_torch_serving.py`` holds every
+row equal to ``exposure_tpu.utils.load_config(name)`` in both directions.
 """
 
 from exposure_tpu_torch.utils.dict_util import Dict
@@ -106,6 +107,10 @@ def _example():
         warmup_giters=100,
         checkpoint_interval=500,
         seed=0,
+        # the trainer's dispatch: 100 plain iterations a fused chunk, its
+        # bookkeeping two chunks behind
+        iters_per_dispatch=100,
+        dispatch_pipeline_depth=2,
         # observability
         vis_draw_critic_scores=True,
         realtime_vis=False,
@@ -211,7 +216,9 @@ def _test():
         summary_freq=5,
         write_image_interval=0,
         warmup_giters=6,
-        checkpoint_interval=2)
+        checkpoint_interval=2,
+        iters_per_dispatch=1,
+        dispatch_pipeline_depth=0)
     return _synthetic_providers(cfg, n_train=64, n_test=32)
 
 

@@ -50,7 +50,12 @@ Data parallelism: the step under a world-size-1 ``nccl`` group equals the
 step without one bit for bit (deterministic cuDNN, a control step); two
 ``gloo`` ranks sharing the card keep the same parameters over three
 iterations of ``test``; ``nccl`` refuses two ranks on one card and names
-``gloo``."""
+``gloo``.
+
+The fused dispatch: iterations captured in a CUDA graph and replayed equal
+the eager ones bit for bit (resident and streaming u8, deterministic
+cuDNN); a replay after ``manual_seed`` draws what the eager calls draw; a
+capture that fails raises, and the runner never falls back to eager."""
 
 import numpy as np
 import pytest
@@ -985,3 +990,121 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda_device, tmp_path):
     with pytest.raises(ValueError, match="backend='gloo'"):
         data_parallel_mesh(2, backend='nccl', device='cuda', rank=0,
                            init_file=str(tmp_path / 'rdv'))
+
+
+# --- the fused N-iteration dispatch on the card (core/fused.py) ----------
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['resident', 'stream_uint8'])
+def test_captured_iterations_equal_the_eager_ones(cuda_device, tmp_path,
+                                                  kind):
+    """Iterations 1-4 of ``test`` through the fused step (the first run
+    eagerly as the warm-up, then captured; 2-4 replayed) and through
+    ``run_iteration``, from the same state and pool, under deterministic
+    cuDNN: every state tensor, the counts, the pool and the metrics equal
+    bit for bit."""
+    import torch_parallel_workers as W
+    from exposure_tpu_torch.core.trainer import Trainer
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    cfg = load_config('test')
+    cfg.name = 'fused/' + kind
+    if kind != 'resident':
+        cfg.update(stream_data=True, stream_dtype='uint8')
+    trainer = Trainer(cfg, restore=True, model_root=str(tmp_path))
+    try:
+        with deterministic_algorithms():
+            if kind == 'resident':
+                trainer.train(last_iter=0)
+            else:
+                trainer.state = trainer.state.replace(step=1)
+                rng = np.random.RandomState(7)
+                b, p = cfg.batch_size, cfg.replay_memory_size
+                g = rng.randint(0, 256, (4, 1, 2 * b + p, 64, 64, 3))
+                r = rng.randint(0, 256, (4, cfg.citers, b, 64, 64, 3))
+                group = (1, 4, tuple(torch.from_numpy(x.astype(np.uint8)).to(
+                    cuda_device) for x in (g, r)))
+                trainer._stream_take = lambda it, n: group
+            fused, plain = W.fused_and_plain(trainer, 1, 4)
+    finally:
+        trainer.close()
+    runner = next(v for k, v in trainer._steps.items() if k[0] == 'fused')
+    assert runner.graphs and runner.captures == 1 and runner.replays == 3
+    assert W.differing(fused, plain) == []
+    assert torch.isfinite(fused[2]).all()
+
+
+@pytest.mark.cuda
+def test_replay_after_manual_seed_draws_the_eager_draws(cuda_device):
+    """A graph of a step's kinds of draw (uniform, randint, bernoulli,
+    categorical) with its generator registered: each replay after
+    ``manual_seed(s)`` draws what the eager calls draw after it."""
+    from exposure_tpu_torch.utils.draws import Draws
+    g = torch.Generator(device=cuda_device)
+    logits = torch.zeros(16, device=cuda_device)
+
+    def draw(draws, out):
+        values = (draws.uniform('u', (64, 3)),
+                  draws.randint('i', 1000, (32,)).float(),
+                  draws.bernoulli('b', 0.3, (40,)).float(),
+                  draws.categorical('c', logits, 24).float())
+        for dst, src in zip(out, values):
+            dst.copy_(src)
+
+    out = [torch.zeros(s, device=cuda_device)
+           for s in ((64, 3), (32,), (40,), (24,))]
+    draws = Draws(g, cuda_device)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        draw(draws, out)            # the warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(g)
+    with torch.cuda.graph(graph, stream=side):
+        draw(draws, out)
+    for seed in (5, 11, 5):
+        g.manual_seed(seed)
+        graph.replay()
+        got = [x.clone() for x in out]
+        g.manual_seed(seed)
+        want = [torch.zeros_like(x) for x in out]
+        draw(draws, want)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert not torch.equal(got[0], out[0] * 0)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda_device):
+    """A body that waits on the device (a host read) cannot be captured:
+    the runner raises, keeps no graph, and raises again on the next chunk;
+    it never runs the chunk eagerly instead."""
+    from exposure_tpu_torch.core.fused import FusedRunner
+    from exposure_tpu_torch.core.replay import PoolState
+    from exposure_tpu_torch.core.steps import StepMetrics
+    from exposure_tpu_torch.core.train_state import init_train_state
+    from exposure_tpu_torch.models.networks import build_models
+    from exposure_tpu_torch.utils.draws import Draws
+    cfg = load_config('test')
+    state = init_train_state(cfg, *build_models(cfg)[1:],
+                             device=cuda_device)
+    pool = PoolState.create(torch.rand(4, 8, 8, 3, device=cuda_device),
+                            cfg.num_state_dim)
+    g = torch.Generator(device=cuda_device)
+    calls = []
+
+    def body(st, pl, data, draws, sc):
+        calls.append(float(pl.images.sum()))     # a host read
+        zero = torch.zeros((), device=cuda_device)
+        return st, pl, StepMetrics(*[zero + sc.lr_g] * 7)
+
+    import types
+    runner = FusedRunner(
+        body, lambda st, lr_g, lr_c, progress: [lr_g, lr_c, progress],
+        lambda vec: types.SimpleNamespace(lr_g=vec[0]), 3, 0, 0,
+        lambda it: Draws(g.manual_seed(it), cuda_device), g)
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            runner.run(state, pool, (), [1, 2], [1e-3] * 2, [1e-3] * 2,
+                       [0.1] * 2)
+        assert runner.graph is None and runner.replays == 0
+    assert len(calls) == 2      # each run's warm-up; each capture raised

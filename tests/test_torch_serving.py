@@ -53,30 +53,20 @@ AGENT_STEP_DEFAULTS = {
     'entropy_respike_center': 0.5, 'entropy_respike_width': 0.15,
     # and the JAX trainer reads these so (exposure_tpu/core/trainer.py)
     'critic_burst': 100, 'warmup_giters': 100, 'checkpoint_interval': 500,
-    'seed': 0}
-
-
-# knobs of the JAX configs the port's table leaves out, each with why
-NOT_IN_TABLE = {
-    'iters_per_dispatch': 'sizes the JAX fused N-iteration dispatch; the '
-                          'port runs one iteration a step',
-    'dispatch_pipeline_depth': 'defers the JAX bookkeeping behind the TPU '
-                               'dispatch; the port keeps it synchronous',
-}
+    'seed': 0, 'iters_per_dispatch': 1, 'dispatch_pipeline_depth': 2}
 
 
 @pytest.mark.parametrize('name', sorted(CONFIGS))
 def test_config_table_matches_load_config(name):
     jcfg, tcfg = j_load_config(name), t_load_config(name)
     assert list(tcfg.filters) == [c.__name__ for c in jcfg.filters]
-    # every knob of the JAX config is in the row, or named above
-    missing = sorted(set(jcfg) - set(tcfg) - set(NOT_IN_TABLE))
+    # every knob of the JAX config is in the row
+    missing = sorted(set(jcfg) - set(tcfg))
     assert not missing, missing
     for knob in ('exploration_penalty', 'filter_usage_penalty',
                  'early_stop_penalty', 'gan', 'use_TD', 'giters', 'citers',
                  'lr_g', 'lr_c', *AGENT_STEP_DEFAULTS):
         assert knob in tcfg, knob
-    assert not set(NOT_IN_TABLE) & set(tcfg)
     for knob, value in tcfg.items():
         if knob in ('filters', 'name'):
             continue
@@ -415,6 +405,8 @@ def test_port_imports_without_jax_or_flax():
         import exposure_tpu_torch.native.build
         import exposure_tpu_torch.tools.bench_host_assembly
         import exposure_tpu_torch.tools.train_check
+        import exposure_tpu_torch.core.fused
+        import exposure_tpu_torch.tools.bench_train_split
         import exposure_tpu_torch.utils.dict_util
         import exposure_tpu_torch.utils.prefetch
         from exposure_tpu_torch.utils.config import CONFIGS, load_config

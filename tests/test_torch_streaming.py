@@ -32,6 +32,7 @@ import torch
 import torch_train_helpers as H
 from torch_train_helpers import few_threads  # noqa: F401 (a fixture)
 from torch_train_helpers import jax_native_built  # noqa: F401 (a fixture)
+from torch_train_helpers import stream_draws
 from exposure_tpu.core.replay import PoolState as JPool
 from exposure_tpu.core.steps import (
     build_streaming_outer_step as j_build_streaming_outer_step,
@@ -66,29 +67,6 @@ CASES = {
     'wgan_u8': (dict(), 2, 2, np.uint8),
     'supervised': (dict(supervised=True), 1, 0, np.float32),
 }
-
-
-def stream_draws(key, cfg, giters, citers):
-    """Every draw of one JAX streaming step, in the port's order: per
-    generator update ``split(k, 3)`` (rank, the agent step's noise, keep),
-    per critic update ``split(k, 2)`` (terminated, alpha)."""
-    b, p = cfg.batch_size, cfg.replay_memory_size
-    key = jax.random.fold_in(key, 0)
-    out = []
-    for k in jax.random.split(jax.random.fold_in(key, 1), giters):
-        k_sel, k_step, k_keep = jax.random.split(k, 3)
-        out.append(('rank', H._t(jax.random.uniform(k_sel, (p,)))))
-        _, k_noise = jax.random.split(k_step)
-        out.append(('noise', H._t(jax.random.uniform(k_noise, (b, 1)))))
-        out.append(('keep', H._t(jax.random.bernoulli(
-            k_keep, cfg.over_length_keep_prob, (b,)))))
-    for k in (jax.random.split(jax.random.fold_in(key, 2), citers)
-              if citers else []):
-        k_fake, k_gp = jax.random.split(k, 2)
-        out.append(('terminated', lambda logits, n, k=k_fake:
-                    H._categorical(k, logits, n)))
-        out.append(('alpha', H._t(jax.random.uniform(k_gp, (b, 1, 1, 1)))))
-    return out
 
 
 def _bundle(supervised, giters, citers, dtype, num_state_dim):

@@ -29,11 +29,12 @@ def test_the_cpu_against_itself_passes():
 
 PLANTS = {
     # the update taken, the parameters left as they were
-    'skipped': lambda grads, opt, params, lr, b1, b2, update: (
-        params, update(grads, opt, params, lr, b1, b2)[1]),
+    'skipped': lambda grads, opt, params, lr, b1, b2, bc, update: (
+        params, update(grads, opt, params, lr, b1, b2, bc=bc)[1]),
     # the gradient doubled on its way into Adam
-    'doubled': lambda grads, opt, params, lr, b1, b2, update: update(
-        {k: 2 * g for k, g in grads.items()}, opt, params, lr, b1, b2),
+    'doubled': lambda grads, opt, params, lr, b1, b2, bc, update: update(
+        {k: 2 * g for k, g in grads.items()}, opt, params, lr, b1, b2,
+        bc=bc),
 }
 
 
@@ -41,11 +42,11 @@ PLANTS = {
 def test_a_wrong_update_fails(plant, monkeypatch):
     update, calls = steps.apply_lr_update, []
 
-    def planted(grads, opt, params, lr, b1, b2):
+    def planted(grads, opt, params, lr, b1, b2, bc=None):
         calls.append(lr)
         if len(calls) <= UPDATES:       # the first run is the reference
-            return update(grads, opt, params, lr, b1, b2)
-        return PLANTS[plant](grads, opt, params, lr, b1, b2, update)
+            return update(grads, opt, params, lr, b1, b2, bc=bc)
+        return PLANTS[plant](grads, opt, params, lr, b1, b2, bc, update)
 
     monkeypatch.setattr(steps, 'apply_lr_update', planted)
     report = card_against_cpu(load_config('test'), 'cpu')
@@ -67,11 +68,11 @@ def test_the_streaming_step_against_itself_passes(stream):
 def test_a_wrong_streaming_update_fails(monkeypatch):
     update, calls = steps.apply_lr_update, []
 
-    def planted(grads, opt, params, lr, b1, b2):
+    def planted(grads, opt, params, lr, b1, b2, bc=None):
         calls.append(lr)
         if len(calls) <= UPDATES:
-            return update(grads, opt, params, lr, b1, b2)
-        return PLANTS['skipped'](grads, opt, params, lr, b1, b2, update)
+            return update(grads, opt, params, lr, b1, b2, bc=bc)
+        return PLANTS['skipped'](grads, opt, params, lr, b1, b2, bc, update)
 
     monkeypatch.setattr(steps, 'apply_lr_update', planted)
     report = card_against_cpu(load_config('test'), 'cpu', stream='uint8')

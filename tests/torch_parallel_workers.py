@@ -190,6 +190,60 @@ def trainer_rank(mesh, job):
     return out
 
 
+def fused_and_plain(trainer, it, chunk):
+    """Iterations ``it .. it + chunk - 1`` from ``trainer``'s state and pool
+    through its fused step (``Trainer._run_fused``), then again through
+    ``run_iteration`` from the same state and pool: ``(fused, plain)``, each
+    ``(state, pool, metrics [chunk, 7])``."""
+    from exposure_tpu_torch.core.fused import clone_pool
+    state, pool = trainer.state.clone(), clone_pool(trainer.pool)
+    _, metrics = trainer._run_fused(it, chunk)
+    fused = (trainer.state.clone(), clone_pool(trainer.pool), metrics.clone())
+    trainer.state, trainer.pool = state, pool
+    rows = [torch.stack(list(trainer.run_iteration(j, trainer._generator)[1]))
+            for j in range(it, it + chunk)]
+    return fused, (trainer.state, trainer.pool, torch.stack(rows))
+
+
+def differing(a, b):
+    """What differs between two ``(state, pool, metrics)``: tensor paths,
+    ``counts`` (Adam's, the EMA's, the step), ``pool``, ``metrics``."""
+    ta, tb = a[0].tensors(), b[0].tensors()
+    out = [k for k in tb if not torch.equal(ta[k], tb[k])]
+
+    def counts(st):
+        return (st.opt_g.count, st.opt_v.count, st.opt_c.count, st.ema.count,
+                st.step)
+    if counts(a[0]) != counts(b[0]):
+        out.append('counts')
+    if not (torch.equal(a[1].images, b[1].images) and
+            torch.equal(a[1].states, b[1].states)):
+        out.append('pool')
+    if not torch.equal(a[2], b[2]):
+        out.append('metrics')
+    return out
+
+
+def fused_rank(mesh, job):
+    """A ``Trainer(num_devices=world)`` of ``test`` through iteration 0,
+    then ``fused_and_plain`` over iterations 1 .. ``job['chunk']``: what
+    differs, and the iterations' metrics."""
+    import random
+    from exposure_tpu_torch.core.trainer import Trainer
+    cfg = config(job.get('knobs', {}))
+    cfg.name = 'parallel/fused'
+    random.seed(0)
+    trainer = Trainer(cfg, num_devices=mesh.world, model_root=job['root'],
+                      device='cpu')
+    try:
+        trainer.train(last_iter=0)
+        fused, plain = fused_and_plain(trainer, 1, job['chunk'])
+    finally:
+        trainer.close()
+    return {'differing': differing(fused, plain),
+            'metrics': _numpy(fused[2])}
+
+
 def hang(mesh):
     """Rank 1 never reaches the barrier rank 0 waits at."""
     import time

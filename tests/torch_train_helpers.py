@@ -188,6 +188,29 @@ def step_draws(key, cfg, giters, citers, fake_shape, fake_meta, real_shape,
     return out
 
 
+def stream_draws(key, cfg, giters, citers):
+    """Every draw of one JAX streaming step, in the port's order: per
+    generator update ``split(k, 3)`` (rank, the agent step's noise, keep),
+    per critic update ``split(k, 2)`` (terminated, alpha)."""
+    b, p = cfg.batch_size, cfg.replay_memory_size
+    key = jax.random.fold_in(key, 0)
+    out = []
+    for k in jax.random.split(jax.random.fold_in(key, 1), giters):
+        k_sel, k_step, k_keep = jax.random.split(k, 3)
+        out.append(('rank', _t(jax.random.uniform(k_sel, (p,)))))
+        _, k_noise = jax.random.split(k_step)
+        out.append(('noise', _t(jax.random.uniform(k_noise, (b, 1)))))
+        out.append(('keep', _t(jax.random.bernoulli(
+            k_keep, cfg.over_length_keep_prob, (b,)))))
+    for k in (jax.random.split(jax.random.fold_in(key, 2), citers)
+              if citers else []):
+        k_fake, k_gp = jax.random.split(k, 2)
+        out.append(('terminated', lambda logits, n, k=k_fake:
+                    _categorical(k, logits, n)))
+        out.append(('alpha', _t(jax.random.uniform(k_gp, (b, 1, 1, 1)))))
+    return out
+
+
 def tree_max_abs(a, b):
     """``{name: max |a - b|}`` over two state_dicts."""
     return {k: float((a[k] - b[k]).abs().max()) for k in a}

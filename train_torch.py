@@ -6,7 +6,10 @@ The counterpart of ``train.py``, with the same positional arguments,
 ``--resume`` and ``--num-devices``, the same ``models/<config>/<run>``
 layout and checkpoints that either package restores, plus ``--device``
 (``cuda`` by default; ``cpu`` trains on the host).  Configs are the port's
-table (``exposure_tpu_torch/utils/config.py``).
+table (``exposure_tpu_torch/utils/config.py``), which carries the dispatch
+knobs as the JAX configs do: ``iters_per_dispatch`` (100 in ``example``)
+replays stretches of plain iterations as a CUDA graph on the card, and
+``dispatch_pipeline_depth`` defers their bookkeeping (``core/trainer.py``).
 
 ``--num-devices N`` trains data-parallel over N ranks, one process a GPU
 (``exposure_tpu_torch/parallel``): under ``torchrun --nproc-per-node N``
