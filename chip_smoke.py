@@ -149,7 +149,17 @@ Phases, one line or a few each (a failing phase exits non-zero):
    with small groups, replayed through ``call_superset``
    (slot overflow, a missing signature, an empty slot, the K2 merge) and
    through the accumulate route (``merge_below``), against K1;
-13. bf16 plan: the served plan in bfloat16 against the f32 plan.
+13. bf16 plan: the served plan in bfloat16 against the f32 plan;
+14. serving tools (``phase_serving_tools``): the port's ``export_serving``
+   (``phase_train``'s run at float32 and float16, verified),
+   ``probe_selected_plan``, ``warmup_serving`` (fresh processes,
+   ``--dynamic`` and the grouped path with ``--superset``),
+   ``bench_serving_split``, ``bench_dyn_probe`` (K1 held to the branchless
+   chain within 1 LSB), ``drive_refreeze`` (the artifact, then
+   ``phase_train``'s run: a re-freeze, and the swapped pipeline planning as
+   a fresh one on that run bit for bit) and ``bench_stream_device``, each
+   at its JAX defaults; the JSON line ``{"serving_tools": ...}``, and
+   K1-K3's launches in it their rows' ``launches_serving_tools``.
 
 Every kernel count is set to 0 just before a path is driven (the serving
 modes, and the tools, which are the probes' path) and read just after;
@@ -174,8 +184,11 @@ output with a value that differs from the parent's fails the run, unless
 trees' kernel times come from one card.
 ``--kernels`` leaves the served path out (one turn a tree).
 ``--world N``, on a machine of N cards, trains ``example`` on N ``nccl``
-ranks, one a card, against world 1 in turns (phase 9e's (b) over NVLink)
-and prints the ``{"world": ...}`` line.
+ranks, one a card, against world 1 in turns (phase 9e's (b) over NVLink),
+then fused (chunks of 10, bookkeeping 2 behind, the all-reduces captured)
+against plain on world N and on world 1, bit for bit, with the ranks'
+parameters equal after every chunk and a resume from the pipelined
+checkpoint, and prints the ``{"world": ...}`` line.
 """
 
 import json
@@ -1363,6 +1376,270 @@ def phase_bf16_plan(batches):
     return step1, total
 
 
+SERVING_TOOLS_BUDGET_S = 150
+ARTIFACT_RUN = 'synthetic_explore/best'     # served from ARTIFACT
+EXPORT_MISMATCH_LIMIT = 0.02                # export_serving --verify's
+WARMUP_TOOL_TIMEOUT_S = 240                 # a warmup_serving process's
+REFREEZE_SEED = 9000    # a dropout stream the drive did not serve
+STREAM_CONFIG = 'example'               # bench_stream_device's
+
+
+def _tool_process(args, timeout):
+    """``python -m exposure_tpu_torch.tools.<args>`` from the repo, a
+    fresh process; its JSON report (the ``--out`` file it is given)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, 'report.json')
+        proc = subprocess.run(
+            [sys.executable, '-m', 'exposure_tpu_torch.tools.' + args[0]] +
+            list(args[1:]) + ['--out', out], cwd=REPO, timeout=timeout,
+            env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+            text=True)
+        if proc.returncode != 0:
+            fail('serving tools: %s exited %d: %s' % (
+                ' '.join(args), proc.returncode, proc.stderr[-2000:]))
+        with open(out) as f:
+            return json.load(f)
+
+
+def _sha256(path):
+    import hashlib
+    with open(path, 'rb') as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _swap_serves_b(pipe, policy_b, imgs):
+    """After ``drive_refreeze``'s swap: a plan of the swapped pipeline equals
+    a fresh pipeline's on policy B bit for bit (same seed and index,
+    deterministic cuDNN), and its output is within 1 LSB of the fresh
+    one's (the frozen layouts differ, so the routes do).  Returns the max
+    LSB."""
+    import torch
+    from exposure_tpu_torch.core.serving import (
+        RetouchPipeline,
+        batch_generator,
+    )
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    fresh = RetouchPipeline(pipe.cfg, policy_b, device=pipe.device,
+                            bf16=True, auto_superset=True,
+                            auto_record_batches=pipe._ss_record_batches,
+                            use_kernels=True)
+    with torch.no_grad(), deterministic_algorithms():
+        got = pipe.plan(pipe.proxy(imgs), batch_generator(
+            REFREEZE_SEED, 0, pipe.device))
+        want = fresh.plan(fresh.proxy(imgs), batch_generator(
+            REFREEZE_SEED, 0, pipe.device))
+        differ = [name for name, a, b in zip(('ids', 'params', 'mask'),
+                                             got, want)
+                  if not torch.equal(a, b)]
+        a = pipe(imgs, REFREEZE_SEED, 0, device_out=True)
+        b = fresh(imgs, REFREEZE_SEED, 0, device_out=True)
+    lsb = _lsb(a, b)
+    if differ or lsb > 1:
+        fail('serving tools: after the swap the plan differs from a fresh '
+             'pipeline\'s on run B in %s, output off by %d LSB (bound 1)'
+             % (differ, lsb))
+    return lsb
+
+
+def phase_serving_tools(train):
+    """The serving and streaming tools of ``exposure_tpu_torch/tools`` on the
+    card, each through its entry point, in the repo's directory:
+
+    - ``export_serving``'s command line (``run(argv)``, which ``main``
+      wraps): without ``--out`` it refuses to write over the in-repo
+      artifact; ``phase_train``'s run (its checkpoints in
+      ``train['model_root']``) exported into a temp dir at float32 and
+      float16 with ``--verify``: exit 0, every leaf and the step restored,
+      float32 with 0 of the ids differing, float16 at most 0.02;
+    - ``probe_selected_plan`` at its JAX defaults (the artifact, B=512, 4
+      batches, bf16);
+    - ``warmup_serving`` in fresh processes, so that its cold start is a
+      process's: ``--dynamic``, and the grouped path with ``--superset
+      --decompose``;
+    - ``bench_serving_split`` on the artifact at B=512 512x512 u8;
+    - ``bench_dyn_probe`` at its defaults (``example``, B=256 512x512 u8,
+      six planted signatures): K1 within 1 LSB of the branchless chain (a
+      fraction of the fast S+ band's values at most ``MAX_OUTLIER_FRAC``
+      beyond), K1, K2 and the grouped runner timed;
+    - ``drive_refreeze``'s command line (``run(argv)``) from the artifact
+      (run A) to ``phase_train``'s run (run B, the same config, 12
+      iterations from random weights: another action mix) at its defaults,
+      the report written to ``--out``: exit 0, at least one re-freeze, then
+      on the pipeline the drive left a plan
+      of the swapped pipeline equal to a fresh pipeline's on B bit for bit
+      and its output within 1 LSB;
+    - ``bench_stream_device`` at its defaults (``example`` at full width,
+      chunks of 10).
+
+    K1-K3's launches in the tools run in this process are counted (the
+    ``warmup_serving`` processes' are not).  Returns the ``{"serving_tools":
+    ...}`` line's numbers."""
+    import contextlib
+    import copy
+    import tempfile
+    import torch
+    from exposure_tpu_torch.tools import (
+        bench_dyn_probe,
+        bench_serving_split,
+        bench_stream_device,
+        drive_refreeze,
+        export_serving,
+        probe_selected_plan,
+    )
+    from exposure_tpu_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    _release()
+    dev = torch.device(DEVICE)
+    kernels = ('dyn_chain', 'switch_chain', 'static_chain')
+    numbers = {'launches_by_tool': {}, 'seconds': {}}
+
+    def counted(name, fn):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        numbers['seconds'][name] = time.perf_counter() - t0
+        counts = read_counts()
+        numbers['launches_by_tool'][name] = {k: counts[k] for k in kernels}
+        return out
+
+    with contextlib.chdir(REPO), tempfile.TemporaryDirectory() as tmp:
+        run, root = train['run'], train['model_root']
+        # export_serving's command line: without --out it refuses to write
+        # over the in-repo artifact, its default path for ARTIFACT_RUN
+        before = _sha256(ARTIFACT)
+        try:
+            export_serving.main(['--run', ARTIFACT_RUN, '--model-root', root])
+            refused = None
+        except SystemExit as e:
+            refused = str(e.code)
+        if refused is None or 'exists' not in refused or \
+                _sha256(ARTIFACT) != before:
+            fail('serving tools: export_serving without --out did not '
+                 'refuse to write over %s (%s)' % (ARTIFACT, refused))
+        # phase_train's run, both dtypes, --verify
+        exports = {}
+        for dtype in ('float32', 'float16'):
+            path = os.path.join(tmp, dtype + '.msgpack.gz')
+            code, rep = counted('export_serving_' + dtype, lambda: (
+                export_serving.run(['--run', run, '--model-root', root,
+                                    '--out', path, '--verify',
+                                    '--dtype', dtype])))
+            exports[dtype] = dict(rep, bytes=os.path.getsize(path),
+                                  exit_code=code)
+        step = exports['float32']['step']
+        if any(e['exit_code'] for e in exports.values()) or \
+                exports['float32']['ids_differ'] or \
+                exports['float32']['worst_abs'] != 0.0 or \
+                exports['float16']['mismatch'] > EXPORT_MISMATCH_LIMIT:
+            fail('serving tools: export_serving --verify: %s'
+                 % json.dumps(exports))
+        numbers['export_serving'] = dict(exports, refused_default_out=True)
+
+        numbers['probe_selected_plan'] = counted(
+            'probe_selected_plan',
+            lambda: probe_selected_plan.main(['--run', ARTIFACT_RUN]))
+        numbers['warmup_serving'] = {
+            'dynamic': counted('warmup_serving_dynamic', lambda: (
+                _tool_process(('warmup_serving', '--run', ARTIFACT_RUN,
+                               '--dynamic'), WARMUP_TOOL_TIMEOUT_S))),
+            'grouped_superset': counted('warmup_serving_grouped', lambda: (
+                _tool_process(('warmup_serving', '--run', ARTIFACT_RUN,
+                               '--superset', '--decompose'),
+                              WARMUP_TOOL_TIMEOUT_S)))}
+        numbers['bench_serving_split'] = counted(
+            'bench_serving_split',
+            lambda: bench_serving_split.main(['--run', ARTIFACT_RUN]))
+        dyn = counted('bench_dyn_probe', lambda: bench_dyn_probe.main([]))
+        if dyn['dyn_max_lsb'] > 1 and \
+                dyn['dyn_frac_above_1'] > MAX_OUTLIER_FRAC:
+            fail('serving tools: bench_dyn_probe: K1 %d LSB off the '
+                 'branchless chain, %.2e of the values above 1'
+                 % (dyn['dyn_max_lsb'], dyn['dyn_frac_above_1']))
+        numbers['bench_dyn_probe'] = dyn
+
+        # drive_refreeze: the artifact, then phase_train's run
+        out = os.path.join(tmp, 'refreeze.json')
+        code, refreeze, pipe, policy_b, imgs = counted(
+            'drive_refreeze', lambda: drive_refreeze.run([
+                '--run-a', ARTIFACT_RUN, '--run-b', run, '--model-root',
+                root, '--out', out]))
+        with open(out) as f:
+            written = json.load(f)
+        if code != 0 or refreeze['refreezes'] < 1 or \
+                written['refreezes'] != refreeze['refreezes']:
+            fail('serving tools: drive_refreeze exited %d: re-freezes %d '
+                 '(drift mean %s, threshold %s)' % (
+                     code, refreeze['refreezes'],
+                     refreeze['final_report']['drift_mean'],
+                     pipe._ss_threshold))
+        refreeze['swap_max_lsb'] = _swap_serves_b(
+            pipe, copy.deepcopy(policy_b), imgs)
+        refreeze.pop('trace')
+        refreeze['final_report'].pop('layout')     # frozen_slots counts it
+        numbers['drive_refreeze'] = refreeze
+        del pipe, imgs, policy_b
+        _release()
+        numbers['bench_stream_device'] = counted(
+            'bench_stream_device', lambda: bench_stream_device.bench(
+                load_config(STREAM_CONFIG), dev))
+    numbers['launches'] = {k: sum(c[k] for c in
+                                  numbers['launches_by_tool'].values())
+                           for k in kernels}
+    if any(numbers['launches'][k] == 0 for k in kernels):
+        fail('serving tools: launches %s' % numbers['launches'])
+    numbers['phase_s'] = time.perf_counter() - t_phase
+    exp, probe = numbers['export_serving'], numbers['probe_selected_plan']
+    warm = numbers['warmup_serving']
+    split = numbers['bench_serving_split']
+    stream = numbers['bench_stream_device']
+    say('serving tools: export_serving of %s step %d: float32 %d/%d ids '
+        'differ, worst %.3e; float16 mismatch %.4f, worst %.3e (limit %.2f)'
+        % (run, step, exp['float32']['ids_differ'],
+           exp['float32']['ids_total'], exp['float32']['worst_abs'],
+           exp['float16']['mismatch'], exp['float16']['worst_abs'],
+           EXPORT_MISMATCH_LIMIT))
+    say('serving tools: probe_selected_plan (bf16, B=%d x %d): agreement %s, '
+        'per step %s' % (probe['batch'], probe['batches'],
+                         probe['agreement'], probe['per_step_agreement']))
+    say('serving tools: warmup_serving, fresh processes: dynamic cold %.3f s, '
+        'next %s s; grouped superset cold %.3f s, warm-up %s routes in %s '
+        's, first warm %.4f s, misses %d, decomposition %s' % (
+            warm['dynamic']['cold_first_batch_s'],
+            warm['dynamic']['warm_next_batches_s'],
+            warm['grouped_superset']['cold_first_batch_s'],
+            warm['grouped_superset']['warmup']['programs_compiled'],
+            warm['grouped_superset']['warmup']['warmup_seconds'],
+            warm['grouped_superset']['warm_first_batch_s'],
+            warm['grouped_superset']['budget_misses'],
+            json.dumps(warm['grouped_superset'].get(
+                'first_batch_decomposition'))))
+    say('serving tools: bench_serving_split ms: %s' % json.dumps(
+        {k: v for k, v in split.items() if k.endswith('_ms')}))
+    say('serving tools: bench_dyn_probe: K1 %d LSB (%.2e above 1), K1 %.4f, '
+        'K2 %.4f, grouped %.4f ms a batch of %d' % (
+            dyn['dyn_max_lsb'], dyn['dyn_frac_above_1'], dyn['dyn_ms'],
+            dyn['switch_ms'], dyn['grouped_ms'], dyn['shape'][0]))
+    say('serving tools: drive_refreeze %s -> %s: re-freezes %d, first seen at '
+        'batch %s (swap at %d), steady img/s A %s, B %s, recovered %s; after '
+        'the swap the plan equals a fresh pipeline\'s on B bit for bit, '
+        'output %d LSB' % (
+            ARTIFACT_RUN, run, refreeze['refreezes'],
+            refreeze['refreeze_first_seen_batch'], refreeze['swap_batch'],
+            refreeze['steady_imgs_per_s_A'], refreeze['steady_imgs_per_s_B'],
+            refreeze['steady_imgs_per_s_recovered'],
+            refreeze['swap_max_lsb']))
+    say('serving tools: bench_stream_device (example, chunks of %d): %.4f ms '
+        'a plain iteration, %.4f a dispatch, first dispatch %.2f s'
+        % (stream['fuse'], stream['value'], stream['ms_per_dispatch'],
+           stream['first_dispatch_s']))
+    say('serving tools: launches %s; phase %.1f s (budget %d s)' % (
+        json.dumps(numbers['launches']), numbers['phase_s'],
+        SERVING_TOOLS_BUDGET_S))
+    return numbers
+
+
 def _small_against_cpu(make, what):
     """The pipeline ``make(dev)`` gives on the card against the one it
     gives on the CPU, which runs the plain versions throughout, on a small
@@ -2070,13 +2347,13 @@ def _serve_trained(cfg, tmp, trained, phase='train'):
     return counts['dyn_chain']
 
 
-def phase_train():
+def phase_train(model_root):
     """Training on the card: one outer iteration against the CPU; the
     Trainer at full width through iterations 0-11, timed; resume; the
-    trained policy exported and served through K1.  Returns what the
-    summary line reports of it."""
+    trained policy exported and served through K1.  The run's checkpoints
+    stay in ``model_root`` for ``phase_serving_tools``.  Returns what the
+    summary line reports of it, with ``run`` and ``model_root``."""
     import contextlib
-    import tempfile
     from exposure_tpu_torch.utils.config import load_config
     t_phase = time.perf_counter()
     report = _train_check()
@@ -2086,7 +2363,8 @@ def phase_train():
     # the plain dispatch with its bookkeeping at once, as this phase has
     # timed it since it began (phase_fused times the fused one)
     cfg.update(iters_per_dispatch=1, dispatch_pipeline_depth=0)
-    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(REPO):
+    tmp = model_root
+    with contextlib.chdir(REPO):
         trainer, numbers = _train_run(cfg, tmp)
         run = os.path.join(tmp, cfg.name)
         with open(os.path.join(run, 'log.txt')) as f:
@@ -2140,6 +2418,7 @@ def phase_train():
         numbers['launches_serve'] = _serve_trained(cfg, tmp, trainer)
     numbers['phase_s'] = time.perf_counter() - t_phase
     numbers['check'] = report
+    numbers.update(run=cfg.name, model_root=tmp)
     say('train: phase %.1f s (budget %d s)' % (numbers['phase_s'],
                                                TRAIN_BUDGET_S))
     return numbers
@@ -2750,8 +3029,11 @@ def _worlds_in_turns(root, work, mesh, world, backend, tag):
                last_iter=PARALLEL_LAST_ITER,
                knobs=dict(critic_initialization=DATA_CRITIC_INIT,
                           checkpoint_interval=PARALLEL_CKPT_INTERVAL,
-                          # the plain dispatch: gloo's all-reduce goes
-                          # through the host and cannot be captured
+                          # the plain dispatch, so that this turn reads as
+                          # it always has; gloo's all-reduce goes through
+                          # the host and cannot be captured, so a gloo
+                          # world is never fused (nccl's fused turn is
+                          # _fused_worlds)
                           iters_per_dispatch=1, dispatch_pipeline_depth=0))
     FiveKDataProvider._raw_image_pack = None
     one = pc.TrainerRun(mesh, dict(job, name='%s/world_1' % PARALLEL_CONFIG,
@@ -2790,6 +3072,73 @@ def _worlds_in_turns(root, work, mesh, world, backend, tag):
     return one, ranks, seconds
 
 
+FUSED_WORLD_TURNS = ('plain', 'fused', 'fused', 'plain')
+
+
+def _fused_worlds(root, work, mesh, world, backend, tag):
+    """The fused dispatch on ``world`` ranks over ``backend`` and on world
+    1 (``mesh``, in this process): ``example`` at full width with
+    ``iters_per_dispatch`` ``FUSED_CHUNK`` and the bookkeeping 2 chunks
+    behind, as ``phase_fused`` trains it, through
+    ``tools/parallel_check.py::fused_rank`` on each.  Fails unless on
+    every rank the fused run equals the plain one bit for bit, the ranks'
+    parameters agree after every chunk and the resume from the pipelined
+    checkpoint is bit for bit.  Only ``nccl`` is captured: a ``gloo`` world
+    on the card keeps ``iters_per_dispatch`` 1 (``_worlds_in_turns``).
+    Returns the ms per plain iteration, fused and plain, of both worlds."""
+    from exposure_tpu_torch.data.fivek import FiveKDataProvider
+    from exposure_tpu_torch.parallel.launch import spawn_ranks
+    from exposure_tpu_torch.tools import parallel_check as pc
+    job = dict(config=PARALLEL_CONFIG, root=root, seed=SEED,
+               chunk=FUSED_CHUNK, first=DATA_CRITIC_INIT,
+               last_iter=FUSED_LAST_ITER, turns=FUSED_WORLD_TURNS,
+               knobs=dict(critic_initialization=DATA_CRITIC_INIT,
+                          checkpoint_interval=FUSED_CKPT_INTERVAL,
+                          iters_per_dispatch=FUSED_CHUNK,
+                          dispatch_pipeline_depth=2))
+    FiveKDataProvider._raw_image_pack = None
+    one = pc.fused_rank(mesh, dict(
+        job, name='%s/fused_world_1' % PARALLEL_CONFIG,
+        model_root=os.path.join(work, 'fused-one')))
+    FiveKDataProvider._raw_image_pack = None
+    _release()
+    ranks = spawn_ranks(pc.fused_rank, world, (dict(
+        job, name='%s/fused_world_%d' % (PARALLEL_CONFIG, world),
+        model_root=os.path.join(work, 'fused-many')),), device=DEVICE,
+        backend=backend, deadline_s=PARALLEL_DEADLINE_S, rendezvous_dir=work)
+    FiveKDataProvider._raw_image_pack = None
+    for run in [one] + ranks:
+        bad = {k: run[k] for k in ('fused_vs_plain_differing',
+                                   'restored_differing', 'resumed_differing')
+               if run[k]}
+        if bad or run['resume_step'] != FUSED_CKPT_INTERVAL or \
+                not run['params_equal_every_chunk'] or \
+                run['captures'] != int(DEVICE == 'cuda'):
+            fail('%s: fused on world %d rank %d: differing %s, resume step '
+                 '%s, parameters equal across the ranks after every chunk '
+                 '%s, graphs captured %d' % (
+                     tag, run['world'], run['rank'], bad, run['resume_step'],
+                     run['params_equal_every_chunk'], run['captures']))
+    key = 'world_%d_%s' % (world, backend)
+    return {
+        'ms_per_plain_iteration': {
+            kind: {'world_1_%s' % mesh.backend: _median(
+                one['ms_per_plain_iteration'][kind]),
+                key: _median([_median(r['ms_per_plain_iteration'][kind])
+                              for r in ranks])}
+            for kind in ('fused', 'plain')},
+        'ms_all': {'world_1': one['ms_per_plain_iteration'],
+                   key + '_by_rank': [r['ms_per_plain_iteration']
+                                      for r in ranks]},
+        'turns': FUSED_WORLD_TURNS, 'chunk': FUSED_CHUNK,
+        'iterations': [DATA_CRITIC_INIT, FUSED_LAST_ITER],
+        'tensors_compared': one['tensors_compared'],
+        'chunks_compared': ranks[0]['chunks_compared'],
+        'replays': {'world_1': one['replays'],
+                    key: [r['replays'] for r in ranks]},
+    }
+
+
 def _plain_ms(run):
     return [run['iteration_ms'][it]
             for it in range(DATA_CRITIC_INIT, PARALLEL_LAST_ITER + 1)]
@@ -2825,6 +3174,18 @@ def _world_numbers(one, ranks, world, backend):
             'world_1': one['metrics'][PARALLEL_LAST_ITER][2],
             key: ranks[0]['metrics'][PARALLEL_LAST_ITER][2]},
     }
+
+
+def _dryrun_numbers(dry):
+    """What the ``parallel`` and ``world`` lines report of a dry run; its
+    fused entries' ``g_loss`` by iteration, or why they did not run."""
+    keys = ('g_loss', 'emd', 'streaming_g_loss', 'served', 'grouped_max_lsb',
+            'resume_equal', 'pad_ok', 'superset_ok', 'superset_max_lsb',
+            'map_batches_ok', 'dyn_ok', 'dyn_max_lsb', 'pipeline_max_lsb',
+            'superset_route', 'launches', 'launches_by_rank')
+    optional = ('fused_g_loss', 'stream_fused_g_loss', 'fused_not_run')
+    return dict({k: dry[k] for k in keys},
+                **{k: dry[k] for k in optional if k in dry})
 
 
 def phase_parallel(root, card):
@@ -2906,11 +3267,7 @@ def phase_parallel(root, card):
             serve_batch=BATCH, serve_hw=(RES, RES),
             artifact=os.path.join(REPO, ARTIFACT), deadline_s=
             PARALLEL_DEADLINE_S, work_dir=work)
-    numbers['dryrun'] = {k: dry[k] for k in (
-        'g_loss', 'emd', 'streaming_g_loss', 'served', 'grouped_max_lsb',
-        'resume_equal', 'pad_ok', 'superset_ok', 'superset_max_lsb',
-        'map_batches_ok', 'dyn_ok', 'dyn_max_lsb', 'pipeline_max_lsb',
-        'superset_route', 'launches', 'launches_by_rank')}
+    numbers['dryrun'] = _dryrun_numbers(dry)
     numbers['dryrun_s'] = time.perf_counter() - t0
     numbers['launches'] = dry['launches']
     if DEVICE == 'cuda' and any(v == 0 for v in dry['launches'].values()):
@@ -2919,12 +3276,15 @@ def phase_parallel(root, card):
     say('parallel: (c) dryrun_multigpu(%d) on the card, %.1f s: served %s '
         'u8 as %d + %d; max LSB against the plain chain: dynamic %d, '
         'grouped %d, superset %d (bound 2); the gathered output against '
-        'one process\'s pipeline %d (bound 1); launches %s' % (
+        'one process\'s pipeline %d (bound 1); launches %s; the fused '
+        'entries: %s' % (
             PARALLEL_WORLD, numbers['dryrun_s'], dry['served'],
             BATCH // PARALLEL_WORLD, BATCH // PARALLEL_WORLD,
             dry['dyn_max_lsb'], dry['grouped_max_lsb'],
             dry['superset_max_lsb'], dry['pipeline_max_lsb'],
-            json.dumps(dry['launches'])))
+            json.dumps(dry['launches']),
+            'not run over gloo on one card (%s)' % dry['fused_not_run']
+            if 'fused_not_run' in dry else 'ran'))
     numbers['phase_s'] = time.perf_counter() - t_phase
     say('parallel: phase %.1f s (budget %d s)' % (numbers['phase_s'],
                                                   PARALLEL_BUDGET_S))
@@ -2963,79 +3323,11 @@ def _fused_cfg(stream_dtype=None, paths=None):
     return cfg
 
 
-class _Rows:
-    """Every iteration's metrics a trainer's bookkeeping reads (floats),
-    and the state and pool of the records it processes, by the record's
-    last iteration."""
-
-    def __init__(self, trainer):
-        self.metrics, self.records = {}, {}
-        record, chunk = trainer._process_record, trainer._process_chunk
-
-        def kept(it, citers, metrics, books):
-            self.metrics[it] = [float(v) for v in metrics]
-            return record(it, citers, metrics, books)
-
-        def chunk_kept(rec, books):
-            self.records[rec.it0 + rec.chunk - 1] = (rec.state, rec.pool)
-            return chunk(rec, books)
-        trainer._process_record = kept
-        trainer._process_chunk = chunk_kept
-
-
-def _reset(trainer, snap, n_fuse, depth):
-    """``trainer`` back at the snapshot ``(state, pool)``, dispatching
-    ``n_fuse`` iterations a chunk with its bookkeeping ``depth`` behind; a
-    streaming trainer's producer restarts on fresh providers, so that every
-    run from the snapshot trains on the same bundles."""
-    from exposure_tpu_torch.core.fused import clone_pool
-    trainer.state, trainer.pool = snap[0].clone(), clone_pool(snap[1])
-    trainer.n_fuse, trainer.depth = n_fuse, depth
-    if trainer.streaming:
-        trainer._close_stream()
-        for name in ('fake_provider', 'real_provider'):
-            getattr(trainer, name).close()
-        trainer.fake_provider = trainer.cfg.fake_data_provider()
-        trainer.real_provider = trainer.cfg.real_data_provider()
-
-
-def _outcome(trainer, rows, first, last):
-    """``(state, pool, metrics)`` of ``trainer`` after iterations
-    ``first .. last``, cloned."""
-    import torch
-    from exposure_tpu_torch.core.fused import clone_pool
-    return (trainer.state.clone(), clone_pool(trainer.pool),
-            torch.tensor([rows.metrics[it] for it in range(first, last + 1)]))
-
-
-def _differing(a, b):
-    """What differs between two ``(state, pool, metrics)``: tensor paths,
-    ``counts`` (Adam's, the EMA's, the step), ``pool``, ``metrics``."""
-    import torch
-    ta, tb = a[0].tensors(), b[0].tensors()
-    out = [k for k in tb if not torch.equal(ta[k], tb[k])]
-
-    def counts(st):
-        return (st.opt_g.count, st.opt_v.count, st.opt_c.count, st.ema.count,
-                st.step)
-    if counts(a[0]) != counts(b[0]):
-        out.append('counts')
-    if not (torch.equal(a[1].images, b[1].images) and
-            torch.equal(a[1].states, b[1].states)):
-        out.append('pool')
-    if not torch.equal(a[2], b[2]):
-        out.append('metrics')
-    return out
-
-
-def _dispatch(trainer, kind, first, n):
-    """Iterations ``first .. first + n - 1`` as one fused chunk or as ``n``
-    plain iterations (the trainer's dispatch alone, no bookkeeping)."""
-    if kind == 'fused':
-        trainer._run_fused(first, n)
-        return
-    for it in range(first, first + n):
-        trainer.run_iteration(it, trainer._generator)
+def _pc():
+    """``tools/parallel_check.py``, where the fused runs' helpers live
+    (``Rows``, ``reset``, ``outcome``, ``differing``, ``dispatch``)."""
+    from exposure_tpu_torch.tools import parallel_check
+    return parallel_check
 
 
 def _fused_turns(trainer, snap):
@@ -3047,13 +3339,13 @@ def _fused_turns(trainer, snap):
     first = DATA_CRITIC_INIT
     out = {'fused': [], 'plain': [], 'fused_wall': [], 'plain_wall': []}
     for kind in FUSED_TURNS:
-        _reset(trainer, snap, FUSED_CHUNK, 0)
+        _pc().reset(trainer, snap, FUSED_CHUNK, 0)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        _dispatch(trainer, kind, first, FUSED_CHUNK)
+        _pc().dispatch(trainer, kind, first, FUSED_CHUNK)
         end.record()
         end.synchronize()
         out[kind + '_wall'].append(1e3 * (time.perf_counter() - t0) /
@@ -3067,13 +3359,13 @@ def _fused_syncs(trainer, snap, kind):
     ``FUSED_CHUNK`` iterations dispatched ``kind`` (the bookkeeping's
     metric read is not in it), with where they were."""
     import torch
-    _reset(trainer, snap, FUSED_CHUNK, 0)
+    _pc().reset(trainer, snap, FUSED_CHUNK, 0)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as flagged:
         warnings.simplefilter('always')
         torch.cuda.set_sync_debug_mode('warn')
         try:
-            _dispatch(trainer, kind, DATA_CRITIC_INIT, FUSED_CHUNK)
+            _pc().dispatch(trainer, kind, DATA_CRITIC_INIT, FUSED_CHUNK)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     return sorted('%s:%d' % (os.path.relpath(w.filename, REPO), w.lineno)
@@ -3086,30 +3378,23 @@ def _fused_profile(trainer, snap, kind):
     device's kernels, the host's launch calls and the device-busy ms, and
     the idle share of the wall."""
     from exposure_tpu_torch.tools import profile_calls
-    _reset(trainer, snap, FUSED_CHUNK, 0)
+    _pc().reset(trainer, snap, FUSED_CHUNK, 0)
     return profile_calls(
-        lambda: _dispatch(trainer, kind, DATA_CRITIC_INIT, FUSED_CHUNK),
+        lambda: _pc().dispatch(trainer, kind, DATA_CRITIC_INIT, FUSED_CHUNK),
         FUSED_CHUNK, DEVICE)
 
 
 def _fused_runs(trainer, snap, numbers, tag):
-    """From the snapshot after the special iterations, under deterministic
-    cuDNN: ``FUSED_CHUNK``-iteration chunks through iteration
-    ``FUSED_LAST_ITER`` fused (bookkeeping 2 behind), and twice plain
-    (bookkeeping at once; the second the control).  Fails unless all three
-    agree bit for bit.  Returns the fused run's outcome."""
-    from exposure_tpu_torch.utils.ops import deterministic_algorithms
-    rows = _Rows(trainer)
-    outs = {}
-    with deterministic_algorithms():
-        for run, n_fuse, depth in (('plain', 1, 0), ('control', 1, 0),
-                                   ('fused', FUSED_CHUNK, 2)):
-            _reset(trainer, snap, n_fuse, depth)
-            rows.metrics.clear()
-            trainer.train(last_iter=FUSED_LAST_ITER)
-            outs[run] = _outcome(trainer, rows, DATA_CRITIC_INIT,
-                                 FUSED_LAST_ITER)
-    fused, control = (_differing(outs[k], outs['plain'])
+    """``tools/parallel_check.py::bit_runs`` from the snapshot after the
+    special iterations, under deterministic cuDNN: through iteration
+    ``FUSED_LAST_ITER`` twice plain (bookkeeping at once; the second the
+    control), then fused in ``FUSED_CHUNK``-iteration chunks (bookkeeping 2
+    behind).  Fails unless all three agree bit for bit.  Returns the fused
+    run's outcome and the rows."""
+    outs, rows = _pc().bit_runs(trainer, snap, FUSED_CHUNK, DATA_CRITIC_INIT,
+                                FUSED_LAST_ITER,
+                                runs=('plain', 'control', 'fused'))
+    fused, control = (_pc().differing(outs[k], outs['plain'])
                       for k in ('fused', 'control'))
     runner = trainer._runner(trainer.cfg.giters, trainer.cfg.citers)
     if fused or control or runner.captures != int(runner.graphs):
@@ -3160,9 +3445,9 @@ def phase_fused(root):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            _reset(trainer, snap, FUSED_CHUNK, 0)
+            _pc().reset(trainer, snap, FUSED_CHUNK, 0)
             t0 = time.perf_counter()
-            _dispatch(trainer, 'fused', DATA_CRITIC_INIT, FUSED_CHUNK)
+            _pc().dispatch(trainer, 'fused', DATA_CRITIC_INIT, FUSED_CHUNK)
             torch.cuda.synchronize()
             numbers['first_chunk_s'] = time.perf_counter() - t0
             numbers['peak_memory_gib'] = {
@@ -3184,8 +3469,8 @@ def phase_fused(root):
                      % (FUSED_CHUNK, syncs))
             numbers['host_syncs'] = {k: len(v) for k, v in syncs.items()}
             torch.cuda.reset_peak_memory_stats()
-            _reset(trainer, snap, 1, 0)
-            _dispatch(trainer, 'plain', DATA_CRITIC_INIT, FUSED_CHUNK)
+            _pc().reset(trainer, snap, 1, 0)
+            _pc().dispatch(trainer, 'plain', DATA_CRITIC_INIT, FUSED_CHUNK)
             torch.cuda.synchronize()
             numbers['peak_memory_gib']['plain_above_trainer'] = (
                 torch.cuda.max_memory_allocated() - base) / 2 ** 30
@@ -3217,17 +3502,9 @@ def phase_fused(root):
             again = Trainer(cfg, restore=True, model_root=models,
                             device=DEVICE)
             try:
-                step = again.restore()
-                restored = _differing((again.state, at12[1], fused[2]),
-                                      (at12[0], at12[1], fused[2]))
-                again.pool = at12[1]
-                again_rows = _Rows(again)
-                with deterministic_algorithms():
-                    again.train(last_iter=FUSED_LAST_ITER)
-                resumed = _differing(_outcome(
-                    again, again_rows, FUSED_CKPT_INTERVAL, FUSED_LAST_ITER),
-                    (fused[0], fused[1],
-                     fused[2][FUSED_CKPT_INTERVAL - DATA_CRITIC_INIT:]))
+                step, restored, resumed = _pc().resume_check(
+                    again, at12, fused, FUSED_CKPT_INTERVAL,
+                    DATA_CRITIC_INIT, FUSED_LAST_ITER)
             finally:
                 again.close()
             if step != FUSED_CKPT_INTERVAL or restored or resumed:
@@ -3248,11 +3525,11 @@ def phase_fused(root):
                                   model_root=os.path.join(work, 'nccl'),
                                   device=DEVICE)
                 try:
-                    grouped_rows = _Rows(grouped)
-                    _reset(grouped, snap, FUSED_CHUNK, 2)
+                    grouped_rows = _pc().Rows(grouped)
+                    _pc().reset(grouped, snap, FUSED_CHUNK, 2)
                     with deterministic_algorithms():
                         grouped.train(last_iter=FUSED_LAST_ITER)
-                    nccl = _differing(_outcome(
+                    nccl = _pc().differing(_pc().outcome(
                         grouped, grouped_rows, DATA_CRITIC_INIT,
                         FUSED_LAST_ITER), fused)
                     backend = grouped.mesh.backend
@@ -3300,19 +3577,23 @@ def phase_fused(root):
 def world(n):
     """``--world N``, on a machine of N cards: ``example``'s training on N
     ``nccl`` ranks, one a card, against a world-size-1 ``nccl`` run on card
-    0 in turns (``_worlds_in_turns``), in the FiveK tree of ``phase_data``
-    made anew in a temp dir.  Prints the ``{"world": ...}`` line and the
-    device line."""
+    0 in turns (``_worlds_in_turns``); the dry run over ``nccl``, one card a
+    rank, its fused entries captured; then the fused dispatch on both
+    worlds (``_fused_worlds``), in the FiveK tree of ``phase_data`` made
+    anew in a temp dir.  Each part prints its line as it ends; then the
+    ``{"world": ...}`` line and the device line."""
     import contextlib
     import tempfile
     import torch
     card = phase_card()
     sys.path.insert(0, REPO)
+    from exposure_tpu_torch.parallel.dryrun import dryrun_multigpu
     from exposure_tpu_torch.parallel.mesh import data_parallel_mesh
     if torch.cuda.device_count() < n:
         fail('world: %d cards asked for, %d here'
              % (n, torch.cuda.device_count()))
     t0 = time.perf_counter()
+    phase_build()       # the dry run's serving launches K1-K3 on every rank
     with tempfile.TemporaryDirectory() as root, \
             tempfile.TemporaryDirectory() as work:
         with contextlib.chdir(root):
@@ -3322,16 +3603,48 @@ def world(n):
         try:
             one, ranks, seconds = _worlds_in_turns(root, work, mesh, n,
                                                    'nccl', 'world')
+            numbers = dict(_world_numbers(one, ranks, n, 'nccl'), card=card,
+                           world_s=seconds)
+            say('world: %s at full width on %d nccl ranks, one a card: '
+                'parameters equal across the ranks after each of %d '
+                'iterations, finite metrics, one metrics.jsonl, a resume '
+                'from checkpoint %d bit for bit; world 1 likewise, in turns'
+                % (PARALLEL_CONFIG, n, numbers['params_equal_iterations'],
+                   numbers['resume_step']))
+            # the dry run over nccl, one card a rank: its fused entries are
+            # captured (over gloo on one card, phase_parallel's, they
+            # cannot be)
+            _release()
+            dry = dryrun_multigpu(n, device=DEVICE, backend='nccl',
+                                  serve_batch=BATCH, serve_hw=(RES, RES),
+                                  artifact=os.path.join(REPO, ARTIFACT),
+                                  deadline_s=PARALLEL_DEADLINE_S,
+                                  work_dir=work)
+            if 'fused_not_run' in dry:
+                fail('world: the dry run over nccl did not run its fused '
+                     'entries: %s' % dry['fused_not_run'])
+            numbers['dryrun'] = _dryrun_numbers(dry)
+            say('world: dryrun_multigpu(%d) over nccl, one card a rank: '
+                'fused entries g_loss %s and %s, served max LSB dynamic %d, '
+                'grouped %d, superset %d; launches %s' % (
+                    n, dry['fused_g_loss'], dry['stream_fused_g_loss'],
+                    dry['dyn_max_lsb'], dry['grouped_max_lsb'],
+                    dry['superset_max_lsb'], json.dumps(dry['launches'])))
+            _release()
+            fused = _fused_worlds(root, work, mesh, n, 'nccl', 'world')
         finally:
             mesh.close()
-    numbers = dict(_world_numbers(one, ranks, n, 'nccl'), card=card,
-                   world_s=seconds, phase_s=time.perf_counter() - t0)
-    say('world: %s at full width on %d nccl ranks, one a card: parameters '
-        'equal across the ranks after each of %d iterations, finite '
-        'metrics, one metrics.jsonl, a resume from checkpoint %d bit for '
-        'bit; world 1 likewise, in turns' % (
-            PARALLEL_CONFIG, n, numbers['params_equal_iterations'],
-            numbers['resume_step']))
+    numbers.update(fused=fused, phase_s=time.perf_counter() - t0)
+    say('world: fused, chunks of %d (iterations %d-%d): on each of %d '
+        'ranks and on world 1 the fused run equals the plain one bit for '
+        'bit (%d state tensors, the pool, every metric row; deterministic '
+        'cuDNN), the parameters equal across the ranks after each of %d '
+        'chunks, the resume from the pipelined checkpoint %d bit for bit; '
+        'ms per plain iteration %s' % (
+            FUSED_CHUNK, DATA_CRITIC_INIT, FUSED_LAST_ITER, n,
+            fused['tensors_compared'], fused['chunks_compared'],
+            FUSED_CKPT_INTERVAL,
+            json.dumps(fused['ms_per_plain_iteration'])))
     say(json.dumps({'world': numbers}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -3358,19 +3671,23 @@ def main():
     tool_counts, _ = phase_tools()
     phase_small_reference()
     evaluation = phase_evaluate()
-    training = phase_train()
-    with tempfile.TemporaryDirectory() as fivek_root:
-        data = phase_data(fivek_root)
-        parallel = phase_parallel(fivek_root, card)
-        fused = phase_fused(fivek_root)
-    rng = np.random.default_rng(SEED)
-    batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
-               for _ in range(MAIN_BATCHES)]
-    torch.cuda.synchronize()
-    k1_main, _, _ = phase_main_path(batches)
-    totals, _ = phase_modes(batches)
-    phase_planted(batches[0])
-    phase_bf16_plan(batches)
+    with tempfile.TemporaryDirectory() as train_root:
+        # phase_train's run stays for phase_serving_tools
+        training = phase_train(train_root)
+        with tempfile.TemporaryDirectory() as fivek_root:
+            data = phase_data(fivek_root)
+            parallel = phase_parallel(fivek_root, card)
+            fused = phase_fused(fivek_root)
+        rng = np.random.default_rng(SEED)
+        batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
+                   for _ in range(MAIN_BATCHES)]
+        torch.cuda.synchronize()
+        k1_main, _, _ = phase_main_path(batches)
+        totals, _ = phase_modes(batches)
+        phase_planted(batches[0])
+        phase_bf16_plan(batches)
+        del batches
+        tools = phase_serving_tools(training)
     say('total %.1f s' % (time.perf_counter() - t_start))
     shape = '[%d, %d, %d, 3] u8, K=5' % (BATCH, RES, RES)
     for name in totals:     # the paths: main, modes, probe tools, tools
@@ -3434,7 +3751,9 @@ def main():
         'phase_s': data['phase_s']}}))
     say(json.dumps({'parallel': parallel}))
     say(json.dumps({'fused': dict(fused, card=card)}))
+    say(json.dumps({'serving_tools': dict(tools, card=card)}))
     served = parallel['launches']
+    by_tools = tools['launches']
     proxy = PROXY_CASE[0]
     say(json.dumps({'kernels': [
         # the main path's replay launches, with the modes' and the tools';
@@ -3445,7 +3764,7 @@ def main():
                     k1_main['replay'] + totals['dyn_chain'] +
                     evaluation['launches'] + training['launches_serve'] +
                     data['launches_serve'] + served['dyn_chain'] +
-                    fused['launches_serve'],
+                    fused['launches_serve'] + by_tools['dyn_chain'],
                     'dyn_chain', 'dyn_chain_kernel',
                     launches_main_path_replay=k1_main['replay'],
                     launches_other_paths=totals['dyn_chain'],
@@ -3453,7 +3772,8 @@ def main():
                     launches_training_serve=training['launches_serve'],
                     launches_streaming_serve=data['launches_serve'],
                     launches_parallel_serve=served['dyn_chain'],
-                    launches_fused_serve=fused['launches_serve']),
+                    launches_fused_serve=fused['launches_serve'],
+                    launches_serving_tools=by_tools['dyn_chain']),
         # the same kernel on one full-resolution image, the evaluator's
         # replay: every launch of the evaluation path (its sizes vary; the
         # time is this shape's)
@@ -3477,9 +3797,11 @@ def main():
         chain_entry('switch_chain', 'exposure_tpu_torch/csrc/switch_chain.cu',
                     'exposure_tpu/ops/pallas_chain.py:345',
                     k2_timing['f32'], k2_worst,
-                    totals['switch_chain'] + served['switch_chain'],
+                    totals['switch_chain'] + served['switch_chain'] +
+                    by_tools['switch_chain'],
                     'switch_chain', 'switch_chain_f32',
-                    launches_parallel_serve=served['switch_chain']),
+                    launches_parallel_serve=served['switch_chain'],
+                    launches_serving_tools=by_tools['switch_chain']),
         # the same wrapper's bf16 kernel; nothing in the package asks for
         # it (direct callers only), so no path launches it
         chain_entry('switch_chain_bf16',
@@ -3497,10 +3819,12 @@ def main():
         chain_entry('static_chain', 'exposure_tpu_torch/csrc/static_chain.cu',
                     'exposure_tpu/ops/pallas_chain.py:417',
                     k3_timing['replay'], k3_worst,
-                    totals['static_chain'] + served['static_chain'],
+                    totals['static_chain'] + served['static_chain'] +
+                    by_tools['static_chain'],
                     'static_chain', 'static_chain_kernel',
                     shape=shape + ', one signature (E, G, S+, T, Ct)',
-                    launches_parallel_serve=served['static_chain']),
+                    launches_parallel_serve=served['static_chain'],
+                    launches_serving_tools=by_tools['static_chain']),
         probe_entry('mono_probe',
                     'exposure_tpu/tools/bench_kernel_probe.py:41',
                     probe_worst['mono_probe'],

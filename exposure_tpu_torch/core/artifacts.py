@@ -19,7 +19,8 @@ and ``flax_critic_to_state_dict`` map the flax trees onto
 ``RetouchPipeline.from_run`` use: the newest training checkpoint under
 ``models/<config>/<run>`` when there is one, the artifact of
 ``<config>/<run>`` under ``artifacts/serving/`` otherwise.
-``export_serving_artifact`` writes an artifact from a ``TrainState``.
+``export_serving_artifact`` writes an artifact from a ``TrainState`` and
+``restore_serving_artifact`` reads one back into a template state.
 """
 
 import gzip
@@ -100,6 +101,33 @@ def export_serving_artifact(run, state, step, path=None, dtype=np.float32):
         f.write(msgpack_serialize(payload))
     os.replace(tmp, path)
     return path
+
+
+def restore_serving_artifact(path, template_state):
+    """The template ``TrainState`` with the artifact's generator: ``(state,
+    step)``, as the JAX ``restore_serving_artifact``.  The tree and every
+    leaf's shape must be the template's (a mismatch raises
+    ``ValueError``); the leaves come back as float32 (widened where the
+    artifact stored them narrower) on the template's device."""
+    payload = load_artifact(path)
+    want = state_dict_to_flax(template_state.gen_params)
+
+    def check(tgt, src, at):
+        if isinstance(tgt, dict):
+            if not isinstance(src, dict) or set(tgt) != set(src):
+                raise ValueError('artifact tree mismatch at %s: %s vs %s' % (
+                    at or '/', sorted(tgt),
+                    sorted(src) if isinstance(src, dict) else type(src)))
+            for k in tgt:
+                check(tgt[k], src[k], at + '/' + k)
+        elif np.shape(src) != np.shape(tgt):
+            raise ValueError('artifact leaf %s shape %s != template %s'
+                             % (at, np.shape(src), np.shape(tgt)))
+    check(want, payload['gen_params'], '')
+    device = next(iter(template_state.gen_params.values())).device
+    gen = {k: v.to(device) for k, v in
+           flax_to_state_dict(payload['gen_params']).items()}
+    return template_state.replace(gen_params=gen), int(payload['step'])
 
 
 class _Reader:

@@ -202,6 +202,11 @@ class FusedRunner:
         self.graph = graph
         self.captures += 1
 
+    def release(self):
+        """Free the captured graph (a later chunk captures anew); the
+        counts stay."""
+        self.graph = None
+
     # --- a chunk -----------------------------------------------------------
     def run(self, state, pool, data, iters, lr_gs, lr_cs, progresses):
         """Iterations ``iters`` at their learning rates and progresses from

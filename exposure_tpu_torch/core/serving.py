@@ -124,8 +124,7 @@ class RetouchPipeline:
             use_kernels = self.device.type == 'cuda'
         self.use_kernels = bool(use_kernels)
         self.bf16 = bool(bf16)
-        self._plan_policy = copy.deepcopy(self.policy).to(torch.bfloat16) \
-            if self.bf16 else self.policy
+        self._plan_policy = self._bf16_copy() if self.bf16 else self.policy
         self.fast_math = fast_math
         if dynamic and grouped:
             raise ValueError('dynamic and grouped are exclusive modes')
@@ -162,6 +161,22 @@ class RetouchPipeline:
         self._ss_seen = 0
         self._ss_refreezes = 0
         self._ss_drift = collections.deque(maxlen=self._ss_window)
+
+    def _bf16_copy(self):
+        return copy.deepcopy(self.policy).to(torch.bfloat16)
+
+    def load_policy(self, state_dict, run=None, step=None):
+        """Serve other weights from the next batch on, the counterpart of
+        assigning the JAX pipeline's ``state``: ``state_dict`` (a
+        ``PolicyNet``'s) goes into ``policy``, and with ``bf16`` the plan's
+        bfloat16 copy is made anew from it, as the constructor makes it.
+        The mode, the superset layout and the auto-superset statistics
+        stay, so a policy with another action mix drifts from the frozen
+        layout and re-freezes it."""
+        self.policy.load_state_dict(state_dict)
+        if self.bf16:
+            self._plan_policy = self._bf16_copy()
+        self.run, self.step = run, step
 
     @classmethod
     def from_artifact(cls, config_name, path, device='cuda', **kwargs):
@@ -420,8 +435,9 @@ class RetouchPipeline:
         step up, is frozen as the superset layout.  ``budget`` (a list of
         ``(signature, bucket)`` pairs) skips the probing.  There is no
         program to compile here, so ``programs_compiled`` counts the
-        distinct routes the warm-up ran.  Returns a JSON-able report with
-        the keys of the JAX pipeline's."""
+        routes the warm-up added to the runner's record of the distinct
+        routes it has run (``GroupedChainRunner.routes``).  Returns a
+        JSON-able report with the keys of the JAX pipeline's."""
         t0 = time.time()
         images = self._to_device(probe_images)
         report = {'batch_shape': list(images.shape),
@@ -479,7 +495,10 @@ class RetouchPipeline:
             zm = torch.zeros((num_steps, images.shape[0], mask_p),
                              device=self.device)
             runner._static(images, sig, zp, zm, None)
-            n += 1
+            key = ('single', sig, images.shape[0]) + runner._at(
+                images.shape, images.dtype)
+            n += key not in runner.routes
+            runner.routes.add(key)
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
         report.update(

@@ -82,7 +82,7 @@ from exposure_tpu_torch.core.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from exposure_tpu_torch.core.fused import clone_pool
+from exposure_tpu_torch.core.fused import FusedRunner, clone_pool
 from exposure_tpu_torch.core.losses import apply
 from exposure_tpu_torch.core.replay import PoolState
 from exposure_tpu_torch.core.rollout import rollout
@@ -309,8 +309,9 @@ class Trainer:
 
     def close(self):
         """Stop the streaming producer and the profiler, close the metrics
-        file, stop teeing stdout into the log and leave a process group the
-        trainer formed."""
+        file, stop teeing stdout into the log, free the fused runners' CUDA
+        graphs and leave a process group the trainer
+        formed."""
         self._close_stream()
         self._stop_profile()
         if self._logger is not None:
@@ -319,6 +320,10 @@ class Trainer:
         if self.tee is not None:
             self.tee.close()
             self.tee = None
+        # a graph that captured an nccl all-reduce must go before its group
+        for step in self._steps.values():
+            if isinstance(step, FusedRunner):
+                step.release()
         self.mesh.close()
 
     def _say(self, *args):

@@ -27,7 +27,14 @@ padded to ``bucket_size`` with the group's first image and the padded
 slots skipped through ``n_active``, so the routes and the warm-up budget
 read as the JAX runner's.  ``last_route`` records the route of the last
 call and ``launches`` counts the kernel calls the runner made (on the CPU
-they run the kernels' plain versions).
+they run the kernels' plain versions).  ``routes`` is the set of distinct
+routes the runner has run, keyed as the JAX runner keyed its compiled
+programs (``_fns``) less the compile-only parts of those keys: a
+``('single', signature, B, (H, W), dtype)``, ``('fused', groups, ...)``,
+``('acc', signature, bucket, ...)``, ``('merge', bucket, ...)``,
+``('superset', layout, ...)`` or ``('fallback', shape, dtype)``; the
+warm-ups add theirs, so what traffic adds after a warm-up is what the
+warm-up missed.
 """
 
 import collections
@@ -74,6 +81,11 @@ def _groups(ids):
             for g in range(len(uniq))]
 
 
+def _layout_key(layout):
+    return tuple((tuple(int(x) for x in sig), int(size))
+                 for sig, size in layout)
+
+
 def _padded(idxs, size):
     """Indices padded to ``size`` with the first (skipped via n_active)."""
     return list(idxs) + [idxs[0]] * (size - len(idxs))
@@ -94,6 +106,14 @@ class GroupedChainRunner:
         self._fused_sets = set()
         self.last_route = None
         self.launches = collections.Counter()
+        self.routes = set()
+
+    @staticmethod
+    def _at(img_shape, dtype):
+        """The part of a route's key that the batch's shape gives: its
+        (H, W) and dtype."""
+        return (tuple(int(x) for x in img_shape[1:3]),
+                str(dtype).replace('torch.', ''))
 
     # -- the two kernels -----------------------------------------------------
     def _static(self, img, sig, params, mask, out, rows=None, n_active=None):
@@ -199,11 +219,15 @@ class GroupedChainRunner:
         if len(groups) > self.max_signatures:
             # signature-diverse batch: one K2 call
             self.last_route = {'route': 'fallback', 'signatures': len(groups)}
+            self.routes.add(('fallback', tuple(img.shape),
+                             self._at(img.shape, img.dtype)[1]))
             return self._switch(img, self._device_ids(img, ids_dev, ids),
                                 packed_params, mask_params, None)
         if len(groups) == 1:
             sig = groups[0][0]
             self.last_route = {'route': 'single', 'signature': sig}
+            self.routes.add(('single', sig, img.shape[0]) +
+                            self._at(img.shape, img.dtype))
             return self._static(img, sig, packed_params, mask_params, None)
 
         out = torch.empty_like(img)
@@ -218,6 +242,8 @@ class GroupedChainRunner:
                  in zip(groups, set_key)])
             self.last_route = {'route': 'fused', 'groups': list(set_key),
                                'merge': None}
+            self.routes.add(('fused', set_key) +
+                            self._at(img.shape, img.dtype))
             return out
 
         # accumulate: big groups one K3 call each, small ones merged
@@ -231,6 +257,11 @@ class GroupedChainRunner:
             merge = self._merge(img, self._device_ids(img, ids_dev, ids),
                                 packed_params, mask_params, out,
                                 [i for _, ix in small for i in ix])
+        at = self._at(img.shape, img.dtype)
+        self.routes.update(('acc', sig, size) + at
+                           for (sig, _), size in zip(big, sizes))
+        if merge is not None:
+            self.routes.add(('merge', merge) + at)
         self.last_route = {
             'route': 'accumulate',
             'groups': [(sig, size) for (sig, _), size in zip(big, sizes)],
@@ -254,6 +285,8 @@ class GroupedChainRunner:
         if len(groups) == 1:
             sig = groups[0][0]
             self.last_route = {'route': 'single', 'signature': sig}
+            self.routes.add(('single', sig, img.shape[0]) +
+                            self._at(img.shape, img.dtype))
             return self._static(img, sig, packed_params, mask_params, None)
         slot_of = {sig: g for g, (sig, _) in enumerate(layout)}
         take = [[] for _ in layout]
@@ -275,6 +308,10 @@ class GroupedChainRunner:
             merge = self._merge(img, self._device_ids(img, ids_device, ids),
                                 packed_params, mask_params, out,
                                 sorted(leftover))
+        at = self._at(img.shape, img.dtype)
+        self.routes.add(('superset', _layout_key(layout)) + at)
+        if merge is not None:
+            self.routes.add(('merge', merge) + at)
         self.last_route = {
             'route': 'superset', 'slots': len(layout),
             'filled_slots': len(filled), 'merge': merge,
@@ -288,34 +325,44 @@ class GroupedChainRunner:
         padded-only rows (``n_active`` 0, so no kernel is launched): one
         K3 call per (signature, bucket) pair and one K2 call per merge
         size.  Nothing is compiled per route; this builds and loads the
-        kernel libraries ahead of traffic.  Returns the number of
-        distinct routes run.  ``device``: where traffic will run, the
-        card unless the caller asks for the CPU."""
-        img, params, mask, ids = self._zeros(img_shape, dtype, num_steps,
-                                             max_p, mask_p, device)
-        out = torch.empty_like(img)
-        routes = set()
-        for sig, size in budget:
-            rows = torch.zeros(size, dtype=torch.int32, device=img.device)
-            self._static(img, tuple(sig), params, mask, out, rows=rows,
-                         n_active=0)
-            routes.add(('acc', tuple(sig), int(size)))
-        for size in merge_sizes:
-            rows = torch.zeros(size, dtype=torch.int32, device=img.device)
-            self._switch(img, ids, params, mask, out, rows=rows, n_active=0)
-            routes.add(('merge', int(size)))
-        return len(routes)
+        kernel libraries ahead of traffic.  Returns the number of routes
+        added to ``routes``.  ``device``: where traffic will run, the card
+        unless the caller asks for the CPU."""
+        before = len(self.routes)
+        self._warm(budget, merge_sizes, img_shape, dtype, num_steps, max_p,
+                   mask_p, device)
+        at = self._at(img_shape, dtype)
+        self.routes.update(('acc', tuple(sig), int(size)) + at
+                           for sig, size in budget)
+        self.routes.update(('merge', int(size)) + at for size in merge_sizes)
+        return len(self.routes) - before
 
     def warmup_superset(self, layout, img_shape, dtype, num_steps, max_p,
                         mask_p=1, merge_sizes=(), device='cuda'):
         """Run the frozen layout's slots and the leftover merges once on
-        padded-only rows.  Returns the number of routes run: one for the
+        padded-only rows.  Returns the number of routes added: one for the
         layout, one per merge size."""
-        n = self.warmup(layout, img_shape, dtype, num_steps, max_p,
-                        mask_p=mask_p, device=device)
-        self.warmup((), img_shape, dtype, num_steps, max_p, mask_p=mask_p,
-                    merge_sizes=merge_sizes, device=device)
-        return int(n > 0) + len(set(merge_sizes))
+        before = len(self.routes)
+        self._warm(layout, merge_sizes, img_shape, dtype, num_steps, max_p,
+                   mask_p, device)
+        at = self._at(img_shape, dtype)
+        if layout:
+            self.routes.add(('superset', _layout_key(layout)) + at)
+        self.routes.update(('merge', int(size)) + at for size in merge_sizes)
+        return len(self.routes) - before
+
+    def _warm(self, budget, merge_sizes, img_shape, dtype, num_steps, max_p,
+              mask_p, device):
+        img, params, mask, ids = self._zeros(img_shape, dtype, num_steps,
+                                             max_p, mask_p, device)
+        out = torch.empty_like(img)
+        for sig, size in budget:
+            rows = torch.zeros(size, dtype=torch.int32, device=img.device)
+            self._static(img, tuple(sig), params, mask, out, rows=rows,
+                         n_active=0)
+        for size in merge_sizes:
+            rows = torch.zeros(size, dtype=torch.int32, device=img.device)
+            self._switch(img, ids, params, mask, out, rows=rows, n_active=0)
 
     def _zeros(self, img_shape, dtype, num_steps, max_p, mask_p, device):
         b = img_shape[0]

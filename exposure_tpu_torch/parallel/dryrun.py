@@ -8,6 +8,15 @@ with the JAX dry run's tiny ``test`` shapes (batch 2n, pool 4n):
    the packs and the pool, with the state bit-identical across ranks
    afterwards (an all-gathered digest) and the metrics finite;
 2. one streaming step on the rank's shard of a bundle along axis 1;
+2b. the fused entries (``core/fused.py``): 3 iterations (5-7, giters 1,
+   citers 2, lr 1e-4, progress 0.1 to 0.2) through
+   ``build_fused_iterations_step``, and 2 streaming iterations (giters 1,
+   citers 1) on stacked bundles sharded along axis 2 through
+   ``build_streaming_fused_step``; their metrics stacked one row an
+   iteration and finite, the state equal across ranks after each.  On the
+   CPU the fused body runs eagerly; on the card it is captured, which a
+   ``gloo`` group cannot be (``Mesh.check_capturable``): there the two
+   entries are not run, and the summary line says so with the error;
 3. resume: rank 0 saves a checkpoint, every rank restores it onto a
    template from another seed, and the step from the restored state equals
    the step from the saved one bit for bit;
@@ -27,13 +36,13 @@ with the JAX dry run's tiny ``test`` shapes (batch 2n, pool 4n):
 
 The kernel launches of the serving part are counted on each rank (on the
 CPU the wrappers run their plain versions and count none).  It prints the
-JAX dry run's summary line, without its two fused entries (the fused
-steps wait for a later slice), and returns a dict of what it found.
+JAX dry run's summary line and returns a dict of what it found.
 
     python -m exposure_tpu_torch.parallel.dryrun 2 --device cpu
 """
 
 import argparse
+import gc
 import os
 import shutil
 import tempfile
@@ -181,6 +190,8 @@ def _train_part(mesh, out, work_dir):
         raise AssertionError('the state differs across ranks after the '
                              'streaming step')
     out['streaming_g_loss'] = float(m3.g_loss)
+    _fused_part(mesh, out, cfg, (policy, critic, value, filters), state3,
+                pool3, fake, real, rng, lr)
 
     # resume: rank 0 saves, every rank restores onto another seed's state
     # (deterministic algorithms: the card's defaults may add in another
@@ -217,6 +228,74 @@ def _train_part(mesh, out, work_dir):
     _finite(m_p, 'pad')
     out['pad_ok'] = mesh.all_true(pad_ok)
     return cfg, policy, state3
+
+
+FUSED_ITERS = (5, 6, 7)     # the JAX dry run's fused entry
+STREAM_FUSED_ITERS = (0, 1)
+
+
+def _fused_part(mesh, out, cfg, nets, state, pool, fake, real, rng, lr):
+    """The JAX dry run's two fused entries, from the streaming step's state
+    and pool: ``out['fused_g_loss']`` and ``out['stream_fused_g_loss']``
+    (each iteration's), or ``out['fused_not_run']`` with the reason when
+    this rank's group cannot be captured."""
+    from exposure_tpu_torch.core.steps import (
+        build_fused_iterations_step,
+        build_streaming_fused_step,
+    )
+    from exposure_tpu_torch.core.trainer import iteration_seed
+    from exposure_tpu_torch.utils.draws import Draws
+    try:
+        mesh.check_capturable()
+    except ValueError as e:
+        out['fused_not_run'] = str(e)
+        return
+    dev = mesh.device
+    generator = torch.Generator(device=dev)
+
+    def draws_for(seed):
+        def draws(it):
+            generator.manual_seed(iteration_seed(seed, it, mesh.rank))
+            return Draws(generator, dev)
+        return draws
+
+    def check(metrics, n, what, state):
+        if tuple(metrics.shape) != (n, 7) or \
+                not bool(torch.isfinite(metrics).all()):
+            raise AssertionError('%s metrics %s, finite %s' % (
+                what, tuple(metrics.shape),
+                bool(torch.isfinite(metrics).all())))
+        if not mesh.all_equal(_state_digest(state)):
+            raise AssertionError('the state differs across ranks after the '
+                                 '%s entry' % what)
+        return [float(v) for v in metrics[:, 0]]    # g_loss, by iteration
+
+    meta = (64, True)
+    n = len(FUSED_ITERS)
+    runner = build_fused_iterations_step(
+        cfg, *nets, meta, meta, 1, 2, draws_for(3), generator, mesh=mesh)
+    state4, pool4, m4 = runner.run(
+        state, _copy(pool), (fake, real), FUSED_ITERS, [lr] * n, [lr] * n,
+        np.linspace(0.1, 0.2, n).astype(np.float32).tolist())
+    out['fused_g_loss'] = check(m4, n, 'fused', state4)
+
+    def shard(x):
+        return mesh.shard(torch.from_numpy(np.asarray(x, np.float32)),
+                          2).to(dev)
+    n = len(STREAM_FUSED_ITERS)
+    chunk = 2 * cfg.batch_size + cfg.replay_memory_size
+    bundle = (shard(rng.rand(n, 1, chunk, 64, 64, 3)),
+              shard(rng.rand(n, 1, cfg.batch_size, 64, 64, 3)))
+    s_runner = build_streaming_fused_step(cfg, *nets, 1, 1, draws_for(5),
+                                          generator, mesh=mesh)
+    state5, _, m5 = s_runner.run(state, _copy(pool), bundle,
+                                 STREAM_FUSED_ITERS, [lr] * n, [lr] * n,
+                                 [0.5] * n)
+    out['stream_fused_g_loss'] = check(m5, n, 'streaming fused', state5)
+    # free the captured graphs (and their all-reduces) before the rank
+    # leaves the process group
+    del runner, s_runner, state4, pool4, state5
+    gc.collect()
 
 
 def _serve_part(mesh, out, settings, trained):
@@ -386,16 +465,25 @@ def dryrun_rank(mesh, settings):
 
 
 def summary_line(out):
-    """The JAX dry run's summary line, without its two fused entries."""
-    return ('dryrun_multigpu(%d): ok, g_loss=%.4f emd=%.4f '
-            'streaming_g_loss=%.4f served=%s grouped_max_lsb=%d '
-            'resume_equal=%s pad_ok=%s superset_ok=%s superset_max_lsb=%d '
-            'map_batches_ok=%s dyn_ok=%s dyn_max_lsb=%d' % (
+    """The JAX dry run's summary line.  Where the fused entries could not
+    run (a ``gloo`` group on the card), ``fused_g_loss[-1]`` reads
+    ``not_run`` and the line ends with the reason."""
+    not_run = out.get('fused_not_run')
+    fused = 'not_run' if not_run else '%.4f' % out['fused_g_loss'][-1]
+    line = ('dryrun_multigpu(%d): ok, g_loss=%.4f emd=%.4f '
+            'streaming_g_loss=%.4f fused_g_loss[-1]=%s served=%s '
+            'grouped_max_lsb=%d resume_equal=%s pad_ok=%s superset_ok=%s '
+            'superset_max_lsb=%d map_batches_ok=%s dyn_ok=%s '
+            'dyn_max_lsb=%d' % (
                 out['world'], out['g_loss'], out['emd'],
-                out['streaming_g_loss'], out['served'],
+                out['streaming_g_loss'], fused, out['served'],
                 out['grouped_max_lsb'], out['resume_equal'], out['pad_ok'],
                 out['superset_ok'], out['superset_max_lsb'],
                 out['map_batches_ok'], out['dyn_ok'], out['dyn_max_lsb']))
+    if not_run:
+        line += (' (the fused and streaming fused entries not run: %s)'
+                 % not_run)
+    return line
 
 
 def dryrun_multigpu(n_devices, device='cuda', backend=None, serve_batch=None,

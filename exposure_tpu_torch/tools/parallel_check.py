@@ -18,6 +18,14 @@
   memory.
 - ``trainer_rank(mesh, job)``: a whole ``TrainerRun`` on a spawned rank
   (``parallel/launch.py``).
+- The fused dispatch's checks (``core/fused.py``), for
+  ``chip_smoke.py::phase_fused`` and ``--world``: ``Rows`` keeps what a
+  trainer's bookkeeping reads, ``reset`` puts a trainer back at a snapshot,
+  ``dispatch`` runs a chunk fused or plain, ``outcome`` and ``differing``
+  compare two runs, ``bit_runs`` runs plain and fused from a snapshot and
+  ``resume_check`` resumes from the pipelined run's checkpoint;
+  ``fused_rank(mesh, job)`` is the fused run against the plain one on a
+  rank of a world.
 """
 
 import contextlib
@@ -258,3 +266,217 @@ def trainer_rank(mesh, job):
     run = TrainerRun(mesh, job)
     run.run(0, job['last_iter'])
     return run.finish()
+
+
+class Rows:
+    """Every iteration's metrics a trainer's bookkeeping reads (floats),
+    and the state and pool of the records it processes, by the record's
+    last iteration."""
+
+    def __init__(self, trainer):
+        self.metrics, self.records = {}, {}
+        record, chunk = trainer._process_record, trainer._process_chunk
+
+        def kept(it, citers, metrics, books):
+            self.metrics[it] = [float(v) for v in metrics]
+            return record(it, citers, metrics, books)
+
+        def chunk_kept(rec, books):
+            self.records[rec.it0 + rec.chunk - 1] = (rec.state, rec.pool)
+            return chunk(rec, books)
+        trainer._process_record = kept
+        trainer._process_chunk = chunk_kept
+
+
+def reset(trainer, snap, n_fuse, depth):
+    """``trainer`` back at the snapshot ``(state, pool)``, dispatching
+    ``n_fuse`` iterations a chunk with its bookkeeping ``depth`` behind; a
+    streaming trainer's producer restarts on fresh providers, so that every
+    run from the snapshot trains on the same bundles."""
+    from exposure_tpu_torch.core.fused import clone_pool
+    trainer.state, trainer.pool = snap[0].clone(), clone_pool(snap[1])
+    trainer.n_fuse, trainer.depth = n_fuse, depth
+    if trainer.streaming:
+        trainer._close_stream()
+        for name in ('fake_provider', 'real_provider'):
+            getattr(trainer, name).close()
+        trainer.fake_provider = trainer.cfg.fake_data_provider()
+        trainer.real_provider = trainer.cfg.real_data_provider()
+
+
+def outcome(trainer, rows, first, last):
+    """``(state, pool, metrics)`` of ``trainer`` after iterations
+    ``first .. last``, cloned."""
+    from exposure_tpu_torch.core.fused import clone_pool
+    return (trainer.state.clone(), clone_pool(trainer.pool),
+            torch.tensor([rows.metrics[it] for it in range(first, last + 1)]))
+
+
+def differing(a, b):
+    """What differs between two ``(state, pool, metrics)``: tensor paths,
+    ``counts`` (Adam's, the EMA's, the step), ``pool``, ``metrics``."""
+    ta, tb = a[0].tensors(), b[0].tensors()
+    out = [k for k in tb if not torch.equal(ta[k], tb[k])]
+
+    def counts(st):
+        return (st.opt_g.count, st.opt_v.count, st.opt_c.count, st.ema.count,
+                st.step)
+    if counts(a[0]) != counts(b[0]):
+        out.append('counts')
+    if not (torch.equal(a[1].images, b[1].images) and
+            torch.equal(a[1].states, b[1].states)):
+        out.append('pool')
+    if not torch.equal(a[2], b[2]):
+        out.append('metrics')
+    return out
+
+
+def dispatch(trainer, kind, first, n):
+    """Iterations ``first .. first + n - 1`` as one fused chunk or as ``n``
+    plain iterations (the trainer's dispatch alone, no bookkeeping)."""
+    if kind == 'fused':
+        trainer._run_fused(first, n)
+        return
+    for it in range(first, first + n):
+        trainer.run_iteration(it, trainer._generator)
+
+
+def _param_digest(state):
+    return digest(*[t for tree in (state.gen_params, state.val_params,
+                                   state.crit_params)
+                    for _, t in sorted(tree.items())])
+
+
+def bit_runs(trainer, snap, chunk, first, last, runs=('plain', 'fused')):
+    """From the snapshot, under deterministic algorithms, each of ``runs``
+    through iteration ``last``: ``plain`` and ``control`` one iteration a
+    dispatch with the bookkeeping at once, ``fused`` chunks of ``chunk``
+    with the bookkeeping 2 chunks behind (last, so that its records and
+    checkpoints are the newest).  Returns each run's ``outcome`` from
+    ``first`` and the ``Rows``."""
+    rows = Rows(trainer)
+    outs = {}
+    with deterministic_algorithms():
+        for run in runs:
+            fused = run == 'fused'
+            reset(trainer, snap, chunk if fused else 1, 2 if fused else 0)
+            rows.metrics.clear()
+            trainer.train(last_iter=last)
+            outs[run] = outcome(trainer, rows, first, last)
+    return outs, rows
+
+
+def resume_check(again, record, fused, ckpt, first, last):
+    """``again``, a fresh trainer made with ``restore=True`` in the fused
+    run's directory: checkpoint ``ckpt`` restored against ``record``, the
+    ``(state, pool)`` the pipelined run kept at iteration ``ckpt - 1``;
+    then, on the record's pool (the pool is not checkpointed), resumed
+    through ``last`` under deterministic algorithms against the fused
+    run's ``outcome`` ``fused`` (from ``first``).  Returns ``(step,
+    restored differing, resumed differing)``."""
+    step = again.restore(ckpt)
+    restored = differing((again.state, record[1], fused[2]),
+                         (record[0], record[1], fused[2]))
+    again.pool = record[1]
+    rows = Rows(again)
+    with deterministic_algorithms():
+        again.train(last_iter=last)
+    resumed = differing(outcome(again, rows, ckpt, last),
+                        (fused[0], fused[1], fused[2][ckpt - first:]))
+    return step, restored, resumed
+
+
+def fused_rank(mesh, job):
+    """``job['config']`` with ``job['knobs']`` on this rank of ``mesh``
+    (a world-size-1 group in the caller's process, or a spawned rank):
+    the special iterations ``0 .. first - 1`` plain; then from their state
+    and pool (``job['first']`` on), a chunk of ``job['chunk']`` iterations
+    fused and one plain, untimed (the capture), then a chunk a turn fused
+    and plain in ``job['turns']``, ms per plain iteration (CUDA events;
+    the host clock on the CPU); then ``bit_runs`` through
+    ``job['last_iter']``, plain and fused, the parameters' digest compared
+    across the ranks after every fused chunk; and ``resume_check`` of the
+    checkpoint the pipelined fused run wrote at
+    ``knobs['checkpoint_interval']``.  Returns what differs (fused against
+    plain, restored and resumed against the fused run's record), whether
+    the ranks agreed and the times."""
+    import time
+    from exposure_tpu_torch.core.trainer import Trainer
+    from exposure_tpu_torch.utils.config import load_config
+    cuda = mesh.device.type == 'cuda'
+    chunk, first, last = job['chunk'], job['first'], job['last_iter']
+    cfg = load_config(job['config'])
+    cfg.update(job['knobs'])
+    cfg.name = job['name']
+    ckpt = cfg.checkpoint_interval
+
+    def trainer_of(**kw):
+        with contextlib.chdir(job['root']):
+            random.seed(job.get('seed', 0))
+            return Trainer(cfg, num_devices=mesh.world,
+                           model_root=job['model_root'],
+                           device=str(mesh.device), **kw)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    trainer = trainer_of()
+    try:
+        trainer.train(last_iter=first - 1)
+        snap = (trainer.state.clone(), trainer.pool)
+        for kind in ('fused', 'plain'):
+            # untimed: the capture, and the first calls of cuDNN and nccl
+            reset(trainer, snap, chunk, 0)
+            dispatch(trainer, kind, first, chunk)
+        ms = {'fused': [], 'plain': []}
+        for kind in job['turns']:
+            reset(trainer, snap, chunk, 0)
+            if cuda:
+                torch.cuda.synchronize(mesh.device)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            dispatch(trainer, kind, first, chunk)
+            if cuda:
+                end.record()
+                end.synchronize()
+                ms[kind].append(start.elapsed_time(end) / chunk)
+            else:
+                ms[kind].append(1e3 * (time.perf_counter() - t0) / chunk)
+        # the bits, with a graph captured under deterministic algorithms
+        trainer._steps = {k: v for k, v in trainer._steps.items()
+                          if k[0] != 'fused'}
+        digests = []
+        run_fused = trainer._run_fused
+
+        def digested(it, n):
+            # the parameters right after each fused chunk (a host sync
+            # there, which moves no bit)
+            out = run_fused(it, n)
+            digests.append(_param_digest(trainer.state))
+            return out
+        trainer._run_fused = digested
+        outs, rows = bit_runs(trainer, snap, chunk, first, last)
+        record = rows.records[ckpt - 1]
+        equal_across = mesh.all_equal(b''.join(digests))
+        runner = trainer._runner(cfg.giters, cfg.citers)
+        captures, replays = runner.captures, runner.replays
+        del runner
+    finally:
+        trainer.close()
+    again = trainer_of(restore=True)
+    try:
+        step, restored, resumed = resume_check(again, record, outs['fused'],
+                                               ckpt, first, last)
+    finally:
+        again.close()
+    return {
+        'rank': mesh.rank, 'world': mesh.world, 'backend': mesh.backend,
+        'ms_per_plain_iteration': ms,
+        'fused_vs_plain_differing': differing(outs['fused'], outs['plain']),
+        'chunks_compared': len(digests),
+        'params_equal_every_chunk': equal_across,
+        'resume_step': step, 'restored_differing': restored,
+        'resumed_differing': resumed,
+        'tensors_compared': len(outs['fused'][0].tensors()),
+        'captures': captures, 'replays': replays,
+    }

@@ -1108,3 +1108,117 @@ def test_a_failed_capture_raises(cuda_device):
                        [0.1] * 2)
         assert runner.graph is None and runner.replays == 0
     assert len(calls) == 2      # each run's warm-up; each capture raised
+
+
+def _test_runs(root, device='cpu'):
+    """Two ``test`` runs checkpointed from initial states (seeds 0, 1)."""
+    import os
+    from exposure_tpu_torch.core.checkpoint import save_checkpoint
+    from exposure_tpu_torch.core.train_state import init_train_state
+    from exposure_tpu_torch.models.networks import build_models
+    cfg = load_config('test')
+    for seed, run in enumerate(('test/a', 'test/b')):
+        state = init_train_state(cfg, *build_models(cfg)[1:], seed=seed)
+        save_checkpoint(os.path.join(root, run), state, 5 + seed)
+    return str(root)
+
+
+@pytest.mark.cuda
+def test_serving_tools_run_on_the_card(cuda_device, tmp_path, monkeypatch):
+    """Each serving and streaming tool's ``main`` at a small size, on the
+    card by default (no ``--device``)."""
+    from exposure_tpu_torch.tools import (
+        bench_dyn_probe,
+        bench_serving_split,
+        bench_stream_device,
+        drive_refreeze,
+        export_serving,
+        probe_selected_plan,
+        warmup_serving,
+    )
+    root = _test_runs(tmp_path / 'models')
+    monkeypatch.chdir(tmp_path)
+    run = ['--run', 'test/a', '--model-root', root]
+    assert export_serving.main(run + ['--out', str(tmp_path / 'a.gz'),
+                                      '--verify']) == 0
+    rep = probe_selected_plan.main(run + ['--batch', '8', '--batches', '2'])
+    assert rep['ids_total'] == 80
+    before = apply_filter_chain_dynamic.launches
+    warm = warmup_serving.main(run + ['--batch', '4', '--res', '64',
+                                      '--probes', '2', '--seeds', '2',
+                                      '--decompose'])
+    assert warm['budget_misses'] >= 0
+    dyn = warmup_serving.main(run + ['--batch', '4', '--res', '64',
+                                     '--seeds', '2', '--dynamic'])
+    assert dyn['mode'] == 'dynamic'
+    assert apply_filter_chain_dynamic.launches > before
+    split = bench_serving_split.main(run + ['--batch', '8', '--res', '64',
+                                            '--runs', '2'])
+    assert split['replay_grouped_ms'] > 0
+    probe = bench_dyn_probe.main(['--batch', '16', '--res', '64'])
+    assert probe['dyn_max_lsb'] <= 1 or probe['dyn_frac_above_1'] <= 1e-4
+    assert drive_refreeze.main(['--run-a', 'test/a', '--run-b', 'test/b',
+                                '--model-root', root, '--batch', '8',
+                                '--res', '64', '--pre', '3', '--post', '12',
+                                '--record', '2', '--recover', '2']) in (0, 1)
+    stream = bench_stream_device.main(['--config', 'test', '--fuse', '2',
+                                       '--disp', '2', '--warm', '1'])
+    assert stream['captures'] == 1 and stream['replays'] > 0
+
+
+@pytest.mark.cuda
+def test_swap_remakes_the_bf16_plan(cuda_device):
+    """``load_policy`` under ``bf16=True``: the plan equals a fresh bf16
+    pipeline's on the new weights bit for bit; loading the weights into
+    ``policy`` alone would go on planning with the old bf16 copy."""
+    import copy
+    from exposure_tpu_torch.core.serving import (
+        RetouchPipeline,
+        batch_generator,
+    )
+    from exposure_tpu_torch.core.train_state import init_train_state
+    from exposure_tpu_torch.models.networks import build_models
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    cfg = load_config('test')
+    policies = []
+    for seed in (0, 1):
+        _, policy, critic, value = build_models(cfg)
+        state = init_train_state(cfg, policy, critic, value, seed)
+        policy.load_state_dict(state.gen_params)
+        policies.append(policy)
+    imgs = torch.randint(0, 256, (8, 64, 64, 3), dtype=torch.uint8,
+                         device=cuda_device)
+    pipe = RetouchPipeline(cfg, copy.deepcopy(policies[0]), bf16=True)
+    fresh = RetouchPipeline(cfg, copy.deepcopy(policies[1]), bf16=True)
+    pipe.load_policy(policies[1].state_dict(), run='b', step=1)
+    with torch.no_grad(), deterministic_algorithms():
+        got = pipe.plan(pipe.proxy(imgs), batch_generator(3, 0, cuda_device))
+        want = fresh.plan(fresh.proxy(imgs),
+                          batch_generator(3, 0, cuda_device))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(pipe(imgs, 3, device_out=True),
+                       fresh(imgs, 3, device_out=True))
+
+
+@pytest.mark.cuda
+def test_runner_records_the_routes_it_ran(cuda_device):
+    """``GroupedChainRunner.routes``: a warm-up's routes, then traffic's;
+    a batch on a warmed route adds none."""
+    from exposure_tpu_torch.ops.grouped_chain import GroupedChainRunner
+    filters = build_filters(load_config('synthetic_explore'))
+    runner = GroupedChainRunner(filters, fused_set_limit=0)
+    sig_a, sig_b = (0, 1, 2, 3, 4), (4, 3, 2, 1, 0)
+    shape = (24, 64, 64, 3)
+    assert runner.warmup([(sig_a, 16), (sig_b, 8)], shape, torch.uint8, 5,
+                         24, device=cuda_device) == 2
+    ids = torch.tensor([sig_a] * 16 + [sig_b] * 8, dtype=torch.int32,
+                       device=cuda_device).T.contiguous()
+    img = torch.randint(0, 256, shape, dtype=torch.uint8, device=cuda_device)
+    params = torch.rand(5, 24, 24, device=cuda_device)
+    runner(img, ids, params)
+    assert runner.last_route['route'] == 'accumulate'
+    assert len(runner.routes) == 2
+    runner(img[:8], ids[:, 16:].contiguous(), params[:, 16:].contiguous())
+    assert ('single', sig_b, 8, (64, 64), 'uint8') in runner.routes
+    assert len(runner.routes) == 3

@@ -6,7 +6,9 @@ the chunk runs its static-buffer body eagerly:
 - a fused chunk equals the same iterations through
   ``Trainer.run_iteration`` bit for bit: every state tensor, the counts,
   the pool and every iteration's metrics; resident, streaming on a float32
-  and a uint8 bundle, and on each rank of a two-rank ``gloo`` world;
+  and a uint8 bundle, and on each rank of a two-rank ``gloo`` world
+  (``tools/parallel_check.py::fused_rank`` too, plain against fused and the
+  resume from the pipelined checkpoint);
 - one chunk against the JAX ``build_fused_iterations_step`` and one against
   ``build_streaming_fused_step`` (N 3, giters 1, citers 2) on the JAX
   steps' own draws replayed, with dropout off, at the tolerances of
@@ -136,6 +138,27 @@ def test_fused_chunk_on_two_gloo_ranks(tmp_path):
         assert np.isfinite(rank['metrics']).all()
     # the metrics are averaged over the ranks
     np.testing.assert_array_equal(ranks[0]['metrics'], ranks[1]['metrics'])
+
+
+def test_parallel_checks_fused_rank_on_two_gloo_ranks(tmp_path):
+    """``tools/parallel_check.py::fused_rank``, which ``chip_smoke.py
+    --world N`` runs on each ``nccl`` card, on two CPU ranks of ``test``:
+    the fused run equals the plain one, the ranks' parameters agree after
+    every chunk, and the checkpoint the pipelined run wrote resumes bit for
+    bit."""
+    from exposure_tpu_torch.tools.parallel_check import fused_rank
+    job = dict(config='test', root=str(tmp_path), seed=0, chunk=2, first=2,
+               last_iter=7, turns=('fused',), name='test/fused_rank',
+               model_root=str(tmp_path / 'models'),
+               knobs=dict(critic_initialization=2, checkpoint_interval=4,
+                          iters_per_dispatch=2, dispatch_pipeline_depth=2))
+    ranks = spawn_ranks(fused_rank, 2, (job,), device='cpu', threads=2,
+                        deadline_s=400, rendezvous_dir=str(tmp_path))
+    for rank in ranks:
+        assert rank['fused_vs_plain_differing'] == []
+        assert rank['restored_differing'] == rank['resumed_differing'] == []
+        assert rank['params_equal_every_chunk'] and rank['resume_step'] == 4
+        assert rank['chunks_compared'] == 3 and rank['captures'] == 0
 
 
 # --- against the JAX fused steps -----------------------------------------

@@ -166,3 +166,16 @@ def test_a_hung_world_fails_at_its_deadline(tmp_path):
         launch.spawn_ranks(W.hang, 2, device='cpu', deadline_s=10, threads=1,
                            rendezvous_dir=str(tmp_path))
     assert time.monotonic() - t0 < 40
+
+
+def test_a_rank_that_does_not_exit_fails_and_prints_its_stack(tmp_path,
+                                                              capfd):
+    """Every result is in, then the ranks do not exit: the world fails
+    after its exit grace, and each rank has printed where it stopped."""
+    with pytest.raises(TimeoutError, match='did not exit within 6 s'):
+        launch.spawn_ranks(W.hang_on_exit, 2, device='cpu', deadline_s=60,
+                           threads=1, rendezvous_dir=str(tmp_path),
+                           exit_grace_s=6)
+    err = capfd.readouterr().err
+    assert err.count('most recent call first') >= 2, err
+    assert 'in _run_finalizers' in err, err

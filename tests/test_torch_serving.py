@@ -407,6 +407,16 @@ def test_port_imports_without_jax_or_flax():
         import exposure_tpu_torch.tools.train_check
         import exposure_tpu_torch.core.fused
         import exposure_tpu_torch.tools.bench_train_split
+        import exposure_tpu_torch.tools.bench_dyn_probe
+        import exposure_tpu_torch.tools.bench_serving_split
+        import exposure_tpu_torch.tools.bench_stream_device
+        import exposure_tpu_torch.tools.drive_refreeze
+        import exposure_tpu_torch.tools.export_serving
+        import exposure_tpu_torch.tools.probe_selected_plan
+        import exposure_tpu_torch.tools.warmup_serving
+        import exposure_tpu_torch.tools.user_study
+        import exposure_tpu_torch.tools.user_study.main
+        import exposure_tpu_torch.parallel.dryrun
         import exposure_tpu_torch.utils.dict_util
         import exposure_tpu_torch.utils.prefetch
         from exposure_tpu_torch.utils.config import CONFIGS, load_config

@@ -252,6 +252,15 @@ def hang(mesh):
     mesh.barrier()
 
 
+def hang_on_exit(mesh):
+    """Hands in its result, then does not exit: a finalizer the process
+    runs on its way out sleeps."""
+    import time
+    from multiprocessing import util
+    util.Finalize(None, time.sleep, args=(600,), exitpriority=0)
+    return mesh.rank
+
+
 def listing(root):
     """Every file under ``root``, relative."""
     return sorted(os.path.relpath(os.path.join(d, f), root)
