@@ -159,7 +159,21 @@ Phases, one line or a few each (a failing phase exits non-zero):
    ``phase_train``'s run: a re-freeze, and the swapped pipeline planning as
    a fresh one on that run bit for bit) and ``bench_stream_device``, each
    at its JAX defaults; the JSON line ``{"serving_tools": ...}``, and
-   K1-K3's launches in it their rows' ``launches_serving_tools``.
+   K1-K3's launches in it their rows' ``launches_serving_tools``;
+15. research probes (``phase_research_probes``, in ``phase_train``'s model
+   root): the port's ``validate_parity`` (seeds 1 and 2 of
+   ``synthetic_explore`` at full width through iteration 12,
+   ``critic_initialization`` cut to 2, fused, then ``--skip-trained``: the
+   same steps and scores), ``diagnose_diversity``
+   (its argmax section against the CPU on the card's dropout draws, at most
+   1% of the ids apart), ``probe_critic_family`` (each critic's score of its
+   own outputs against a CPU rescore, rtol 1e-3), ``validate_selector`` (the
+   repo's ``PARITY_*.json`` and the new report), ``select_policy --truth
+   --promote best`` (the link, and an ``Evaluator`` restoring the winner's
+   checkpoint through it, one replay through K1) and ``ablate_w_usage
+   --drop-filters C`` (a 7-filter run), each a fresh process whose K1
+   launches are counted; the ``{"research_probes": ...}`` line, and K1's
+   row's ``launches_research_probes``.
 
 Every kernel count is set to 0 just before a path is driven (the serving
 modes, and the tools, which are the probes' path) and read just after;
@@ -1384,22 +1398,57 @@ REFREEZE_SEED = 9000    # a dropout stream the drive did not serve
 STREAM_CONFIG = 'example'               # bench_stream_device's
 
 
-def _tool_process(args, timeout):
+# runs ``python -m exposure_tpu_torch.tools.<tool> <args>`` in this
+# interpreter, then prints K1's launches there on its last line of stderr
+_COUNTING_SHIM = '''
+import runpy, sys
+tool = 'exposure_tpu_torch.tools.' + sys.argv[1]
+sys.argv = [tool] + sys.argv[2:]
+try:
+    runpy.run_module(tool, run_name='__main__', alter_sys=True)
+finally:
+    k1 = sys.modules.get('exposure_tpu_torch.ops.dyn_chain')
+    print('# k1_launches %d' % (k1.apply_filter_chain_dynamic.launches
+                                if k1 else 0), file=sys.stderr, flush=True)
+'''
+
+# put before _COUNTING_SHIM: every config the tool loads gets
+# critic_initialization %d, as phase_train cuts its own config
+_CRITIC_CUT = '''
+import exposure_tpu_torch.utils.config as config
+load = config.load_config
+def load_config(*args, **kwargs):
+    cfg = load(*args, **kwargs)
+    cfg.critic_initialization = %d
+    return cfg
+config.load_config = load_config
+'''
+
+
+def _tool_process(args, timeout, out=None, critic_initialization=None):
     """``python -m exposure_tpu_torch.tools.<args>`` from the repo, a
-    fresh process; its JSON report (the ``--out`` file it is given)."""
+    fresh process: ``(its JSON report, K1's launches in that process,
+    seconds)``.  The report is the ``--out`` file it is given, ``out`` or
+    one in a temp dir.  ``critic_initialization``: the cut of the configs
+    the tool loads (``_CRITIC_CUT``), none by default."""
     import tempfile
+    shim = _COUNTING_SHIM if critic_initialization is None else \
+        _CRITIC_CUT % critic_initialization + _COUNTING_SHIM
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, 'report.json')
+        out = out or os.path.join(tmp, 'report.json')
+        t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, '-m', 'exposure_tpu_torch.tools.' + args[0]] +
-            list(args[1:]) + ['--out', out], cwd=REPO, timeout=timeout,
+            [sys.executable, '-c', shim] + list(args) +
+            ['--out', out], cwd=REPO, timeout=timeout,
             env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
             text=True)
-        if proc.returncode != 0:
-            fail('serving tools: %s exited %d: %s' % (
+        seconds = time.perf_counter() - t0
+        counted = re.findall(r'# k1_launches (\d+)', proc.stderr)
+        if proc.returncode != 0 or not counted:
+            fail('tools: %s exited %d: %s' % (
                 ' '.join(args), proc.returncode, proc.stderr[-2000:]))
         with open(out) as f:
-            return json.load(f)
+            return json.load(f), int(counted[-1]), seconds
 
 
 def _sha256(path):
@@ -1543,11 +1592,11 @@ def phase_serving_tools(train):
         numbers['warmup_serving'] = {
             'dynamic': counted('warmup_serving_dynamic', lambda: (
                 _tool_process(('warmup_serving', '--run', ARTIFACT_RUN,
-                               '--dynamic'), WARMUP_TOOL_TIMEOUT_S))),
+                               '--dynamic'), WARMUP_TOOL_TIMEOUT_S)[0])),
             'grouped_superset': counted('warmup_serving_grouped', lambda: (
                 _tool_process(('warmup_serving', '--run', ARTIFACT_RUN,
                                '--superset', '--decompose'),
-                              WARMUP_TOOL_TIMEOUT_S)))}
+                              WARMUP_TOOL_TIMEOUT_S)[0]))}
         numbers['bench_serving_split'] = counted(
             'bench_serving_split',
             lambda: bench_serving_split.main(['--run', ARTIFACT_RUN]))
@@ -1637,6 +1686,397 @@ def phase_serving_tools(train):
     say('serving tools: launches %s; phase %.1f s (budget %d s)' % (
         json.dumps(numbers['launches']), numbers['phase_s'],
         SERVING_TOOLS_BUDGET_S))
+    return numbers
+
+
+RESEARCH_PROBES_BUDGET_S = 180
+RESEARCH_CONFIG = 'synthetic_explore'   # phase_train's config
+RESEARCH_SEEDS = (1, 2)                 # validate_parity's two runs
+RESEARCH_ITERS = 12                     # iterations 0-12 of each run
+RESEARCH_CRITIC_INIT = 2    # cut from 10: over the budget with 10 (PERF.md)
+RESEARCH_N = 256                        # the tools' JAX default
+RESEARCH_TOOL_TIMEOUT_S = 300           # a tool process's
+RESEARCH_ID_FRAC = 0.01                 # card ids off the CPU's (near ties)
+RESEARCH_RESCORE_RTOL = 1e-5    # a critic's logits on the card / CPU, of
+                                # their scale (PERF.md: TF32 fails it)
+ROUNDED = 1e-4 + 1e-9                   # one unit of a report's rounding
+
+def _finite(*values):
+    import numpy as np
+    flat = [x for v in values for x in np.atleast_1d(
+        np.asarray(v, np.float64)).ravel()]
+    return bool(np.isfinite(flat).all())
+
+
+def _card_draws(seed):
+    """The draws of a generator on the card seeded ``seed``, handed to a
+    plan on the CPU, so that the CPU plans under the card's dropout."""
+    import torch
+    from exposure_tpu_torch.utils.draws import Draws
+
+    class CardDraws(Draws):
+        def _kept(self, name, value):
+            return value.cpu()
+    return CardDraws(torch.Generator(device=DEVICE).manual_seed(seed),
+                     device=DEVICE)
+
+
+def _parity_checks(first, again):
+    """validate_parity's two passes: both seeds trained through iteration
+    RESEARCH_ITERS with finite records; the --skip-trained pass restores
+    the same step and scores within the reports' rounding."""
+    import numpy as np
+    runs = {r['seed']: r for r in first['runs']}
+    if sorted(runs) != list(RESEARCH_SEEDS):
+        fail('research probes: validate_parity ran seeds %s' % sorted(runs))
+    worst = 0.0
+    for r in again['runs']:
+        t = runs[r['seed']]
+        if t['iters'] != RESEARCH_ITERS + 1 or r['iters'] != t['iters'] or \
+                not _finite(t['final_emd'], t['final_g_loss'],
+                            *t['quality'].values()):
+            fail('research probes: validate_parity seed %d: iters %d then '
+                 '%d, record %s' % (r['seed'], t['iters'], r['iters'],
+                                    json.dumps(t)))
+        for key, v in t['quality'].items():
+            worst = max(worst, float(np.abs(
+                np.subtract(v, r['quality'][key], dtype=np.float64)).max()))
+        if r['trajectories'] != t['trajectories']:
+            fail('research probes: --skip-trained planned other '
+                 'trajectories for seed %d' % r['seed'])
+    if worst > ROUNDED:
+        fail('research probes: --skip-trained scored %.4g off the trained '
+             'pass' % worst)
+    return worst
+
+
+def _diversity_checks(report, root):
+    """diagnose_diversity's argmax section on the card against ``analyze``
+    on the CPU in this process, on the same inputs and the card's dropout
+    draws: the ids each key's plan picks (at most RESEARCH_ID_FRAC differ),
+    the usage fractions and ``pdf_top1_mean``."""
+    import random
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.core.evaluator import Evaluator
+    from exposure_tpu_torch.core.rollout import rollout
+    from exposure_tpu_torch.tools.diagnose_diversity import analyze
+    from exposure_tpu_torch.utils.config import load_config
+    from exposure_tpu_torch.utils.ops import tf32_off
+    cfg = load_config(RESEARCH_CONFIG)
+    cfg.name = report['run']
+    card = Evaluator(cfg, model_root=root, device=DEVICE)
+    cpu = Evaluator(cfg, state=card.state.to('cpu'), device='cpu')
+    random.seed(0)          # the tool's --seed
+    inputs, _ = cfg.fake_data_provider_test().get_next_batch(RESEARCH_N)
+    want = analyze(cfg, cpu, inputs, keys=report['argmax']['keys'],
+                   generator=_card_draws)['argmax']
+    got = report['argmax']
+    differ = total = 0
+    x = torch.from_numpy(np.asarray(inputs, np.float32))
+    with torch.no_grad(), tf32_off():
+        for k in range(got['keys']):
+            a = rollout(card.policy, x.to(DEVICE), torch.Generator(
+                device=DEVICE).manual_seed(1000 + k), cfg=cfg,
+                filters=card.filters, is_train=0).filter_ids.cpu()
+            b = rollout(cpu.policy, x, _card_draws(1000 + k), cfg=cfg,
+                        filters=cpu.filters, is_train=0).filter_ids
+            differ += int((a != b).sum())
+            total += a.numel()
+    usage = max(abs(got['filter_usage_frac'][f] - v)
+                for f, v in want['filter_usage_frac'].items())
+    top1 = abs(got['pdf_top1_mean'] - want['pdf_top1_mean'])
+    if differ > RESEARCH_ID_FRAC * total or \
+            usage > RESEARCH_ID_FRAC + ROUNDED or top1 > ROUNDED:
+        fail('research probes: diagnose_diversity on the card against the '
+             'CPU: %d of %d ids differ, usage %.4f apart, pdf_top1_mean '
+             '%.4f apart' % (differ, total, usage, top1))
+    return {'ids_differ': differ, 'ids_total': total,
+            'usage_frac_max_diff': usage, 'pdf_top1_mean_diff': top1,
+            'cpu_argmax': want}
+
+
+def _critic_checks(report, runs, root):
+    """probe_critic_family's 3x5 matrix, finite, its consensus ranking a
+    permutation of the runs' outputs; each run's outputs retouched here
+    on the card again (K1) and scored by its critic on the card and on the
+    CPU: each image's logit within RESEARCH_RESCORE_RTOL of the largest
+    logit's magnitude, and the CPU's mean within RESEARCH_RESCORE_RTOL
+    relative (or the report's rounding) of the tool's own score."""
+    import math
+    import random
+    import numpy as np
+    from exposure_tpu_torch.core.evaluator import Evaluator
+    from exposure_tpu_torch.core.serving import batch_generator
+    from exposure_tpu_torch.utils.config import load_config
+    matrix = report['critic_score_matrix']
+    names = ['targets', 'inputs'] + ['out:' + r for r in runs]
+    if sorted(matrix) != sorted('critic:' + r for r in runs) or any(
+            sorted(row) != sorted(names) or not _finite(
+                *[v['mean'] for v in row.values()],
+                *[v['std'] for v in row.values()])
+            for row in matrix.values()) or \
+            sorted(report['consensus_ranking']) != sorted(names[2:]):
+        fail('research probes: probe_critic_family: matrix %s, ranking %s'
+             % (json.dumps(matrix), report['consensus_ranking']))
+    random.seed(0)          # the tool's --seed
+    cfg0 = load_config(RESEARCH_CONFIG)
+    inputs, _ = cfg0.fake_data_provider_test().get_next_batch(RESEARCH_N)
+    inputs = np.clip(inputs, 0.0, 1.0).astype(np.float32)
+    rescored = {}
+    for run in runs:
+        cfg = load_config(RESEARCH_CONFIG)
+        cfg.name = run
+        card = Evaluator(cfg, model_root=root, device=DEVICE)
+        traj, _ = card.plan_trajectory(inputs, batch_generator(0, 0, DEVICE))
+        with _NoPlainVersions():
+            out = np.clip(card.retouch(inputs, traj), 0.0, 1.0)
+        cpu = Evaluator(cfg, state=card.state.to('cpu'), device='cpu')
+        want = cpu.critic_logits(out)
+        got = card.critic_logits(out)
+        mine = float(want.mean())
+        tool = matrix['critic:' + run]['out:' + run]['mean']
+        per_image = float(np.abs(got - want).max() / np.abs(want).max())
+        rescored[run] = {'card_tool': tool, 'cpu_rescore': mine,
+                         'card_here': float(got.mean()),
+                         'per_image_rel': per_image}
+        if per_image > RESEARCH_RESCORE_RTOL or not math.isclose(
+                tool, mine, rel_tol=RESEARCH_RESCORE_RTOL, abs_tol=ROUNDED):
+            fail('research probes: critic %s scores its outputs %.4f on the '
+                 'card, %.6f rescored on the CPU, its logits %.3g of their '
+                 'scale apart' % (run, tool, mine, per_image))
+    return rescored
+
+
+def _selector_checks(report, pools):
+    """validate_selector: comp2 shipped, every pool read with two valid runs
+    in the report and in each selector's aggregate."""
+    kept = sorted(report['pools'])
+    if report['shipped'] != 'comp2' or kept != sorted(pools) or any(
+            a['pools'] != len(kept) for a in report['aggregate'].values()):
+        fail('research probes: validate_selector kept pools %s of %s, '
+             'aggregate %s' % (kept, sorted(pools),
+                               json.dumps(report['aggregate'])))
+
+
+def _promoted_checks(report, root, runs):
+    """select_policy --promote best: the link names the winner that
+    ``winner_by`` names; an Evaluator on ``<config>/best`` restores that
+    run's checkpoint (not the in-repo artifact of the same name) and
+    replays one batch through K1."""
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.core.artifacts import (
+        artifact_path,
+        flax_to_state_dict,
+        has_checkpoint,
+        load_artifact,
+    )
+    from exposure_tpu_torch.core.evaluator import Evaluator
+    from exposure_tpu_torch.core.serving import batch_generator, proxy_resize
+    from exposure_tpu_torch.utils.config import load_config
+    link = os.path.join(root, RESEARCH_CONFIG, 'best')
+    by = report['winner_by']
+    named = report['comp2']['ranking'][0] if by == 'comp2' else \
+        report['consensus_ranking'][0][len('out:'):]
+    target = os.readlink(link) if os.path.islink(link) else None
+    if target != named or report['winner'] != named or named not in runs:
+        fail('research probes: best -> %s, winner %s by %s (%s)' % (
+            target, report['winner'], by, named))
+    run = RESEARCH_CONFIG + '/best'
+    if not has_checkpoint(run, root):
+        fail('research probes: %s has no checkpoint through the link' % run)
+    cfg = load_config(RESEARCH_CONFIG)
+    cfg.name = run
+    best = Evaluator(cfg, model_root=root, device=DEVICE)
+    cfg.name = RESEARCH_CONFIG + '/' + named
+    src = Evaluator(cfg, model_root=root, device=DEVICE)
+    differ = [k for k, v in src.state.tensors().items()
+              if not torch.equal(best.state.tensors()[k], v)]
+    # the in-repo artifact of the same name, which the lookup must not take
+    shipped = os.path.join(REPO, artifact_path(run))
+    shipped = flax_to_state_dict(load_artifact(shipped)['gen_params']) \
+        if os.path.exists(shipped) else None
+    if differ or best.state.step != src.state.step or shipped and all(
+            torch.equal(best.state.gen_params[k].cpu(), v)
+            for k, v in shipped.items()):
+        fail('research probes: %s restored other weights than %s (%d '
+             'tensors differ) or the artifact\'s' % (run, named, len(differ)))
+    imgs = np.random.default_rng(SEED + 12).random(
+        (8, RES, RES, 3), dtype=np.float32)
+    proxies = proxy_resize(torch.from_numpy(imgs), cfg.source_img_size)
+    traj, _ = best.plan_trajectory(proxies, batch_generator(SEED, 0, DEVICE))
+    reset_counts()
+    with _NoPlainVersions():
+        out = best.retouch(imgs, traj)
+    torch.cuda.synchronize()
+    launches = read_counts()['dyn_chain']
+    if launches != 1 or out.shape != imgs.shape or \
+            not np.isfinite(out).all():
+        fail('research probes: the promoted run replayed %s with %d K1 '
+             'launches' % (out.shape, launches))
+    return {'step': best.state.step, 'tensors_equal': len(
+        src.state.tensors()), 'replay_k1_launches': launches}
+
+
+def phase_research_probes(training):
+    """The research probes of ``exposure_tpu_torch/tools`` on the card, each
+    through its command line in a fresh process (``_tool_process``, which
+    also counts K1's launches there), in ``phase_train``'s model root
+    (``training['model_root']``, beside its run ``synthetic_explore/smoke``),
+    reports into a temp dir:
+
+    (a) ``validate_parity`` trains seeds 1 and 2 of ``synthetic_explore``
+        at full width through iteration 12 (``critic_initialization`` cut
+        to ``RESEARCH_CRITIC_INIT``, so that iterations 2-12 run the
+        config's fused dispatch) and scores them (n 256), then
+        ``--skip-trained`` restores both: ``iters`` equal, quality within
+        the reports' rounding;
+    (b) ``diagnose_diversity`` on ``parity-seed1`` (n 256, 4 keys): its
+        argmax section against ``analyze`` on the CPU here, on the card's
+        dropout draws (``_diversity_checks``);
+    (c) ``probe_critic_family`` over ``smoke``, ``parity-seed1`` and
+        ``parity-seed2`` (``_critic_checks``);
+    (d) ``validate_selector`` on the repo's ``PARITY_*.json`` and (a)'s
+        report (``_selector_checks``);
+    (e) ``select_policy --truth <(a)> --promote best`` over the three runs
+        (``_promoted_checks``);
+    (f) ``ablate_w_usage --iters 12 --drop-filters C`` (the same cut): a
+        7-filter ``synthetic`` run at full width; no ``C`` in the usage, the
+        W fractions in [0, 1].
+
+    Returns the ``{"research_probes": ...}`` line's numbers."""
+    import glob
+    import tempfile
+    t_phase = time.perf_counter()
+    _release()
+    root = training['model_root']
+    smoke = training['run']
+    runs = [smoke] + ['%s/parity-seed%d' % (RESEARCH_CONFIG, s)
+                      for s in RESEARCH_SEEDS]
+    numbers = {'seconds': {}, 'k1_launches': {},
+               'critic_initialization_cut_to': RESEARCH_CRITIC_INIT}
+
+    def tool(name, args, out, cut=None):
+        report, k1, seconds = _tool_process(
+            (name,) + tuple(args), RESEARCH_TOOL_TIMEOUT_S, out, cut)
+        numbers['seconds'][name] = numbers['seconds'].get(name, 0.0) + \
+            seconds
+        numbers['k1_launches'][name] = numbers['k1_launches'].get(
+            name, 0) + k1
+        return report
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def at(name):
+            return os.path.join(tmp, name)
+
+        parity = ('--config', RESEARCH_CONFIG, '--seeds') + tuple(
+            map(str, RESEARCH_SEEDS)) + ('--iters', str(RESEARCH_ITERS),
+                                         '--n-eval', str(RESEARCH_N),
+                                         '--model-root', root)
+        first = tool('validate_parity', parity, at('parity.json'),
+                     RESEARCH_CRITIC_INIT)
+        again = tool('validate_parity', parity + ('--skip-trained',),
+                     at('parity_again.json'), RESEARCH_CRITIC_INIT)
+        numbers['validate_parity'] = {
+            'runs': first['runs'], 'summary': first['summary'],
+            'skip_trained_max_diff': _parity_checks(first, again)}
+
+        diversity = tool('diagnose_diversity', (
+            '--run', runs[1], '--n', str(RESEARCH_N), '--keys', '4',
+            '--model-root', root), at('diversity.json'))[-1]
+        numbers['diagnose_diversity'] = dict(
+            diversity, card_against_cpu=_diversity_checks(diversity, root))
+
+        probe = tool('probe_critic_family', ('--runs',) + tuple(runs) + (
+            '--n', str(RESEARCH_N), '--model-root', root), at('probe.json'))
+        reset_counts()
+        rescored = _critic_checks(probe, runs, root)
+        numbers['k1_launches']['critic_rescore_here'] = \
+            read_counts()['dyn_chain']
+        numbers['probe_critic_family'] = {
+            'critic_score_matrix': probe['critic_score_matrix'],
+            'consensus_ranking': probe['consensus_ranking'],
+            'filter_usage': probe['filter_usage'], 'rescored': rescored}
+
+        pools = sorted(glob.glob(os.path.join(REPO, 'PARITY_*.json'))) + \
+            [at('parity.json')]
+        selector = tool('validate_selector', ('--pools',) + tuple(pools) + (
+            '--min-n', '2'), at('selector.json'))
+        _selector_checks(selector, pools)
+        numbers['validate_selector'] = {
+            'pools': len(selector['pools']),
+            'comp2': selector['aggregate']['comp2'],
+            'this_run_comp2': selector['pools'][at('parity.json')][
+                'selectors']['comp2']}
+
+        names = [r.split('/', 1)[1] for r in runs]
+        select = tool('select_policy', (
+            '--config', RESEARCH_CONFIG, '--runs') + tuple(names) + (
+            '--n', str(RESEARCH_N), '--model-root', root, '--truth',
+            at('parity.json'), '--promote', 'best'), at('select.json'))
+        promoted = _promoted_checks(select, root, names)
+        numbers['k1_launches']['promoted_replay_here'] = \
+            promoted['replay_k1_launches']
+        numbers['select_policy'] = dict(
+            {k: select[k] for k in (
+                'verdict', 'winner', 'winner_by', 'family_separation',
+                'consensus_ranking', 'comp2', 'spearman_vs_truth',
+                'truth_winner') if k in select}, promoted=promoted)
+
+        ablation = tool('ablate_w_usage', (
+            '--iters', str(RESEARCH_ITERS), '--n', str(RESEARCH_N),
+            '--drop-filters', 'C', '--model-root', at('ablation')),
+            at('ablation.json'), RESEARCH_CRITIC_INIT)
+        usage = ablation['argmax']['filter_usage_frac']
+        w = [usage.get('W', 0.0)] + [
+            v for cast in ablation['gray_shift_ablation'].values()
+            for v in cast.values()]
+        if ablation['iters'] != RESEARCH_ITERS + 1 or 'C' in usage or \
+                len(usage) != 7 or not all(0.0 <= v <= 1.0 for v in w):
+            fail('research probes: ablate_w_usage: %s' % json.dumps(ablation))
+        numbers['ablate_w_usage'] = ablation
+    numbers['k1_launches_total'] = sum(numbers['k1_launches'].values())
+    if not numbers['k1_launches_total']:
+        fail('research probes: K1 never launched')
+    numbers['phase_s'] = time.perf_counter() - t_phase
+    by = numbers['select_policy']
+    say('research probes: validate_parity seeds %s at full width through '
+        'iteration %d (critic_initialization cut to %d, then the fused '
+        'dispatch): avg_after %s, final EMD %s; --skip-trained within %.2g'
+        % (list(RESEARCH_SEEDS), RESEARCH_ITERS, RESEARCH_CRITIC_INIT,
+            [r['quality']['avg_after'] for r in first['runs']],
+            [r.get('final_emd') for r in first['runs']],
+            numbers['validate_parity']['skip_trained_max_diff']))
+    div = numbers['diagnose_diversity']
+    say('research probes: diagnose_diversity %s: key flips %.4f, pdf top-1 '
+        '%.4f; card against CPU on the card\'s draws: %d of %d ids differ, '
+        'pdf_top1_mean %.2g apart; W on casts %s' % (
+            runs[1], div['argmax']['key_flip_frac'],
+            div['argmax']['pdf_top1_mean'],
+            div['card_against_cpu']['ids_differ'],
+            div['card_against_cpu']['ids_total'],
+            div['card_against_cpu']['pdf_top1_mean_diff'],
+            json.dumps(div['gray_shift_ablation'])))
+    say('research probes: probe_critic_family consensus %s; own-output '
+        'scores, card against CPU rescore: %s' % (
+            probe['consensus_ranking'], json.dumps(rescored)))
+    say('research probes: validate_selector %d pools, comp2 %s; '
+        'select_policy verdict %s, winner %s by %s, promoted run restored '
+        'from its checkpoint (step %d, %d tensors equal) and replayed '
+        'through K1' % (
+            numbers['validate_selector']['pools'],
+            json.dumps(numbers['validate_selector']['comp2']), by['verdict'],
+            by['winner'], by['winner_by'], promoted['step'],
+            promoted['tensors_equal']))
+    say('research probes: ablate_w_usage -noC, 7 filters: usage %s, W on '
+        'casts %s' % (json.dumps(usage),
+                      json.dumps(ablation['gray_shift_ablation'])))
+    say('research probes: seconds %s; K1 launches %s (%d); phase %.1f s '
+        '(budget %d s)' % (
+            json.dumps(numbers['seconds']), json.dumps(
+                numbers['k1_launches']), numbers['k1_launches_total'],
+            numbers['phase_s'], RESEARCH_PROBES_BUDGET_S))
     return numbers
 
 
@@ -3688,6 +4128,7 @@ def main():
         phase_bf16_plan(batches)
         del batches
         tools = phase_serving_tools(training)
+        research = phase_research_probes(training)
     say('total %.1f s' % (time.perf_counter() - t_start))
     shape = '[%d, %d, %d, 3] u8, K=5' % (BATCH, RES, RES)
     for name in totals:     # the paths: main, modes, probe tools, tools
@@ -3752,6 +4193,7 @@ def main():
     say(json.dumps({'parallel': parallel}))
     say(json.dumps({'fused': dict(fused, card=card)}))
     say(json.dumps({'serving_tools': dict(tools, card=card)}))
+    say(json.dumps({'research_probes': dict(research, card=card)}))
     served = parallel['launches']
     by_tools = tools['launches']
     proxy = PROXY_CASE[0]
@@ -3764,7 +4206,8 @@ def main():
                     k1_main['replay'] + totals['dyn_chain'] +
                     evaluation['launches'] + training['launches_serve'] +
                     data['launches_serve'] + served['dyn_chain'] +
-                    fused['launches_serve'] + by_tools['dyn_chain'],
+                    fused['launches_serve'] + by_tools['dyn_chain'] +
+                    research['k1_launches_total'],
                     'dyn_chain', 'dyn_chain_kernel',
                     launches_main_path_replay=k1_main['replay'],
                     launches_other_paths=totals['dyn_chain'],
@@ -3773,7 +4216,8 @@ def main():
                     launches_streaming_serve=data['launches_serve'],
                     launches_parallel_serve=served['dyn_chain'],
                     launches_fused_serve=fused['launches_serve'],
-                    launches_serving_tools=by_tools['dyn_chain']),
+                    launches_serving_tools=by_tools['dyn_chain'],
+                    launches_research_probes=research['k1_launches_total']),
         # the same kernel on one full-resolution image, the evaluator's
         # replay: every launch of the evaluation path (its sizes vary; the
         # time is this shape's)

@@ -10,6 +10,12 @@ of the JAX package, which the port does not import, so the port reads its
 own table (``exposure_tpu_torch/utils/config.py``) and says so when a
 snapshot exists.
 
+As the JAX evaluator does, it restores the run's whole train state (the
+checkpoint's generator, critic, value net and their Adam moments onto a
+state initialised from the config's seed, or the artifact's generator
+beside an untrained critic), though only the policy retouches: a checkpoint
+whose critic or optimizer tree differs from the config fails to restore.
+
 Writes, per input, ``<name>.linear.png``, ``.input_tone_mapped.png``,
 ``.intermediateNN.png`` (step by step), ``.retouched.png``, ``.steps.png``
 and ``<name>_debug.pkl`` into ``--output-dir``; with ``--batched`` the

@@ -15,10 +15,12 @@ and ``flax_critic_to_state_dict`` map the flax trees onto
 ``critic_state_dict_to_flax`` map back (training checkpoints,
 ``core/checkpoint.py``, use them too).
 
-``restore_for_serving`` is the by-run lookup the evaluator and
-``RetouchPipeline.from_run`` use: the newest training checkpoint under
+``restore_for_serving`` is the by-run lookup ``RetouchPipeline.from_run``
+and the tools use: the newest training checkpoint under
 ``models/<config>/<run>`` when there is one, the artifact of
 ``<config>/<run>`` under ``artifacts/serving/`` otherwise.
+``restore_train_state`` reads the evaluator's whole train state from the
+same source; ``_source`` alone decides which.
 ``export_serving_artifact`` writes an artifact from a ``TrainState`` and
 ``restore_serving_artifact`` reads one back into a template state.
 """
@@ -52,31 +54,61 @@ def has_checkpoint(run, model_root='models'):
         _CHECKPOINT_FILE.match(p) for p in os.listdir(directory))
 
 
-def has_trained_params(run, model_root='models'):
-    """True when either a checkpoint or a serving artifact exists."""
-    return has_checkpoint(run, model_root) or \
-        os.path.exists(artifact_path(run))
-
-
-def restore_for_serving(run, model_root='models', ckpt=None):
-    """The trained policy weights of ``<config>/<run>``: ``(PolicyNet
-    state_dict, step, source)``.  The checkpoint when there is one (step
-    ``ckpt``, or the newest readable), the serving artifact otherwise, as
-    the JAX ``restore_for_serving`` does; ``FileNotFoundError`` when there
-    is neither."""
-    from exposure_tpu_torch.core.checkpoint import read_checkpoint
+def _source(run, model_root='models', ckpt=None):
+    """Where the trained weights of ``<config>/<run>`` come from, as the JAX
+    ``restore_for_serving`` chooses: ``('checkpoint', directory)`` when a
+    step ``ckpt`` is asked for or the run has a checkpoint under
+    ``model_root``, else ``('artifact', path)`` when its serving artifact
+    exists; ``FileNotFoundError`` when there is neither."""
     directory = os.path.join(model_root, run)
     if ckpt is not None or has_checkpoint(run, model_root):
-        tree, step = read_checkpoint(directory, ckpt)
-        return flax_to_state_dict(tree['gen_params']), step, 'checkpoint'
+        return 'checkpoint', directory
     path = artifact_path(run)
     if not os.path.exists(path):
         raise FileNotFoundError(
             'no checkpoint under %s and no artifact at %s'
             % (directory, path))
-    payload = load_artifact(path)
+    return 'artifact', path
+
+
+def has_trained_params(run, model_root='models'):
+    """True when either a checkpoint or a serving artifact exists."""
+    try:
+        _source(run, model_root)
+    except FileNotFoundError:
+        return False
+    return True
+
+
+def restore_for_serving(run, model_root='models', ckpt=None):
+    """The trained policy weights of ``<config>/<run>``: ``(PolicyNet
+    state_dict, step, source)``, from the source ``_source`` names (the
+    checkpoint at step ``ckpt`` or the newest readable, else the serving
+    artifact), as the JAX ``restore_for_serving`` does."""
+    from exposure_tpu_torch.core.checkpoint import read_checkpoint
+    source, where = _source(run, model_root, ckpt)
+    if source == 'checkpoint':
+        tree, step = read_checkpoint(where, ckpt)
+        return flax_to_state_dict(tree['gen_params']), step, source
+    payload = load_artifact(where)
     return (flax_to_state_dict(payload['gen_params']), int(payload['step']),
-            'artifact')
+            source)
+
+
+def restore_train_state(run, template_state, model_root='models',
+                        ckpt=None):
+    """The whole ``TrainState`` of ``<config>/<run>``: ``(state, step,
+    source)``, as the JAX ``restore_for_serving`` returns it, from the
+    source ``_source`` names: the checkpoint restored onto
+    ``template_state``, or the template with the serving artifact's
+    generator (its critic and value net stay the template's)."""
+    from exposure_tpu_torch.core.checkpoint import restore_checkpoint
+    source, where = _source(run, model_root, ckpt)
+    if source == 'checkpoint':
+        state, step = restore_checkpoint(where, template_state, ckpt)
+    else:
+        state, step = restore_serving_artifact(where, template_state)
+    return state, step, source
 
 
 def export_serving_artifact(run, state, step, path=None, dtype=np.float32):

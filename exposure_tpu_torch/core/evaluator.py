@@ -30,9 +30,15 @@ of ``core/serving.py::proxy_resize`` (equal to ``jax.image.resize(...,
 (no antialiasing) when ``cv2`` is installed, so its proxies depend on the
 machine; the port's do not.
 
-TF32 is turned off around the plan (it flips near-tie argmax decisions) and
-restored after it.  Dropout stays on at evaluation, as in the reference,
-drawn from ``core/serving.py::batch_generator(seed, 0, device)``.
+State.  As in the JAX evaluator, ``Evaluator.state`` is the run's whole
+``TrainState`` (``core/train_state.py``), restored from its checkpoint or
+given by the caller; ``critic_logits`` scores a batch with its critic
+(``probe_critic_family`` and ``select_policy`` rank policies so).
+
+TF32 is turned off around the plan and the critic (it flips near-tie argmax
+decisions) and restored after them.  Dropout stays on at evaluation, as in
+the reference, drawn from ``core/serving.py::batch_generator(seed, 0,
+device)``.
 
 Outputs per input file: ``.linear.png``, ``.input_tone_mapped.png``,
 ``.retouched.png``, optional ``.intermediateNN.png``, the ``.steps.png``
@@ -52,9 +58,11 @@ import time
 import numpy as np
 import torch
 
-from exposure_tpu_torch.core.artifacts import restore_for_serving
+from exposure_tpu_torch.core.artifacts import restore_train_state
+from exposure_tpu_torch.core.losses import apply
 from exposure_tpu_torch.core.rollout import rollout
 from exposure_tpu_torch.core.serving import batch_generator, proxy_resize
+from exposure_tpu_torch.core.train_state import init_train_state
 from exposure_tpu_torch.models.networks import build_models
 from exposure_tpu_torch.ops.chain import apply_filter_chain, apply_filter_step
 from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
@@ -109,11 +117,17 @@ def _host(x):
 
 class Evaluator:
 
-    def __init__(self, cfg, model_root='models', ckpt=None, policy=None,
-                 device='cuda', fast_math=False):
-        """``policy``: a ``PolicyNet`` with its weights loaded; without one
-        the weights of ``cfg.name`` (``<config>/<run>``) are restored by
-        ``core/artifacts.py::restore_for_serving``."""
+    def __init__(self, cfg, model_root='models', ckpt=None, state=None,
+                 policy=None, device='cuda', fast_math=False):
+        """``self.state`` is a ``TrainState``, as in the JAX evaluator:
+        ``state`` when given; otherwise the run ``cfg.name``
+        (``<config>/<run>``) restored by
+        ``core/artifacts.py::restore_train_state`` onto a state initialised
+        from ``cfg.seed``: the checkpoint's whole state, or the artifact's
+        generator beside an untrained critic and value net.  The policy
+        serves ``state.gen_params``.  ``policy``: a ``PolicyNet`` with its
+        weights loaded, served as it is, with no train state (``self.state``
+        None) and the critic left on the host."""
         self.cfg = cfg
         self.dir = os.path.join(model_root, cfg.name)
         self.device = torch.device(device)
@@ -125,11 +139,23 @@ class Evaluator:
         self.masking = bool(cfg.masking)
         self.filters, built, self.critic, self.value = build_models(cfg)
         if policy is None:
+            if state is None:
+                template = init_train_state(cfg, built, self.critic,
+                                            self.value, cfg.get('seed', 0))
+                state, step, src = restore_train_state(
+                    cfg.name, template, model_root, ckpt)
+                print('# restored %s at step %d (%s)' % (self.dir, step, src))
+                if src == 'artifact':
+                    print('# %s: the artifact holds the policy alone; the '
+                          'critic and the value net are untrained (seed %d)'
+                          % (cfg.name, cfg.get('seed', 0)))
+            state = state.to(self.device)
             policy = built
-            sd, step, src = restore_for_serving(cfg.name, model_root, ckpt)
-            policy.load_state_dict(sd)
-            print('# restored %s at step %d (%s)' % (self.dir, step, src))
+            policy.load_state_dict(state.gen_params)
+        self.state = state
         self.policy = policy.to(self.device).eval()
+        if state is not None:
+            self.critic = self.critic.to(self.device).eval()
         self.seconds = collections.defaultdict(float)
 
     @contextlib.contextmanager
@@ -199,6 +225,17 @@ class Evaluator:
         for i in range(1, k):
             active[i] = active[i - 1] * (~stopped[i - 1])
         return active
+
+    @torch.no_grad()
+    def critic_logits(self, images):
+        """The critic's logits ([B, 1] numpy) of [B, S, S, 3] float32
+        images, on ``self.state.crit_params``, TF32 off."""
+        if self.state is None:
+            raise ValueError('an Evaluator given policy= has no train state, '
+                             'so no critic weights')
+        x = torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
+        with tf32_off():
+            return _host(apply(self.critic, self.state.crit_params, x))
 
     @torch.no_grad()
     def retouch(self, high_res_batch, traj):

@@ -164,6 +164,18 @@ def entry_device(device):
     return tool_device(torch.device(device).type == 'cpu')
 
 
+def require_trained(run, model_root='models'):
+    """Exit non-zero naming ``<config>/<run>`` unless it has a checkpoint
+    under ``model_root`` or an in-repo serving artifact: a tool never
+    studies another run in its place."""
+    from exposure_tpu_torch.core.artifacts import has_trained_params
+    if not has_trained_params(run, model_root):
+        sys.exit('run %s not found under %s: train it first (train_torch.py, '
+                 'or python -m exposure_tpu_torch.tools.validate_parity for '
+                 '<config>/parity-seed<k>), or pass --model-root'
+                 % (run, model_root))
+
+
 def served_policy(run, model_root='models', device='cpu'):
     """``(cfg, filters, policy, step, source)`` of the trained run
     ``<config>/<run>``: its newest checkpoint under ``model_root``, or its

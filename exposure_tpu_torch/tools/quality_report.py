@@ -7,7 +7,8 @@ before and after retouching: the "did training actually move the
 distribution toward the artist" check.  The inputs and targets come from
 the config's ``fake_data_provider_test`` and ``real_data_provider``; the
 outputs are the planned trajectories' final proxies, on the card unless
-``device='cpu'`` is asked for.
+``device='cpu'`` is asked for.  ``state`` (a ``TrainState``) or ``policy``
+is served in place of the run's restored weights.
 
 Usage: python -m exposure_tpu_torch.tools.quality_report <config> <run-name>
        [--n 256] [--ckpt STEP] [--device cpu]
@@ -25,7 +26,7 @@ from exposure_tpu_torch.utils.config import load_config
 
 
 def quality_report(cfg, n=256, ckpt=None, model_root='models', seed=0,
-                   policy=None, device='cuda'):
+                   state=None, policy=None, device='cuda'):
     fake_test = cfg.fake_data_provider_test()
     supervised = bool(cfg.get('supervised', False))
     if supervised:
@@ -38,8 +39,8 @@ def quality_report(cfg, n=256, ckpt=None, model_root='models', seed=0,
         inputs, _ = fake_test.get_next_batch(n)
         targets, _ = real.get_next_batch(n)
 
-    ev = Evaluator(cfg, model_root=model_root, ckpt=ckpt, policy=policy,
-                   device=device)
+    ev = Evaluator(cfg, model_root=model_root, ckpt=ckpt, state=state,
+                   policy=policy, device=device)
     traj, applied = ev.plan_trajectory(
         inputs, batch_generator(seed, 0, ev.device))
     outputs = traj.final_image.cpu().numpy()

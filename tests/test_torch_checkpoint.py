@@ -10,7 +10,8 @@ on the CPU.
   file, no ``.tmp`` left behind, a missing directory and a tree that does
   not fit the template raise;
 - ``restore_for_serving`` and ``RetouchPipeline.from_run`` take the
-  checkpoint when there is one, the artifact otherwise.
+  checkpoint when there is one, the artifact otherwise, and
+  ``restore_train_state`` takes the same source.
 """
 
 import os
@@ -170,3 +171,38 @@ def test_serving_takes_the_checkpoint_then_the_artifact(states, tmp_path,
     assert pipe.step == 8
     for k, v in pipe.policy.state_dict().items():
         assert torch.equal(v, moved.gen_params[k]), k
+
+
+def test_train_state_takes_the_source_serving_takes(states, tmp_path,
+                                                    monkeypatch):
+    """``restore_train_state`` reads where ``restore_for_serving`` reads:
+    neither finds a run with no checkpoint and no artifact; the artifact
+    gives its generator over the template's critic; the checkpoint gives
+    its whole state; both report the same step and source."""
+    _, _, _, _, tstate = states
+    run, root = 'test/whole', str(tmp_path / 'models')
+    monkeypatch.chdir(tmp_path)     # the artifact goes under artifacts/
+    template = tstate.replace(crit_params={
+        k: torch.zeros_like(v) for k, v in tstate.crit_params.items()})
+
+    def crit_equal(state, want):
+        return all(torch.equal(v, want.crit_params[k])
+                   for k, v in state.crit_params.items())
+    assert not tart.has_trained_params(run, root)
+    for restore in (lambda: tart.restore_for_serving(run, root),
+                    lambda: tart.restore_train_state(run, template, root)):
+        with pytest.raises(FileNotFoundError, match='no checkpoint under'):
+            restore()
+    tart.export_serving_artifact(run, tstate, 4)
+    assert tart.has_trained_params(run, root)
+    state, step, source = tart.restore_train_state(run, template, root)
+    assert (step, source) == (4, 'artifact') == \
+        tart.restore_for_serving(run, root)[1:]
+    assert all(torch.equal(v, tstate.gen_params[k])
+               for k, v in state.gen_params.items())
+    assert crit_equal(state, template) and not crit_equal(state, tstate)
+    tck.save_checkpoint(os.path.join(root, run), tstate, 8)
+    state, step, source = tart.restore_train_state(run, template, root)
+    assert (step, source) == (8, 'checkpoint') == \
+        tart.restore_for_serving(run, root)[1:]
+    assert crit_equal(state, tstate)

@@ -1222,3 +1222,35 @@ def test_runner_records_the_routes_it_ran(cuda_device):
     runner(img[:8], ids[:, 16:].contiguous(), params[:, 16:].contiguous())
     assert ('single', sig_b, 8, (64, 64), 'uint8') in runner.routes
     assert len(runner.routes) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('config', ['test', 'synthetic_explore'])
+def test_critic_scores_on_the_card_as_on_the_cpu(cuda_device, config):
+    """``Evaluator.critic_logits``, which ``probe_critic_family`` and
+    ``select_policy`` rank runs by: the card's logits (TF32 off) within
+    1e-4 relative of the CPU's on the same train state and images."""
+    from exposure_tpu_torch.core.evaluator import Evaluator
+    from exposure_tpu_torch.core.train_state import init_train_state
+    from exposure_tpu_torch.models.networks import build_models
+    cfg = load_config(config)
+    cfg.name = config + '/none'
+    state = init_train_state(cfg, *build_models(cfg)[1:], 4)
+    state = state.replace(crit_params={
+        k: v * 1.01 + 1e-3 for k, v in state.crit_params.items()})
+    imgs = np.random.RandomState(5).rand(64, 64, 64, 3).astype(np.float32)
+    card = Evaluator(cfg, state=state, device=cuda_device)
+    cpu = Evaluator(cfg, state=state, device='cpu')
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    # TF32 asked for around the call: critic_logits turns it off inside
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = card.critic_logits(imgs)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    want = cpu.critic_logits(imgs)
+    assert got.shape == want.shape == (64, 1)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)

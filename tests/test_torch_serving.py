@@ -414,6 +414,12 @@ def test_port_imports_without_jax_or_flax():
         import exposure_tpu_torch.tools.export_serving
         import exposure_tpu_torch.tools.probe_selected_plan
         import exposure_tpu_torch.tools.warmup_serving
+        import exposure_tpu_torch.tools.ablate_w_usage
+        import exposure_tpu_torch.tools.diagnose_diversity
+        import exposure_tpu_torch.tools.probe_critic_family
+        import exposure_tpu_torch.tools.select_policy
+        import exposure_tpu_torch.tools.validate_parity
+        import exposure_tpu_torch.tools.validate_selector
         import exposure_tpu_torch.tools.user_study
         import exposure_tpu_torch.tools.user_study.main
         import exposure_tpu_torch.parallel.dryrun

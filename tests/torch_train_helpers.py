@@ -287,3 +287,26 @@ def check_ranks_equal(ranks):
         for k, v in ranks[0]['tensors'].items():
             np.testing.assert_array_equal(rank['tensors'][k], v, err_msg=k)
         np.testing.assert_array_equal(rank['metrics'], ranks[0]['metrics'])
+
+
+@pytest.fixture
+def dropout_off(monkeypatch):
+    """``load_config`` of both packages with ``dropout_keep_prob`` 1.0,
+    where the research probes look it up (the JAX ``probe_critic_family``
+    and ``select_policy`` import it at module level)."""
+    import exposure_tpu.utils.config as jconf
+    import exposure_tpu_torch.utils.config as tconf
+    from exposure_tpu.tools import probe_critic_family, select_policy
+
+    def off(real):
+        def load(name):
+            cfg = real(name)
+            cfg.dropout_keep_prob = 1.0
+            return cfg
+        return load
+    j_load, t_load = off(jconf.load_config), off(tconf.load_config)
+    monkeypatch.setattr(jconf, 'load_config', j_load)
+    monkeypatch.setattr(tconf, 'load_config', t_load)
+    for mod in (probe_critic_family, select_policy):
+        monkeypatch.setattr(mod, 'load_config', j_load)
+    return j_load, t_load
