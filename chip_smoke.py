@@ -132,11 +132,12 @@ Phases, one line or a few each (a failing phase exits non-zero):
 10. main path: the trained ``synthetic_explore`` policy served from the
    in-repo artifact at full width on B=512 batches of seeded 512x512 u8
    images through ``RetouchPipeline.map_batches`` (dynamic, selected
-   plan), dropout on; checks the output, the K1 launch count, read around
-   each plan and each replay (6 per batch: 5 proxy steps in the plan + 1
-   replay), the replay against the plain version, no
-   host sync, and prints img/s and its split across resize, plan and
-   replay;
+   plan), dropout on, each batch one replay of a CUDA graph that
+   ``warmup`` captured (``core/serving_graph.py``); checks the output, the
+   K1 executions (6 per batch: 5 proxy steps in the plan + 1 replay; the
+   launches each stage recorded in the capture times the replays), the
+   replay against the plain version, no host sync, and prints img/s and
+   its split across resize, plan and replay;
 11. modes: the same artifact and batches through the dynamic mode with the
    bank plan, the switch mode, the grouped mode, the grouped mode with
    ``warmup(superset=True)`` and the auto-superset mode
@@ -150,6 +151,16 @@ Phases, one line or a few each (a failing phase exits non-zero):
    (slot overflow, a missing signature, an empty slot, the K2 merge) and
    through the accumulate route (``merge_below``), against K1;
 13. bf16 plan: the served plan in bfloat16 against the f32 plan;
+13b. serving graph (``phase_serving_graph``): the dynamic selected-plan,
+   dynamic bank-plan and switch modes (a batch one CUDA graph) and the
+   grouped mode (its plan one graph) against ``graphs=False``: outputs and
+   plans bit for bit under deterministic algorithms (a second per-call run
+   the control), one capture a mode, executions per batch, then host launch
+   calls, device-busy ms, the idle share (``torch.profiler``) and img/s
+   (CUDA events) of both, the static buffers' copies, and
+   ``load_policy`` under a live graph equal to a fresh pipeline on the new
+   weights in f32 and bf16; the JSON line ``{"serving_graph": ...}``, and
+   K1's and K2's executions in it their rows' ``launches_serving_graph``;
 14. serving tools (``phase_serving_tools``): the port's ``export_serving``
    (``phase_train``'s run at float32 and float16, verified),
    ``probe_selected_plan``, ``warmup_serving`` (fresh processes,
@@ -177,7 +188,9 @@ Phases, one line or a few each (a failing phase exits non-zero):
 
 Every kernel count is set to 0 just before a path is driven (the serving
 modes, and the tools, which are the probes' path) and read just after;
-the comparisons with the plain versions do not count.  The line
+the comparisons with the plain versions do not count.  A count is of
+executions: a wrapper's launches, less those a graph's capture recorded,
+plus those its replays ran (``read_counts``).  The line
 before the last is a JSON summary of every kernel: launches, error, time
 beside its plain version's, its H100 bound (``ops/dyn_chain.py::chain_cost``
 for the chains, ``probe_cost`` for the probes; ``tools.bound_ms``) and the
@@ -190,11 +203,13 @@ entry lists its timed cases one by one under ``cases``.  The last line is
 ``--turns PARENT`` runs the main path and the five modes of another
 checkout (``PARENT``, e.g. ``git archive`` of the parent commit) and of
 this one in turns, parent, change, change, parent, and compares the two
-trees' main-path outputs value by value, and their kernels' outputs: one
+trees' main-path outputs and fixed-plan replays value by value, each
+mode's outputs by digest, and their kernels' outputs: one
 step of every branch of both banks through K1 and through K2 in bf16, K2 in
-f32 and bf16 on every case of phase 4, and every probe case.  A kernel
-output with a value that differs from the parent's fails the run, unless
-``TURNS_MAY_DIFFER`` names it.  Each turn also times every kernel, so the two
+f32 and bf16 on every case of phase 4, and every probe case.  An output
+with a value that differs from the parent's fails the run, unless
+``TURNS_MAY_DIFFER`` names it (``main``, ``replay``, ``mode_<mode>`` or a
+kernel output).  Each turn also times every kernel, so the two
 trees' kernel times come from one card.
 ``--kernels`` leaves the served path out (one turn a tree).
 ``--world N``, on a machine of N cards, trains ``example`` on N ``nccl``
@@ -306,17 +321,33 @@ def wrappers():
             'bf16_probe': run_probe}
 
 
+def _serving_graph():
+    """``exposure_tpu_torch/core/serving_graph.py``, or None in a ``--serve``
+    checkout from before it (whose wrappers count every execution)."""
+    try:
+        from exposure_tpu_torch.core import serving_graph
+    except ImportError:
+        return None
+    return serving_graph
+
+
 def reset_counts():
     for fn in wrappers().values():
         fn.launches = 0
     wrappers()['switch_chain'].launches_bf16 = 0
+    if _serving_graph():
+        _serving_graph().reset_counts()
 
 
 def read_counts():
-    """Launches by wrapper; ``switch_chain_bf16`` is the part of
-    ``switch_chain``'s that ran the bf16 kernel."""
+    """Kernel executions by wrapper: its launches, less those a CUDA graph's
+    capture recorded (which ran nothing), plus those its replays ran
+    (``core/serving_graph.py::executions``); ``switch_chain_bf16`` is the
+    part of ``switch_chain``'s that ran the bf16 kernel."""
     counts = {name: fn.launches for name, fn in wrappers().items()}
     counts['switch_chain_bf16'] = wrappers()['switch_chain'].launches_bf16
+    if _serving_graph():
+        counts = _serving_graph().executions(counts)
     return counts
 
 
@@ -1124,20 +1155,43 @@ def _rate(times):
     return sorted(per)[len(per) // 2], min(per), max(per)
 
 
-def _count_k1_by_stage(pipe):
-    """Wrap ``pipe.plan`` and ``pipe.replay`` so that the K1 launches made
-    inside each call add to the returned ``{'plan': n, 'replay': n}``."""
+def _k1_by_stage(pipe):
+    """Wrap ``pipe.plan`` and ``pipe.replay`` (which the pipeline's graph
+    body calls too): the K1 launches each call makes eagerly, and those
+    each records in a capture, by stage.  Returns ``read()``, the K1
+    executions by stage since the wrap or the last ``read``: the eager
+    ones, plus each stage's recorded launches times the replays of the
+    pipeline's graphs since then."""
     from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
-    stages = {'plan': 0, 'replay': 0}
-    for stage in stages:
+    import torch
+    eager = {'plan': 0, 'replay': 0}
+    recorded = {'plan': 0, 'replay': 0}
+    for stage in eager:
         def counted(*args, _fn=getattr(pipe, stage), _stage=stage, **kw):
             before = apply_filter_chain_dynamic.launches
             try:
                 return _fn(*args, **kw)
             finally:
-                stages[_stage] += apply_filter_chain_dynamic.launches - before
+                n = apply_filter_chain_dynamic.launches - before
+                if torch.cuda.is_current_stream_capturing():
+                    recorded[_stage] += n
+                else:
+                    eager[_stage] += n
         setattr(pipe, stage, counted)
-    return stages
+
+    def replays():
+        return pipe.graph_report()['replays'] \
+            if hasattr(pipe, 'graph_report') else 0
+    last = [replays()]
+
+    def read():
+        n = replays() - last[0]
+        out = {'proxy': eager['plan'] + recorded['plan'] * n,
+               'replay': eager['replay'] + recorded['replay'] * n}
+        eager.update(plan=0, replay=0)
+        last[0] = replays()
+        return out
+    return read
 
 
 def phase_main_path(batches):
@@ -1157,14 +1211,18 @@ def phase_main_path(batches):
         % (pipe.run, pipe.step, ARTIFACT, time.perf_counter() - t0,
            pipe.cfg.dropout_keep_prob))
 
-    stages = _count_k1_by_stage(pipe)
+    # the warm-up captures the batch's graph (and syncs), so that the
+    # counted and timed runs below are replays
+    by_stage = _k1_by_stage(pipe)
+    warm = pipe.warmup(batches[0], seed=SEED)
+    by_stage()
     reset_counts()
     outs = list(pipe.map_batches(batches, seed=SEED,
                                  **_on_card(pipe.map_batches)))
     torch.cuda.synchronize()
     counts = read_counts()
     launches = counts['dyn_chain']
-    by_stage = {'proxy': stages['plan'], 'replay': stages['replay']}
+    by_stage = by_stage()
     del pipe.plan, pipe.replay     # the timed runs below go unwrapped
     steps = pipe.cfg.test_steps
     if by_stage != {'proxy': steps * MAIN_BATCHES, 'replay': MAIN_BATCHES} \
@@ -1174,6 +1232,17 @@ def phase_main_path(batches):
              'expected K1 %d times on the proxy and %d on the replay'
              % (counts, MAIN_BATCHES, by_stage, steps * MAIN_BATCHES,
                 MAIN_BATCHES))
+    graphs = ''
+    if getattr(pipe, 'graphs', False):
+        rep = pipe.graph_report()
+        if rep['captures'] != 1 or rep['replays'] != MAIN_BATCHES + 1 or \
+                list(rep['launches_per_replay'].values()) != \
+                [{'dyn_chain': steps + 1}]:
+            fail('main path: one graph captured and replayed per batch '
+                 'expected, got %s' % rep)
+        graphs = ('; one CUDA graph (captured in %.3f s by the warm-up, '
+                  'its K1 launches %d a replay) replayed per batch'
+                  % (warm['capture_seconds'], steps + 1))
     for i, out in enumerate(outs):
         if out.shape != batches[i].shape or out.dtype != torch.uint8 or \
                 out.device.type != torch.device(DEVICE).type:
@@ -1181,11 +1250,11 @@ def phase_main_path(batches):
                 i, tuple(out.shape), out.dtype, out.device))
     changed = float((outs[0] != batches[0]).float().mean())
     say('main: %d batches of [%d, %d, %d, 3] u8 -> u8 on %s; K1 launches '
-        '%d (%d per batch: %d on the proxy in the plan, %d replay); %.3f of '
-        'output values differ from the input'
+        '%d (%d per batch: %d on the proxy in the plan, %d replay)%s; %.3f '
+        'of output values differ from the input'
         % (MAIN_BATCHES, BATCH, RES, RES, outs[0].device, launches,
            launches // MAIN_BATCHES, by_stage['proxy'] // MAIN_BATCHES,
-           by_stage['replay'] // MAIN_BATCHES, changed))
+           by_stage['replay'] // MAIN_BATCHES, graphs, changed))
 
     # the plan of batch 0 again; its replay of 16 images against the plain
     # version on the same plan
@@ -1223,6 +1292,8 @@ def phase_main_path(batches):
                             BATCH, RES, RES,
                             1e3 * BATCH / img_s,
                             resize_ms, plan_ms, replay_ms))
+    if hasattr(pipe, 'release'):
+        pipe.release()
     return by_stage, img_s, outs
 
 
@@ -1243,9 +1314,11 @@ MODE_KERNELS = {
 }
 
 
-def phase_modes(batches):
+def phase_modes(batches, digests=None):
     """Every other serving mode on the trained artifact at full width;
-    returns the launches per kernel summed over the modes' runs."""
+    returns the launches per kernel summed over the modes' runs, and
+    ``(mode, img/s)`` rows.  ``digests``: a dict that gets each mode's
+    output digest (``--serve``, whose trees' modes are compared)."""
     import torch
     dev = torch.device(DEVICE)
     totals = {name: 0 for name in read_counts()}
@@ -1262,6 +1335,9 @@ def phase_modes(batches):
             extra = ' layout %d slots %s' % (
                 len(pipe._superset_layout),
                 [size for _, size in pipe._superset_layout])
+        elif not pipe.grouped:
+            # captures the batch's graph: the runs below are replays
+            pipe.warmup(batches[0], seed=SEED)
         reset_counts()
         if pipe.grouped:
             pipe._runner.launches.clear()
@@ -1304,6 +1380,10 @@ def phase_modes(batches):
                 'the wait on the ids event is not one of them', resize_ms,
                 plan_ms, replay_ms, extra))
         rows.append((mode, img_s))
+        if digests is not None:
+            digests[mode] = _digest(outs)
+        if hasattr(pipe, 'release'):
+            pipe.release()
         del outs, pipe
     return totals, rows
 
@@ -1380,6 +1460,7 @@ def phase_bf16_plan(batches):
     total /= len(batches)
     out = b16(batches[0], SEED, 0, device_out=True)
     torch.cuda.synchronize()
+    b16.release()
     say('bf16 plan: step-1 ids agree with the f32 plan on %.4f of the '
         'images, all 5 steps on %.4f (%d batches of %d); bf16-planned '
         'output %s %s' % (step1, total, len(batches), BATCH,
@@ -1388,6 +1469,188 @@ def phase_bf16_plan(batches):
         fail('bf16 plan: step-1 agreement %.4f below %.2f'
              % (step1, BF16_PLAN_STEP1))
     return step1, total
+
+
+SERVING_GRAPH_BUDGET_S = 75
+# the modes served as one program a batch: the three non-grouped ones whole
+# (the JAX _single_jit), the grouped one's plan (the JAX _plan_for)
+GRAPH_MODES = [
+    ('dynamic_selected_plan', {}),
+    ('dynamic_bank_plan', dict(dynamic=True, selected_plan=False)),
+    ('switch', dict(dynamic=False, grouped=False)),
+    ('grouped_plan', dict(grouped=True)),
+]
+SWAP_SEED = 41          # the swapped-in policy's init draws
+GRAPH_TURNS = ('graph', 'eager', 'eager', 'graph')   # timed streams
+
+
+def _differing(got, want):
+    """Values of ``got`` that differ from ``want`` (lists of tensors)."""
+    return sum(int((a != b).sum()) for a, b in zip(got, want))
+
+
+def _graph_outputs(pipe):
+    """The served outputs of ``pipe`` on the main batches, and in a grouped
+    mode each batch's plan (ids, params, mask) as well, all on the card."""
+    return lambda batches: list(pipe.map_batches(
+        batches, seed=SEED, device_out=True)) + (
+        [t.clone() for i, img in enumerate(batches)
+         for t in pipe._plan_batch(img, SEED, i)] if pipe.grouped else [])
+
+
+def _swap_under_graph(batches, dev):
+    """``load_policy`` under a live graph, in f32 and with the bf16 plan:
+    the graph captured on the artifact's weights, then a policy from seed
+    ``SWAP_SEED`` swapped in; its next replay must equal a fresh per-call
+    pipeline on that policy bit for bit, with no new capture.  Returns the
+    values differing (0) by plan type."""
+    import copy
+    import torch
+    from exposure_tpu_torch.core.serving import RetouchPipeline
+    from exposure_tpu_torch.models.networks import build_policy, init_like_flax
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    out = {}
+    for bf16 in (False, True):
+        pipe = _pipeline(dev, bf16=bf16, graphs=True)
+        policy_b = init_like_flax(
+            build_policy(pipe.cfg, pipe.filters),
+            torch.Generator().manual_seed(SWAP_SEED)).eval()
+        fresh = RetouchPipeline(pipe.cfg, copy.deepcopy(policy_b),
+                                device=dev, bf16=bf16, graphs=False,
+                                use_kernels=pipe.use_kernels)
+        with deterministic_algorithms():
+            before = pipe(batches[0], SEED, 0, device_out=True)
+            pipe.load_policy(policy_b.state_dict())
+            got = pipe(batches[1], SEED, 1, device_out=True)
+            want = fresh(batches[1], SEED, 1, device_out=True)
+            again = pipe(batches[0], SEED, 0, device_out=True)
+        rep = pipe.graph_report()
+        tag = 'bf16' if bf16 else 'f32'
+        out[tag] = _differing([got], [want])
+        if out[tag] or rep['captures'] != 1 or torch.equal(before, again):
+            fail('serving graph: after load_policy (%s plan) the replay '
+                 'differs from a fresh pipeline on the new weights in %d '
+                 'values, captures %d, output unchanged by the swap: %s'
+                 % (tag, out[tag], rep['captures'],
+                    torch.equal(before, again)))
+        pipe.release()
+    return out
+
+
+def phase_serving_graph(batches):
+    """Serving as one program a batch (``core/serving_graph.py``): each of
+    ``GRAPH_MODES`` on the trained artifact at full width with
+    ``graphs=True`` against ``graphs=False``: under deterministic
+    algorithms the graph's outputs (and a grouped mode's plans) equal the
+    per-call path's bit for bit, with a second per-call run as the control;
+    one capture per mode; kernel executions per batch (the capture's
+    launches times the replays); then, the graph captured anew as served,
+    host launch calls, device-busy ms and the idle share per batch under
+    ``torch.profiler``, and ms per batch and img/s (CUDA events, passes in
+    turns, ``GRAPH_TURNS``); the static buffers' copies
+    at this size; ``load_policy`` under a live graph
+    (``_swap_under_graph``).  Returns the numbers and the kernel executions
+    of the counted graph runs."""
+    import torch
+    from exposure_tpu_torch.tools import profile_calls
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    numbers, launches = {}, {name: 0 for name in read_counts()}
+    for mode, kw in GRAPH_MODES:
+        pipes = {'graph': _pipeline(dev, graphs=True, **kw),
+                 'eager': _pipeline(dev, graphs=False, **kw)}
+        runs = {tag: _graph_outputs(p) for tag, p in pipes.items()}
+        with deterministic_algorithms():
+            warm = pipes['graph'].warmup(batches[0], probe_batches=1,
+                                         seed=SEED)
+            want = runs['eager'](batches)
+            control = runs['eager'](batches)
+            reset_counts()
+            got = runs['graph'](batches)
+            torch.cuda.synchronize()
+            counts = read_counts()
+        rep = pipes['graph'].graph_report()
+        row = {'differing': _differing(got, want),
+               'control_differing': _differing(control, want),
+               'values': sum(t.numel() for t in want),
+               'captures': rep['captures'],
+               'capture_s': rep['capture_s'],
+               'launches_per_replay': list(
+                   rep['launches_per_replay'].values()),
+               'executions_per_batch': {k: v / MAIN_BATCHES
+                                        for k, v in counts.items() if v}}
+        del want, control, got
+        for name in launches:
+            launches[name] += counts[name]
+        if row['differing'] or row['control_differing'] or \
+                rep['captures'] != 1:
+            fail('serving graph: %s against the per-call path: %s'
+                 % (mode, row))
+        # timed as served: the graph captured anew outside deterministic
+        # algorithms (whose convolutions are other kernels, and slower)
+        pipes['graph'].release()
+        pipes['graph'].warmup(batches[0], probe_batches=1, seed=SEED)
+        for tag, pipe in pipes.items():
+            prof = profile_calls(lambda: list(pipe.map_batches(
+                batches, seed=SEED + 1, device_out=True)), MAIN_BATCHES,
+                DEVICE)
+            row[tag] = {
+                'host_launch_calls_per_batch':
+                    prof['host_launch_calls_per_unit'],
+                'device_kernels_per_batch': prof['device_kernels_per_unit'],
+                'device_busy_ms_per_batch': prof['device_busy_ms_per_unit'],
+                'profiled_wall_ms_per_batch': prof['wall_ms_per_unit'],
+                'idle_share': prof['idle_share'], 'pass_ms': []}
+        for tag in GRAPH_TURNS:
+            pipe = pipes[tag]
+            row[tag]['pass_ms'] += _timed_stream(pipe, batches,
+                                                 trap=not pipe.grouped)[0]
+        for tag in pipes:
+            times = sorted(row[tag].pop('pass_ms'))
+            row[tag].update(ms_per_batch=[t / MAIN_BATCHES for t in times],
+                            img_s=_rate(times)[0])
+        if mode == 'dynamic_selected_plan':
+            static = list(pipes['graph']._graphs.graphs.values())[0]
+            row['input_copy_ms'] = cuda_ms(
+                lambda: static.input.copy_(batches[0]), calls=KERNEL_CALLS)
+            row['output_clone_ms'] = cuda_ms(
+                lambda: static.outputs.clone(), calls=KERNEL_CALLS)
+        row['warmup'] = {k: warm[k] for k in ('programs_compiled',
+                                              'warmup_seconds')}
+        for pipe in pipes.values():
+            pipe.release()
+        del pipes, runs
+        numbers[mode] = row
+        say('serving graph %-21s graph vs per call: %d of %d values differ '
+            '(control %d); captures %d (%.3f s); launches a replay %s; '
+            'per batch graph / per call: host launch calls %s / %s, '
+            'device busy %s / %s ms, idle share %s / %s (profiled), median '
+            '%s / %s img/s (CUDA events)' % (
+                mode, row['differing'], row['values'],
+                row['control_differing'], row['captures'], row['capture_s'],
+                row['launches_per_replay'],
+                row['graph']['host_launch_calls_per_batch'],
+                row['eager']['host_launch_calls_per_batch'],
+                row['graph']['device_busy_ms_per_batch'],
+                row['eager']['device_busy_ms_per_batch'],
+                row['graph']['idle_share'], row['eager']['idle_share'],
+                row['graph']['img_s'], row['eager']['img_s']))
+    numbers['static_copies_ms'] = {
+        'input_copy': numbers['dynamic_selected_plan'].pop('input_copy_ms'),
+        'output_clone': numbers['dynamic_selected_plan'].pop(
+            'output_clone_ms')}
+    numbers['load_policy_differing'] = _swap_under_graph(batches, dev)
+    numbers['phase_s'] = time.perf_counter() - t_phase
+    say('serving graph: static buffers at [%d, %d, %d, 3] u8: input copy '
+        '%.4f ms, output clone %.4f ms; load_policy under a live graph '
+        'equals a fresh pipeline on the new weights (values differing %s); '
+        'phase %.1f s (budget %d s)' % (
+            BATCH, RES, RES, numbers['static_copies_ms']['input_copy'],
+            numbers['static_copies_ms']['output_clone'],
+            numbers['load_policy_differing'], numbers['phase_s'],
+            SERVING_GRAPH_BUDGET_S))
+    return numbers, launches
 
 
 SERVING_TOOLS_BUDGET_S = 150
@@ -1399,7 +1662,7 @@ STREAM_CONFIG = 'example'               # bench_stream_device's
 
 
 # runs ``python -m exposure_tpu_torch.tools.<tool> <args>`` in this
-# interpreter, then prints K1's launches there on its last line of stderr
+# interpreter, then prints K1's executions there on its last line of stderr
 _COUNTING_SHIM = '''
 import runpy, sys
 tool = 'exposure_tpu_torch.tools.' + sys.argv[1]
@@ -1408,8 +1671,12 @@ try:
     runpy.run_module(tool, run_name='__main__', alter_sys=True)
 finally:
     k1 = sys.modules.get('exposure_tpu_torch.ops.dyn_chain')
-    print('# k1_launches %d' % (k1.apply_filter_chain_dynamic.launches
-                                if k1 else 0), file=sys.stderr, flush=True)
+    n = k1.apply_filter_chain_dynamic.launches if k1 else 0
+    # a graph's capture records launches, its replays run them
+    graphs = sys.modules.get('exposure_tpu_torch.core.serving_graph')
+    if graphs:
+        n = graphs.executions({'dyn_chain': n})['dyn_chain']
+    print('# k1_launches %d' % n, file=sys.stderr, flush=True)
 '''
 
 # put before _COUNTING_SHIM: every config the tool loads gets
@@ -1652,10 +1919,12 @@ def phase_serving_tools(train):
     say('serving tools: probe_selected_plan (bf16, B=%d x %d): agreement %s, '
         'per step %s' % (probe['batch'], probe['batches'],
                          probe['agreement'], probe['per_step_agreement']))
-    say('serving tools: warmup_serving, fresh processes: dynamic cold %.3f s, '
-        'next %s s; grouped superset cold %.3f s, warm-up %s routes in %s '
-        's, first warm %.4f s, misses %d, decomposition %s' % (
+    say('serving tools: warmup_serving, fresh processes: dynamic cold %.3f s '
+        '(its graph\'s capture %s s), next %s s; grouped superset cold %.3f '
+        's, warm-up %s routes in %s s, first warm %.4f s, misses %d, '
+        'decomposition %s' % (
             warm['dynamic']['cold_first_batch_s'],
+            warm['dynamic'].get('capture_s'),
             warm['dynamic']['warm_next_batches_s'],
             warm['grouped_superset']['cold_first_batch_s'],
             warm['grouped_superset']['warmup']['programs_compiled'],
@@ -2756,13 +3025,16 @@ def _serve_trained(cfg, tmp, trained, phase='train'):
              % phase)
     batch = torch.from_numpy(_images(np.random.default_rng(SEED + 11),
                                      TRAIN_SERVE_BATCH, RES, RES)).to(DEVICE)
-    stages = _count_k1_by_stage(pipe)
-    reset_counts()
+    by_stage = _k1_by_stage(pipe)
     with _NoPlainVersions():
+        pipe.warmup(batch, seed=SEED)     # captures the batch's graph
+        by_stage()
+        reset_counts()
         out = pipe(batch, SEED, 0, device_out=True)
     torch.cuda.synchronize()
     counts = read_counts()
-    by_stage = {'proxy': stages['plan'], 'replay': stages['replay']}
+    by_stage = by_stage()
+    pipe.release()
     steps = pipe.cfg.test_steps
     if by_stage != {'proxy': steps, 'replay': 1} or \
             counts['dyn_chain'] != steps + 1 or counts['switch_chain'] or \
@@ -4126,6 +4398,7 @@ def main():
         totals, _ = phase_modes(batches)
         phase_planted(batches[0])
         phase_bf16_plan(batches)
+        graph_numbers, graph_launches = phase_serving_graph(batches)
         del batches
         tools = phase_serving_tools(training)
         research = phase_research_probes(training)
@@ -4194,6 +4467,7 @@ def main():
     say(json.dumps({'fused': dict(fused, card=card)}))
     say(json.dumps({'serving_tools': dict(tools, card=card)}))
     say(json.dumps({'research_probes': dict(research, card=card)}))
+    say(json.dumps({'serving_graph': dict(graph_numbers, card=card)}))
     served = parallel['launches']
     by_tools = tools['launches']
     proxy = PROXY_CASE[0]
@@ -4207,10 +4481,12 @@ def main():
                     evaluation['launches'] + training['launches_serve'] +
                     data['launches_serve'] + served['dyn_chain'] +
                     fused['launches_serve'] + by_tools['dyn_chain'] +
-                    research['k1_launches_total'],
+                    research['k1_launches_total'] +
+                    graph_launches['dyn_chain'],
                     'dyn_chain', 'dyn_chain_kernel',
                     launches_main_path_replay=k1_main['replay'],
                     launches_other_paths=totals['dyn_chain'],
+                    launches_serving_graph=graph_launches['dyn_chain'],
                     launches_evaluation=evaluation['launches'],
                     launches_training_serve=training['launches_serve'],
                     launches_streaming_serve=data['launches_serve'],
@@ -4242,8 +4518,9 @@ def main():
                     'exposure_tpu/ops/pallas_chain.py:345',
                     k2_timing['f32'], k2_worst,
                     totals['switch_chain'] + served['switch_chain'] +
-                    by_tools['switch_chain'],
+                    by_tools['switch_chain'] + graph_launches['switch_chain'],
                     'switch_chain', 'switch_chain_f32',
+                    launches_serving_graph=graph_launches['switch_chain'],
                     launches_parallel_serve=served['switch_chain'],
                     launches_serving_tools=by_tools['switch_chain']),
         # the same wrapper's bf16 kernel; nothing in the package asks for
@@ -4483,10 +4760,12 @@ def serve(tree, work, tag, first, kernels_only):
     if first:
         np.save(os.path.join(work, tag + '_replay.npy'), replay.cpu().numpy())
     del replay, pipe
-    _, rows = phase_modes(batches)
+    mode_digests = {}
+    _, rows = phase_modes(batches, mode_digests)
     print(json.dumps(dict(result, main_img_s=img_s, modes=dict(rows),
                           main_digest=main_digest,
-                          replay_digest=replay_digest)), flush=True)
+                          replay_digest=replay_digest,
+                          mode_digests=mode_digests)), flush=True)
 
 
 def _lsb_diff(a, b):
@@ -4576,17 +4855,28 @@ def turns(parent, kernels_only=False):
         k: ['%s %.4f' % (r['tag'], r['kernel_ms'][k]) for r in results
             if k in r['kernel_ms']]
         for k in results[-1]['kernel_ms']}))
-    repeats = {tag: len({(r.get('main_digest'), r.get('replay_digest'))
+    repeats = {tag: len({(r.get('main_digest'), r.get('replay_digest'),
+                          json.dumps(r.get('mode_digests'), sort_keys=True))
                          for r in results if r['tag'] == tag}) == 1
                for tag in trees}
     say(json.dumps({'turns': results, 'parent_vs_change': compare,
                     'each_tree_repeats_its_outputs': repeats}))
+    # each mode's outputs, by digest: the first turn of each tree
+    firsts = {tag: next(r for r in results if r['tag'] == tag)
+              for tag in trees}
+    for mode, digest in firsts['parent'].get('mode_digests', {}).items():
+        differing['mode_' + mode] = int(
+            firsts['change']['mode_digests'].get(mode) != digest)
+    for what in ('main', 'replay'):
+        if what in compare:
+            differing[what] = compare[what]['values_differing']
     if any(c['max_lsb'] > 1 for k, c in compare.items() if k != 'kernels'):
         fail('the two trees differ by more than 1 LSB: %s' % compare)
     moved = _moved_outputs(differing)
     if moved:
-        fail('kernel outputs differ from the parent\'s (values differing, '
-             'by output; TURNS_MAY_DIFFER lists none of them): %s' % moved)
+        fail('outputs differ from the parent\'s (values differing, by '
+             'output; a mode_ entry is 1 when its digest differs; '
+             'TURNS_MAY_DIFFER lists none of them): %s' % moved)
 
 
 if __name__ == '__main__':

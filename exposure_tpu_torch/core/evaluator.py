@@ -40,6 +40,12 @@ decisions) and restored after them.  Dropout stays on at evaluation, as in
 the reference, drawn from ``core/serving.py::batch_generator(seed, 0,
 device)``.
 
+Plan graphs (``graphs``, on by default on the card): the plan is captured
+once per proxy batch shape as a CUDA graph and replayed
+(``core/serving_graph.py``; the JAX evaluator jits it), bit for bit the
+per-call plan, which ``graphs=False`` keeps.  The replays stay per call:
+their shapes vary by file.
+
 Outputs per input file: ``.linear.png``, ``.input_tone_mapped.png``,
 ``.retouched.png``, optional ``.intermediateNN.png``, the ``.steps.png``
 strip and ``<fn>_debug.pkl`` with the per-step decisions (python scalars,
@@ -60,8 +66,13 @@ import torch
 
 from exposure_tpu_torch.core.artifacts import restore_train_state
 from exposure_tpu_torch.core.losses import apply
-from exposure_tpu_torch.core.rollout import rollout
-from exposure_tpu_torch.core.serving import batch_generator, proxy_resize
+from exposure_tpu_torch.core.rollout import Trajectory, rollout
+from exposure_tpu_torch.core.serving import (
+    MAX_GRAPHS,
+    batch_generator,
+    proxy_resize,
+)
+from exposure_tpu_torch.core.serving_graph import GraphCache
 from exposure_tpu_torch.core.train_state import init_train_state
 from exposure_tpu_torch.models.networks import build_models
 from exposure_tpu_torch.ops.chain import apply_filter_chain, apply_filter_step
@@ -118,7 +129,7 @@ def _host(x):
 class Evaluator:
 
     def __init__(self, cfg, model_root='models', ckpt=None, state=None,
-                 policy=None, device='cuda', fast_math=False):
+                 policy=None, device='cuda', fast_math=False, graphs=None):
         """``self.state`` is a ``TrainState``, as in the JAX evaluator:
         ``state`` when given; otherwise the run ``cfg.name``
         (``<config>/<run>``) restored by
@@ -127,7 +138,8 @@ class Evaluator:
         generator beside an untrained critic and value net.  The policy
         serves ``state.gen_params``.  ``policy``: a ``PolicyNet`` with its
         weights loaded, served as it is, with no train state (``self.state``
-        None) and the critic left on the host."""
+        None) and the critic left on the host.  ``graphs``: plan each proxy
+        batch shape as a CUDA graph (the default on the card)."""
         self.cfg = cfg
         self.dir = os.path.join(model_root, cfg.name)
         self.device = torch.device(device)
@@ -157,6 +169,9 @@ class Evaluator:
         if state is not None:
             self.critic = self.critic.to(self.device).eval()
         self.seconds = collections.defaultdict(float)
+        self.graphs = self.device.type == 'cuda' if graphs is None \
+            else bool(graphs)
+        self._graphs = GraphCache(MAX_GRAPHS)
 
     @contextlib.contextmanager
     def _timed(self, span):
@@ -192,21 +207,32 @@ class Evaluator:
         return self._replay(img, fid[None], params[None], None, mask[None])
 
     # ------------------------------------------------------------------
+    def _plan(self, proxies, generator):
+        with tf32_off():
+            return rollout(self.policy, proxies, generator, cfg=self.cfg,
+                           filters=self.filters, is_train=0)
+
     @torch.no_grad()
     def plan_trajectory(self, low_res_batch, generator=None):
         """Run the policy on [B, 64, 64, 3] proxies; returns the
         trajectory (tensors on the evaluator's device) plus the number of
         applied steps per sample (numpy).  ``generator``: the dropout
-        stream, by default that of seed 0."""
+        stream, by default that of seed 0; it is left where the plan's
+        draws leave it."""
         if generator is None:
             generator = batch_generator(0, 0, self.device)
         if not torch.is_tensor(low_res_batch):
             low_res_batch = torch.from_numpy(
                 np.asarray(low_res_batch, np.float32))
-        proxies = low_res_batch.to(self.device)
-        with tf32_off():
-            traj = rollout(self.policy, proxies, generator, cfg=self.cfg,
-                           filters=self.filters, is_train=0)
+        if self.graphs:
+            graph = self._graphs.get(
+                (tuple(low_res_batch.shape), low_res_batch.dtype),
+                self._plan, low_res_batch, self.device)
+            # the next replay overwrites the graph's outputs
+            traj = Trajectory(*(t.clone() for t in graph.run(
+                low_res_batch, generator)))
+        else:
+            traj = self._plan(low_res_batch.to(self.device), generator)
         stopped = _host(traj.states[:, :, STATE_STOPPED_DIM])  # [K, B]
         k, b = stopped.shape
         applied = np.full((b,), k, np.int32)

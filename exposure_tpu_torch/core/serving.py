@@ -39,6 +39,16 @@ a ``torch.Generator`` on the device seeded from (seed, batch index), so a
 batch's output is a function of its images, the seed and its index, in
 every mode.
 
+One program a batch (``graphs``, on by default on the card): a dynamic or
+switch batch (proxy, plan and replay; the JAX ``_single_jit``) and a
+grouped batch's plan (the JAX ``_plan_for``) are each captured once per
+input shape and dtype as a CUDA graph and replayed
+(``core/serving_graph.py``), bit for bit the per-call path, which
+``graphs=False`` keeps.  The grouped replay stays per call: it groups the
+ids on the host, as in JAX.  A graph's outputs are overwritten by its next
+replay, so the pipeline hands out copies.  At most ``MAX_GRAPHS`` graphs
+are kept (``release()`` frees them).
+
 >>> pipe = RetouchPipeline.from_artifact(
 ...     'synthetic_explore',
 ...     'artifacts/serving/synthetic_explore--best.msgpack.gz')
@@ -64,6 +74,7 @@ from exposure_tpu_torch.core.artifacts import (
     restore_for_serving,
 )
 from exposure_tpu_torch.core.rollout import rollout, serve_rollout
+from exposure_tpu_torch.core.serving_graph import GraphCache
 from exposure_tpu_torch.models.networks import build_policy
 from exposure_tpu_torch.ops.chain import apply_filter_chain
 from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
@@ -76,11 +87,22 @@ from exposure_tpu_torch.utils.config import load_config
 # a large odd number so (seed, index) pairs do not collide in practice.
 _SEED_STRIDE = 0x9E3779B1
 
+# Graphs a pipeline keeps.  Each one's pool holds, at B=512 of 512x512 u8,
+# the static input and output (0.4 GB each), the f32 copy of the batch that
+# the resize reads (1.61 GB) and the proxy's activations: a few GB a graph,
+# so a handful of shapes stays a small share of the card.
+MAX_GRAPHS = 4
+
+
+def batch_seed(seed, index):
+    """The dropout seed of batch ``index`` under ``seed``."""
+    return (int(seed) * _SEED_STRIDE + int(index)) % (2 ** 63)
+
 
 def batch_generator(seed, index, device):
     """The dropout generator of batch ``index`` under ``seed``."""
     g = torch.Generator(device=device)
-    g.manual_seed((int(seed) * _SEED_STRIDE + int(index)) % (2 ** 63))
+    g.manual_seed(batch_seed(seed, index))
     return g
 
 
@@ -102,13 +124,20 @@ def _deliver(out, device_out):
     return out if device_out else out.cpu().numpy()
 
 
+def _deliver_static(out, device_out):
+    """A graph's output, which its next replay overwrites, as the caller
+    asked for it: a copy on the device, or a numpy array on the host."""
+    return out.clone() if device_out else out.to('cpu', copy=True).numpy()
+
+
 class RetouchPipeline:
 
     def __init__(self, cfg, policy, device='cuda', run=None, step=None,
                  use_kernels=None, bf16=False, grouped=None, fast_math=True,
                  fused_set_limit=None, dynamic=None, selected_plan=None,
                  auto_superset=False, auto_record_batches=8,
-                 auto_drift_window=8, auto_drift_threshold=1.0 / 16.0):
+                 auto_drift_window=8, auto_drift_threshold=1.0 / 16.0,
+                 graphs=None):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
@@ -161,6 +190,11 @@ class RetouchPipeline:
         self._ss_seen = 0
         self._ss_refreezes = 0
         self._ss_drift = collections.deque(maxlen=self._ss_window)
+        # one program a batch: on by default on the card (FusedRunner's
+        # rule); graphs=False is the per-call path
+        self.graphs = self.device.type == 'cuda' if graphs is None \
+            else bool(graphs)
+        self._graphs = GraphCache(MAX_GRAPHS)
 
     def _bf16_copy(self):
         return copy.deepcopy(self.policy).to(torch.bfloat16)
@@ -168,15 +202,27 @@ class RetouchPipeline:
     def load_policy(self, state_dict, run=None, step=None):
         """Serve other weights from the next batch on, the counterpart of
         assigning the JAX pipeline's ``state``: ``state_dict`` (a
-        ``PolicyNet``'s) goes into ``policy``, and with ``bf16`` the plan's
-        bfloat16 copy is made anew from it, as the constructor makes it.
+        ``PolicyNet``'s) is copied into ``policy``'s tensors, and with
+        ``bf16`` into the plan's bfloat16 copy (rounded as the constructor's
+        ``.to(torch.bfloat16)`` rounds), in place: the captured graphs read
+        those tensors, so they serve the new weights without a new capture.
         The mode, the superset layout and the auto-superset statistics
         stay, so a policy with another action mix drifts from the frozen
         layout and re-freezes it."""
         self.policy.load_state_dict(state_dict)
         if self.bf16:
-            self._plan_policy = self._bf16_copy()
+            self._plan_policy.load_state_dict(self.policy.state_dict())
         self.run, self.step = run, step
+
+    def release(self):
+        """Free the captured graphs and their pools (a later batch
+        captures anew)."""
+        self._graphs.release()
+
+    def graph_report(self):
+        """The cached graphs' captures, replays, capture seconds and kernel
+        launches a replay (``core/serving_graph.py::GraphCache.report``)."""
+        return self._graphs.report()
 
     @classmethod
     def from_artifact(cls, config_name, path, device='cuda', **kwargs):
@@ -288,13 +334,17 @@ class RetouchPipeline:
         }
 
     # -- the three parts of a batch --------------------------------------
-    def _to_device(self, images):
+    @staticmethod
+    def _as_tensor(images):
         if not torch.is_tensor(images):
             images = torch.from_numpy(np.asarray(images))
         if images.dtype not in (torch.uint8, torch.float32):
             raise TypeError('images must be uint8 or float32, got %s'
                             % images.dtype)
-        return images.to(self.device).contiguous()
+        return images
+
+    def _to_device(self, images):
+        return self._as_tensor(images).to(self.device).contiguous()
 
     def proxy(self, images):
         return proxy_resize(images, self.cfg.source_img_size)
@@ -353,16 +403,55 @@ class RetouchPipeline:
         return self._runner(images, ids, params, mask_params=mask,
                             ids_host=ids_host)
 
+    # -- one program a batch ---------------------------------------------
+    def _batch(self, images, generator):
+        """A dynamic or switch batch: proxy, plan and replay (the JAX
+        ``_build``)."""
+        return self.replay(images, *self.plan(self.proxy(images), generator))
+
+    def _planned(self, images, generator):
+        """A grouped batch's plan on its proxy (the JAX ``_plan``)."""
+        return self.plan(self.proxy(images), generator)
+
+    def _graph(self, body, images):
+        return self._graphs.get(
+            (body.__name__, tuple(images.shape), images.dtype), body, images,
+            self.device)
+
+    def _single(self, images, seed, index):
+        """A non-grouped batch as one replay of its shape's graph (the JAX
+        ``_single_jit``); host images are uploaded straight into the
+        graph's input.  Returns the graph's output."""
+        images = self._as_tensor(images)
+        return self._graph(self._batch, images).run(
+            images, batch_seed(seed, index))
+
+    def _plan_for(self, images, seed, index):
+        """A grouped batch's plan as one replay of its shape's graph:
+        the graph's (ids, params, mask), which its next replay
+        overwrites."""
+        return self._graph(self._planned, images).run(
+            images, batch_seed(seed, index))
+
+    def _plan_batch(self, images, seed, index):
+        """The plan of a batch on the device, as a replay or per call."""
+        if self.graphs:
+            return self._plan_for(images, seed, index)
+        return self.plan(self.proxy(images),
+                         batch_generator(seed, index, self.device))
+
     @torch.no_grad()
     def __call__(self, images, seed=0, index=0, device_out=False):
         """Retouch one [B, H, W, 3] batch, drawing dropout from the stream
         of (seed, index).  Returns a numpy array on the host, as the JAX
-        pipeline does; ``device_out=True`` returns the tensor on the
-        pipeline's device without the copy (and without waiting for the
-        device), so the caller decides when and what to transfer."""
+        pipeline does; ``device_out=True`` returns a tensor on the
+        pipeline's device (without waiting for the device), so the caller
+        decides when and what to transfer."""
+        if self.graphs and not self.grouped:
+            return _deliver_static(self._single(images, seed, index),
+                                   device_out)
         images = self._to_device(images)
-        ids, params, mask = self.plan(
-            self.proxy(images), batch_generator(seed, index, self.device))
+        ids, params, mask = self._plan_batch(images, seed, index)
         return _deliver(self.replay(images, ids, params, mask), device_out)
 
     def _ids_to_host(self, ids):
@@ -389,7 +478,8 @@ class RetouchPipeline:
         up to ``2 * depth`` batches ahead of replay; each plan's [K, B] ids
         are copied to pinned host memory without blocking, an event is
         recorded after the copy, and a batch's replay waits on its event
-        only.  ``depth`` changes when work is queued, never the output."""
+        only (with ``graphs``, a copy of the plan graph's outputs waits).
+        ``depth`` changes when work is queued, never the output."""
         if not self.grouped:
             for i, images in enumerate(batches):
                 yield self(images, seed, i, device_out=device_out)
@@ -404,8 +494,9 @@ class RetouchPipeline:
                         images = self._to_device(next(it))
                     except StopIteration:
                         break
-                    plan = self.plan(self.proxy(images),
-                                     batch_generator(seed, i, self.device))
+                    plan = self._plan_batch(images, seed, i)
+                    if self.graphs:
+                        plan = tuple(t.clone() for t in plan)
                     i += 1
                     pending.append((images, plan, self._ids_to_host(plan[0])))
                 if not pending:
@@ -434,20 +525,32 @@ class RetouchPipeline:
         ``superset=True`` the per-signature maximum bucket, one bucket
         step up, is frozen as the superset layout.  ``budget`` (a list of
         ``(signature, bucket)`` pairs) skips the probing.  There is no
-        program to compile here, so ``programs_compiled`` counts the
+        program to compile per route, so ``programs_compiled`` counts the
         routes the warm-up added to the runner's record of the distinct
-        routes it has run (``GroupedChainRunner.routes``).  Returns a
+        routes it has run (``GroupedChainRunner.routes``).  With
+        ``graphs`` it also captures the plan's graph at this shape.
+
+        The dynamic and switch modes run one batch: with ``graphs`` that
+        captures the batch's graph, and ``programs_compiled`` counts the
+        graphs this warm-up captured, with ``capture_seconds`` their
+        warm-up and capture; per call it is 1, as in JAX.  Returns a
         JSON-able report with the keys of the JAX pipeline's."""
         t0 = time.time()
         images = self._to_device(probe_images)
         report = {'batch_shape': list(images.shape),
                   'dtype': str(images.dtype).replace('torch.', '')}
         if not self.grouped:
+            before = self._graphs.report()
             self(images, seed, 0, device_out=True)
             if self.device.type == 'cuda':
                 torch.cuda.synchronize(self.device)
+            after = self._graphs.report()
+            captured = after['captures'] - before['captures']
             report.update(kind='dynamic' if self.dynamic else 'switch',
-                          programs_compiled=1,
+                          programs_compiled=captured if self.graphs else 1,
+                          captures=captured,
+                          capture_seconds=after['capture_s'] -
+                          before['capture_s'],
                           warmup_seconds=round(time.time() - t0, 1))
             return report
 
@@ -458,6 +561,8 @@ class RetouchPipeline:
         max_p = max_filter_parameters(self.filters)
         mask_p = max(f.get_num_mask_parameters() for f in self.filters) \
             if self.masking else 1
+        if self.graphs:
+            self._plan_for(images, seed, 0)
         if budget is not None:
             sig_budget = {(tuple(sig), int(bucket)) for sig, bucket in budget}
         else:

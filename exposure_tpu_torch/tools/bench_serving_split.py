@@ -13,6 +13,10 @@ tunnel):
                grouping included) on the plan's own ids and params
   gather       ``torch.index_select`` of the u8 batch by a permutation, and
                the way back (``index_copy_``): the grouped path's moves
+  batch        the whole dynamic selected-plan batch as the pipeline serves
+               it: one CUDA-graph replay (``batch_graph_ms``; on the CPU
+               the same static-buffer body, run eagerly) beside the same
+               batch per call (``batch_eager_ms``), output on the device
 
     python -m exposure_tpu_torch.tools.bench_serving_split \
         [--run synthetic/final-r2] [--batch 512] [--res 512] [--runs 7] \
@@ -91,7 +95,23 @@ def split(cfg, filters, policy, imgs_u8, device, runs=RUNS):
         back = torch.empty_like(imgs_u8)
         results['scatter_u8_ms'] = ms(
             lambda: back.index_copy_(0, perm, imgs_u8), calls=4)
+        results.update(whole_batch(cfg, policy, imgs_u8, device, ms))
     return results, sigs, dict(runner.launches)
+
+
+def whole_batch(cfg, policy, imgs_u8, device, ms):
+    """ms of one dynamic selected-plan batch as one graph replay and per
+    call (``RetouchPipeline(graphs=)``), the graph captured before the
+    timing."""
+    from exposure_tpu_torch.core.serving import RetouchPipeline
+    out = {}
+    for key, graphs in (('batch_graph_ms', True), ('batch_eager_ms', False)):
+        pipe = RetouchPipeline(cfg, policy, device=device, use_kernels=True,
+                               graphs=graphs)
+        pipe.warmup(imgs_u8)
+        out[key] = ms(lambda: pipe(imgs_u8, device_out=True))
+        pipe.release()
+    return out
 
 
 def main(argv=None):

@@ -22,6 +22,10 @@ missed.  ``--superset`` freezes the recorded budget into one layout.
 its ids to the host, the replay's dispatch and the completion.
 ``--dynamic`` measures the dynamic selected-plan default instead
 (``from_run(cfg, bf16=True)``), which has one route for any action mix.
+On the card its cold first batch includes capturing the batch's CUDA graph
+(its eager warm-up run and the capture), reported alone as ``capture_s``;
+later batches are one replay each.  On the CPU nothing is captured
+(``capture_s`` 0).
 
     python -m exposure_tpu_torch.tools.warmup_serving \
         --run synthetic_explore/best [--batch 512] [--res 512] \
@@ -154,7 +158,9 @@ def main(argv=None):
             raise AssertionError('expected the dynamic default on %s'
                                  % device)
         report['cold_first_batch_s'] = cold
-        print('# dynamic cold first batch: %.3f s' % cold, file=sys.stderr)
+        report['capture_s'] = pipe.graph_report()['capture_s']
+        print('# dynamic cold first batch: %.3f s (capture %.3f s)'
+              % (cold, report['capture_s']), file=sys.stderr)
         images = torch.from_numpy(images_host).to(device)
         lats = []
         for s in range(args.seeds):

@@ -1254,3 +1254,166 @@ def test_critic_scores_on_the_card_as_on_the_cpu(cuda_device, config):
     want = cpu.critic_logits(imgs)
     assert got.shape == want.shape == (64, 1)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+# -- serving as one program a batch (core/serving_graph.py) ----------------
+SERVING_MODES = {
+    'dynamic_selected_plan': {},
+    'dynamic_bank_plan': dict(dynamic=True, selected_plan=False),
+    'switch': dict(dynamic=False, grouped=False),
+    'grouped': dict(grouped=True, fused_set_limit=0),
+}
+
+
+def _serving_pipes(cuda_device, mode, seed=3, **kw):
+    """A graph pipeline and a per-call one on one random ``test`` policy,
+    dropout on."""
+    from exposure_tpu_torch.core.serving import RetouchPipeline
+    from exposure_tpu_torch.models.networks import build_policy, init_like_flax
+    cfg = load_config('test')
+    policy = init_like_flax(build_policy(cfg, build_filters(cfg)),
+                            torch.Generator().manual_seed(seed)).eval()
+    return [RetouchPipeline(cfg, policy, device=cuda_device, graphs=g,
+                            **SERVING_MODES[mode], **kw)
+            for g in (True, False)]
+
+
+def _serving_batches(cuda_device, n=3, b=8, h=64, w=96):
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    return [torch.randint(0, 256, (b, h, w, 3), generator=g,
+                          dtype=torch.uint8, device=cuda_device)
+            for _ in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', sorted(SERVING_MODES))
+def test_batch_graph_equals_the_per_call_path(cuda_device, mode):
+    """Each mode with ``graphs=True`` (a non-grouped batch one replay, a
+    grouped batch's plan one replay) against ``graphs=False``, bit for bit
+    under deterministic algorithms, with a second per-call run as the
+    control; one capture; the kernels' executions per batch equal the
+    per-call path's launches (a capture's launches times its replays)."""
+    from exposure_tpu_torch.core import serving_graph as sg
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    graph, eager = _serving_pipes(cuda_device, mode)
+    batches = _serving_batches(cuda_device)
+    counts = {}
+    with deterministic_algorithms():
+        graph.warmup(batches[0], probe_batches=1)
+        outs = {}
+        for tag, pipe in (('eager', eager), ('control', eager),
+                          ('graph', graph)):
+            before = sg.executions(sg.wrapper_counts())
+            outs[tag] = list(pipe.map_batches(batches, seed=5,
+                                              device_out=True))
+            torch.cuda.synchronize()
+            after = sg.executions(sg.wrapper_counts())
+            counts[tag] = {k: after[k] - before[k] for k in after}
+    for a, b, c in zip(outs['graph'], outs['eager'], outs['control']):
+        assert torch.equal(b, c)
+        assert torch.equal(a, b)
+    assert counts['graph'] == counts['eager']
+    assert sum(counts['graph'].values()) > 0
+    assert graph.graph_report()['captures'] == 1
+    if not graph.grouped:
+        launches = list(graph.graph_report()[
+            'launches_per_replay'].values())[0]
+        assert {k: v * len(batches) for k, v in launches.items()} == \
+            {k: v for k, v in counts['graph'].items() if v}
+
+
+@pytest.mark.cuda
+def test_batch_graph_replays_without_a_host_sync(cuda_device):
+    """After the warm-up's capture, a stream of batches on the card (the
+    input copies, the reseeds, the replays and the output copies) makes no
+    host synchronisation: the sync debug mode raises on any."""
+    graph, _ = _serving_pipes(cuda_device, 'dynamic_selected_plan')
+    batches = _serving_batches(cuda_device, n=4)
+    graph.warmup(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        outs = list(graph.map_batches(batches, seed=1, device_out=True))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(outs) == 4 and graph.graph_report()['replays'] == 5
+
+
+@pytest.mark.cuda
+def test_release_frees_the_graph_pool(cuda_device):
+    """A graph's pool holds the batch's f32 copy (201 MB at [64, 512, 512,
+    3]), its static input and output (50 MB each): ``release`` gives it
+    back.  What stays is less than the static output (cuBLAS keeps a
+    workspace for each stream it ran on, the warm-up's side stream too)."""
+    import gc
+    graph, _ = _serving_pipes(cuda_device, 'dynamic_selected_plan')
+    batch = _serving_batches(cuda_device, n=1, b=64, h=512, w=512)[0]
+    mb = 2 ** 20
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated, reserved = (torch.cuda.memory_allocated(),
+                           torch.cuda.memory_reserved())
+    graph(batch, device_out=True)
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_reserved()
+    assert live - reserved > 250 * mb
+    graph.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() - allocated < 50 * mb
+    assert live - torch.cuda.memory_reserved() > 200 * mb
+
+
+@pytest.mark.cuda
+def test_evaluator_plan_graph_on_the_card(cuda_device):
+    """The evaluator's plan as one replay a proxy shape equals its per-call
+    plan bit for bit (deterministic algorithms), and leaves the caller's
+    generator where the per-call plan leaves it."""
+    import copy
+    from exposure_tpu_torch.core.evaluator import Evaluator
+    from exposure_tpu_torch.core.serving import batch_generator
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    ev = _random_policy_evaluator(cuda_device)
+    ev.cfg.dropout_keep_prob = 0.5
+    evs = {g: Evaluator(ev.cfg, policy=copy.deepcopy(ev.policy),
+                        device=cuda_device, graphs=g) for g in (True, False)}
+    for e in evs.values():
+        for m in (e.policy.shared_extractor, e.policy.selector_extractor):
+            m.dropout_keep_prob = 0.5
+    proxies = np.random.RandomState(2).rand(5, 64, 64, 3).astype(np.float32)
+    plans = {}
+    with deterministic_algorithms():
+        for g, e in evs.items():
+            gen = batch_generator(7, 0, cuda_device)
+            plans[g] = [e.plan_trajectory(proxies, gen)[0]
+                        for _ in range(2)] + [gen.get_state()]
+    for a, b in zip(plans[True][:2], plans[False][:2]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+    assert torch.equal(plans[True][2], plans[False][2])
+    assert evs[True]._graphs.report()['captures'] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
+def test_load_policy_under_a_live_graph(cuda_device, bf16):
+    """A swap after the capture: the next replay serves the new weights,
+    bit for bit a fresh per-call pipeline on them, without a new
+    capture."""
+    import copy
+    from exposure_tpu_torch.core.serving import RetouchPipeline
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    graph, _ = _serving_pipes(cuda_device, 'dynamic_selected_plan', seed=3,
+                              bf16=bf16)
+    other, _ = _serving_pipes(cuda_device, 'dynamic_selected_plan', seed=4)
+    fresh = RetouchPipeline(graph.cfg, copy.deepcopy(other.policy),
+                            device=cuda_device, bf16=bf16, graphs=False)
+    batch = _serving_batches(cuda_device, n=1)[0]
+    with deterministic_algorithms():
+        before = graph(batch, 2, 0, device_out=True)
+        graph.load_policy(other.policy.state_dict())
+        got = graph(batch, 2, 0, device_out=True)
+        want = fresh(batch, 2, 0, device_out=True)
+    assert torch.equal(got, want) and not torch.equal(got, before)
+    assert graph.graph_report()['captures'] == 1

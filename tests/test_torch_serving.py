@@ -373,6 +373,7 @@ def test_port_imports_without_jax_or_flax():
         sys.meta_path.insert(0, Refuse())
         import exposure_tpu_torch.core.rollout
         import exposure_tpu_torch.core.serving
+        import exposure_tpu_torch.core.serving_graph
         import exposure_tpu_torch.kernels
         import exposure_tpu_torch.models.agent
         import exposure_tpu_torch.ops.chain

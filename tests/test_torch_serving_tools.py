@@ -286,8 +286,10 @@ def test_warmup_tool_keys_are_the_jax_tools(model_root, tmp_path, capsys):
     dyn = warmup_serving.main([
         '--run', 'test/a', '--model-root', model_root, '--batch', '4',
         '--res', '32', '--seeds', '1', '--dynamic', '--device', 'cpu'])
+    # capture_s: the port's own, the cold batch's graph capture (0 here)
     assert set(dyn) == {'run', 'batch', 'res', 'mode', 'cold_first_batch_s',
-                        'warm_next_batches_s'}
+                        'capture_s', 'warm_next_batches_s'}
+    assert dyn['capture_s'] == 0.0
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == \
         dyn
 
@@ -387,7 +389,10 @@ def test_split_tool_keys_are_the_jax_tools(model_root):
     got = bench_serving_split.main([
         '--run', 'test/a', '--model-root', model_root, '--batch', '8',
         '--res', '32', '--runs', '1', '--device', 'cpu'])
-    assert want == set(got) - {'scatter_u8_ms'}
+    # the port's own: the grouped path's way back, and the whole batch as
+    # one graph replay beside the per-call path
+    assert want == set(got) - {'scatter_u8_ms', 'batch_graph_ms',
+                               'batch_eager_ms'}
     assert all(v > 0 for v in got.values())
 
 

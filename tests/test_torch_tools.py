@@ -294,3 +294,51 @@ def test_turns_judge_any_differing_kernel_value():
     assert smoke._moved_outputs(differing, ('k4c_',)) == {
         'k2f32_case_masked': 1}
     assert smoke._moved_outputs(smoke._values_differing(parent, parent)) == {}
+
+
+def test_smoke_counts_kernel_executions_under_graphs(monkeypatch):
+    """``chip_smoke.py::read_counts`` turns the wrappers' launches into
+    executions (a capture's recorded launches ran nothing, each replay ran
+    them all), and ``_k1_by_stage`` splits K1's executions into the plan's
+    and the replay's: eager calls as they ran, recorded ones times the
+    pipeline's replays since the last read."""
+    import exposure_tpu_torch.core.serving_graph as sg
+    from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
+    smoke = _load_smoke()
+    monkeypatch.setattr(apply_filter_chain_dynamic, 'launches', 0)
+    monkeypatch.setattr(sg, 'RECORDED', sg.collections.Counter())
+    monkeypatch.setattr(sg, 'REPLAYED', sg.collections.Counter())
+    smoke.reset_counts()
+    apply_filter_chain_dynamic.launches = 6 + 6   # a warm-up, a capture
+    sg.RECORDED.update({'dyn_chain': 6})
+    sg.REPLAYED.update({'dyn_chain': 6 * 3})
+    assert smoke.read_counts()['dyn_chain'] == 6 + 18
+    smoke.reset_counts()
+    assert smoke.read_counts()['dyn_chain'] == 0 and not sg.RECORDED
+
+    class Pipe:
+        replays = 0
+
+        def plan(self):
+            apply_filter_chain_dynamic.launches += 5
+
+        def replay(self):
+            apply_filter_chain_dynamic.launches += 1
+
+        def graph_report(self):
+            return {'replays': self.replays}
+
+    pipe = Pipe()
+    read = smoke._k1_by_stage(pipe)
+    capturing = [True]
+    monkeypatch.setattr(torch.cuda, 'is_current_stream_capturing',
+                        lambda: capturing[0])
+    pipe.plan()
+    pipe.replay()           # recorded by a capture
+    capturing[0] = False
+    pipe.plan()
+    pipe.replay()           # run eagerly (the warm-up)
+    pipe.replays = 3
+    assert read() == {'proxy': 5 + 5 * 3, 'replay': 1 + 3}
+    pipe.replays = 4
+    assert read() == {'proxy': 5, 'replay': 1}
