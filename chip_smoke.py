@@ -161,6 +161,17 @@ Phases, one line or a few each (a failing phase exits non-zero):
    ``load_policy`` under a live graph equal to a fresh pipeline on the new
    weights in f32 and bf16; the JSON line ``{"serving_graph": ...}``, and
    K1's and K2's executions in it their rows' ``launches_serving_graph``;
+13c. bench scripts (``phase_bench_scripts``): the root benchmark scripts
+   through their command lines, each a fresh process whose chain kernels'
+   executions are counted: ``bench_torch.py`` in driver mode (its five
+   lines on the artifact, the headline last; K1, K2 and K3 executed),
+   ``bench_torch.py --no-pallas`` at B=32 (the branchless control, no
+   chain kernel), ``bench_train_torch.py --iters 12`` and
+   ``bench_stream_torch.py`` on a 1 GB pack, f32 and then u8 fused by 5:
+   every line parses, its value finite and positive, the metric names
+   those expected in order, ``g_loss`` and ``emd`` finite; the JSON line
+   ``{"bench_scripts": ...}``, and K1-K3's executions in it their rows'
+   ``launches_bench_scripts``;
 14. serving tools (``phase_serving_tools``): the port's ``export_serving``
    (``phase_train``'s run at float32 and float16, verified),
    ``probe_selected_plan``, ``warmup_serving`` (fresh processes,
@@ -404,14 +415,39 @@ def ptxas_variants(log):
     return rows
 
 
+def start_build():
+    """Start the four libraries' builds at once, one nvcc each, in
+    background threads; returns ``finish()``, which waits for them and
+    reports as ``phase_build`` does.  A phase that needs a library before
+    then waits for that library alone (``kernels.build`` holds a lock a
+    library), so the phases that need no K2 run while K2's library, the
+    longest build, compiles."""
+    from concurrent.futures import ThreadPoolExecutor
+    from exposure_tpu_torch import kernels
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(4)
+    futures = {name: pool.submit(getattr(kernels, name + '_kernel'))
+               for name in ('dyn_chain', 'switch_chain', 'static_chain',
+                            'probes')}
+    pool.shutdown(wait=False)
+
+    def finish():
+        libs = {name: fut.result() for name, fut in futures.items()}
+        say('build: %d libraries in %.1f s (one nvcc each, all at once; '
+            'waited for %.1f s after they started)'
+            % (len(libs), max(lib.build_seconds for lib in libs.values()),
+               time.perf_counter() - t0))
+        return _build_report(libs)
+    return finish
+
+
 def phase_build():
     """Build the four libraries at once; print each chain kernel variant's
     registers, stack frame and spills.  Returns ``{library: variants}``."""
-    from exposure_tpu_torch.kernels import build_all
-    t0 = time.perf_counter()
-    libs = build_all()
-    say('build: %d libraries in %.1f s (one nvcc each, all at once)'
-        % (len(libs), time.perf_counter() - t0))
+    return start_build()()
+
+
+def _build_report(libs):
     variants = {}
     for name, lib in libs.items():
         say('build: %s nvcc %.1f s %s' % (name, lib.build_seconds, lib.path))
@@ -1651,6 +1687,176 @@ def phase_serving_graph(batches):
             numbers['load_policy_differing'], numbers['phase_s'],
             SERVING_GRAPH_BUDGET_S))
     return numbers, launches
+
+
+BENCH_SCRIPTS_BUDGET_S = 150
+BENCH_SCRIPT_TIMEOUT_S = 400            # a script process's
+BENCH_METRIC = '512px_images_per_sec_5step_inference'
+# bench_torch.py's driver mode on the artifact: bench.py's five lines
+BENCH_DRIVER_LINES = tuple(BENCH_METRIC + tag for tag in (
+    '_u8io', '_u8io_trained_grouped', '_u8io_bf16_trained_stream',
+    '_u8io_bf16_trained_stream_superset', '_u8io_bf16_trained_dyn'))
+# the chain kernels' wrappers a script process counts: (name, module, fn)
+CHAIN_WRAPPERS = (
+    ('dyn_chain', 'exposure_tpu_torch.ops.dyn_chain',
+     'apply_filter_chain_dynamic'),
+    ('switch_chain', 'exposure_tpu_torch.ops.switch_chain',
+     'apply_filter_chain_switch'),
+    ('static_chain', 'exposure_tpu_torch.ops.static_chain',
+     'apply_filter_chain_static'))
+
+# runs ``python3 <script> <args>`` in this interpreter, then prints the
+# chain kernels' executions there on its last line of stderr
+_SCRIPT_SHIM = '''
+import json, runpy, sys
+script = sys.argv[1]
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(script, run_name='__main__')
+finally:
+    counts = {}
+    for name, module, fn in %r:
+        m = sys.modules.get(module)
+        counts[name] = getattr(m, fn).launches if m else 0
+    # a graph's capture records launches, its replays run them
+    graphs = sys.modules.get('exposure_tpu_torch.core.serving_graph')
+    if graphs:
+        counts = graphs.executions(counts)
+    print('# kernel_executions ' + json.dumps(counts), file=sys.stderr,
+          flush=True)
+''' % (CHAIN_WRAPPERS,)
+
+
+BENCH_STREAM_PACK_GB = 1.0
+
+
+def start_bench_packs(pack_dir):
+    """Write ``bench_stream_torch.py``'s packs of ``BENCH_STREAM_PACK_GB``
+    into ``pack_dir`` in a process of their own (host work, started while
+    the kernels build); returns the process."""
+    code = ('import sys; import bench_stream_torch as b; '
+            'b.make_packs(sys.argv[1], float(sys.argv[2]))')
+    return subprocess.Popen(
+        [sys.executable, '-c', code, pack_dir, str(BENCH_STREAM_PACK_GB)],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def _script_process(args, timeout=BENCH_SCRIPT_TIMEOUT_S):
+    """``python3 <script> <args>`` from the repo, a fresh process: ``(its
+    JSON lines, the chain kernels' executions in that process, seconds,
+    its stderr's comment lines)``.  Fails unless it exits 0 and every line
+    of its standard output is a JSON object."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-c', _SCRIPT_SHIM] + list(args), cwd=REPO,
+        timeout=timeout, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    counted = re.findall(r'# kernel_executions (\{.*\})', proc.stderr)
+    if proc.returncode != 0 or not counted:
+        fail('bench scripts: %s exited %d: %s' % (
+            ' '.join(args), proc.returncode, proc.stderr[-2000:]))
+    lines = []
+    for text in proc.stdout.splitlines():
+        try:
+            line = json.loads(text)
+        except ValueError:
+            line = None
+        if not isinstance(line, dict):
+            fail('bench scripts: %s printed a line that is not a JSON '
+                 'object: %r' % (' '.join(args), text[:200]))
+        lines.append(line)
+    notes = [s for s in proc.stderr.splitlines()
+             if s.startswith('# ') and not s.startswith('# kernel_exec')]
+    return lines, json.loads(counted[-1]), seconds, notes
+
+
+def phase_bench_scripts(card, packs, packs_proc):
+    """The three root benchmark scripts, each through its command line in a
+    fresh process from the repo's directory (``_SCRIPT_SHIM``, which counts
+    the chain kernels' executions there):
+
+    1. ``bench_torch.py`` in driver mode: the artifact is in the repo, so
+       ``BENCH_DRIVER_LINES`` in that order, the headline last; K1 (the
+       dynamic line), K2 (the switch line, grouped merges) and K3 (the
+       grouped and stream lines) executed;
+    2. ``bench_torch.py --no-pallas --run synthetic_explore/best --batch
+       32``: the branchless control, which executes no chain kernel (its
+       plain chain takes 0.3 s a batch of 128, too long for the smoke's
+       time limit at 95 calls);
+    3. ``bench_train_torch.py --iters 12``;
+    4. ``bench_stream_torch.py --pack-gb 1 --iters 20 --keep-pack`` on the
+       packs ``start_bench_packs`` wrote into ``packs`` (``packs_proc``,
+       waited for here), then the same with ``--u8 --fuse 5``, which
+       deletes them.
+
+    Every run exits 0; every line parses and its value is finite and
+    positive; the metric names are the expected ones in order; the
+    training lines' ``g_loss`` and ``emd`` are finite.  Returns the
+    ``{"bench_scripts": ...}`` line's numbers and the executions by
+    kernel."""
+    import math
+    import torch
+    torch.cuda.empty_cache()    # room for the scripts' processes
+    t_phase = time.perf_counter()
+    runs, executions = {}, {name: 0 for name, _, _ in CHAIN_WRAPPERS}
+
+    def script(tag, args, names):
+        lines, counts, seconds, notes = _script_process(args)
+        got = [line.get('metric') for line in lines]
+        if got != list(names):
+            fail('bench scripts: %s printed %s, expected %s'
+                 % (tag, got, list(names)))
+        for line in lines:
+            value = line.get('value')
+            if not (isinstance(value, (int, float)) and math.isfinite(value)
+                    and value > 0):
+                fail('bench scripts: %s: %s = %r' % (tag, line['metric'],
+                                                     value))
+            for key in ('g_loss', 'emd'):
+                if key in line and not math.isfinite(line[key]):
+                    fail('bench scripts: %s: %s = %r' % (tag, key,
+                                                         line[key]))
+        for name, n in counts.items():
+            executions[name] += n
+        runs[tag] = {'lines': lines, 'executions': counts,
+                     'seconds': seconds, 'notes': notes}
+        say('bench scripts: %s (%.1f s, executions %s): %s' % (
+            tag, seconds, json.dumps(counts), json.dumps(lines)))
+        return counts
+
+    counts = script('bench_torch', ['bench_torch.py'], BENCH_DRIVER_LINES)
+    if min(counts.values()) <= 0:
+        fail('bench scripts: bench_torch.py\'s driver mode executed no '
+             'launch of a chain kernel: %s' % counts)
+    counts = script(
+        'bench_torch_no_pallas', ['bench_torch.py', '--no-pallas', '--run',
+                                  ARTIFACT_RUN, '--batch', '32'],
+        [BENCH_METRIC + '_u8io_trained_jnp'])
+    if max(counts.values()) != 0:
+        fail('bench scripts: the branchless line executed a chain kernel: '
+             '%s' % counts)
+    script('bench_train_torch', ['bench_train_torch.py', '--iters', '12'],
+           ['train_outer_iter_ms'])
+    _, err = packs_proc.communicate(timeout=BENCH_SCRIPT_TIMEOUT_S)
+    if packs_proc.returncode != 0:
+        fail('bench scripts: writing the packs exited %d: %s'
+             % (packs_proc.returncode, err[-2000:]))
+    stream = ['bench_stream_torch.py', '--pack-gb', str(BENCH_STREAM_PACK_GB),
+              '--iters', '20', '--pack-dir', packs]
+    script('bench_stream_torch', stream + ['--keep-pack'],
+           ['stream_train_outer_iter_ms'])
+    script('bench_stream_torch_u8_fuse5', stream + ['--u8', '--fuse', '5'],
+           ['stream_train_outer_iter_ms'])
+    if os.listdir(packs):
+        fail('bench scripts: bench_stream_torch.py left %s'
+             % os.listdir(packs))
+    numbers = {'runs': runs, 'executions': executions, 'card': card,
+               'phase_s': time.perf_counter() - t_phase}
+    say('bench scripts: executions %s; phase %.1f s (budget %d s)' % (
+        json.dumps(executions), numbers['phase_s'], BENCH_SCRIPTS_BUDGET_S))
+    return numbers, executions
 
 
 SERVING_TOOLS_BUDGET_S = 150
@@ -4010,7 +4216,7 @@ FUSED_LAST_ITER = 21        # iterations 0-21, as phase_data's
 FUSED_CKPT_INTERVAL = 12    # a checkpoint at 12, the chunks' boundary
 FUSED_SERVE_ITER = 23       # the fused trainer goes on through 22-23: a
                             # checkpoint at 24, which from_run serves
-FUSED_TURNS = ('plain', 'fused', 'fused', 'plain') * 2
+FUSED_TURNS = ('plain', 'fused', 'fused', 'plain')
 
 
 def _fused_cfg(stream_dtype=None, paths=None):
@@ -4370,38 +4576,48 @@ def main():
     t_start = time.perf_counter()
     card = phase_card()
     sys.path.insert(0, REPO)
-    variants = phase_build()
-    packed = phase_bf16_ops()
-    k1_worst, k1_timing, k1_errors = phase_k1()
-    k2_worst, k2_timing = phase_k2()
-    k3_worst, k3_timing = phase_k3()
-    probe_worst = phase_probes()
-    probe_counts, probe_timing, tool_worst, floor_gb_s, copies = \
-        phase_probe_tools()
-    for key, v in tool_worst.items():   # the largest over both phases
-        probe_worst[key] = max(probe_worst[key], v)
-    tool_counts, _ = phase_tools()
-    phase_small_reference()
-    evaluation = phase_evaluate()
-    with tempfile.TemporaryDirectory() as train_root:
-        # phase_train's run stays for phase_serving_tools
-        training = phase_train(train_root)
-        with tempfile.TemporaryDirectory() as fivek_root:
-            data = phase_data(fivek_root)
-            parallel = phase_parallel(fivek_root, card)
-            fused = phase_fused(fivek_root)
-        rng = np.random.default_rng(SEED)
-        batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
-                   for _ in range(MAIN_BATCHES)]
-        torch.cuda.synchronize()
-        k1_main, _, _ = phase_main_path(batches)
-        totals, _ = phase_modes(batches)
-        phase_planted(batches[0])
-        phase_bf16_plan(batches)
-        graph_numbers, graph_launches = phase_serving_graph(batches)
-        del batches
-        tools = phase_serving_tools(training)
-        research = phase_research_probes(training)
+    finish_build = start_build()
+    with tempfile.TemporaryDirectory() as train_root, \
+            tempfile.TemporaryDirectory() as packs:
+        packs_proc = start_bench_packs(packs)
+        try:
+            # the phases that need no K2 run while its library compiles
+            packed = phase_bf16_ops()
+            k1_worst, k1_timing, k1_errors = phase_k1()
+            k3_worst, k3_timing = phase_k3()
+            probe_worst = phase_probes()
+            phase_small_reference()
+            evaluation = phase_evaluate()
+            # phase_train's run stays for phase_serving_tools
+            training = phase_train(train_root)
+            variants = finish_build()
+            k2_worst, k2_timing = phase_k2()
+            probe_counts, probe_timing, tool_worst, floor_gb_s, copies = \
+                phase_probe_tools()
+            for key, v in tool_worst.items():   # the largest of both phases
+                probe_worst[key] = max(probe_worst[key], v)
+            tool_counts, _ = phase_tools()
+            with tempfile.TemporaryDirectory() as fivek_root:
+                data = phase_data(fivek_root)
+                parallel = phase_parallel(fivek_root, card)
+                fused = phase_fused(fivek_root)
+            rng = np.random.default_rng(SEED)
+            batches = [torch.from_numpy(_images(rng, BATCH, RES, RES))
+                       .to(DEVICE) for _ in range(MAIN_BATCHES)]
+            torch.cuda.synchronize()
+            k1_main, _, _ = phase_main_path(batches)
+            totals, _ = phase_modes(batches)
+            phase_planted(batches[0])
+            phase_bf16_plan(batches)
+            graph_numbers, graph_launches = phase_serving_graph(batches)
+            del batches
+            scripts, by_scripts = phase_bench_scripts(card, packs, packs_proc)
+            tools = phase_serving_tools(training)
+            research = phase_research_probes(training)
+        finally:
+            if packs_proc.poll() is None:     # a phase failed first
+                packs_proc.kill()
+                packs_proc.wait()
     say('total %.1f s' % (time.perf_counter() - t_start))
     shape = '[%d, %d, %d, 3] u8, K=5' % (BATCH, RES, RES)
     for name in totals:     # the paths: main, modes, probe tools, tools
@@ -4468,6 +4684,7 @@ def main():
     say(json.dumps({'serving_tools': dict(tools, card=card)}))
     say(json.dumps({'research_probes': dict(research, card=card)}))
     say(json.dumps({'serving_graph': dict(graph_numbers, card=card)}))
+    say(json.dumps({'bench_scripts': scripts}))
     served = parallel['launches']
     by_tools = tools['launches']
     proxy = PROXY_CASE[0]
@@ -4482,11 +4699,12 @@ def main():
                     data['launches_serve'] + served['dyn_chain'] +
                     fused['launches_serve'] + by_tools['dyn_chain'] +
                     research['k1_launches_total'] +
-                    graph_launches['dyn_chain'],
+                    graph_launches['dyn_chain'] + by_scripts['dyn_chain'],
                     'dyn_chain', 'dyn_chain_kernel',
                     launches_main_path_replay=k1_main['replay'],
                     launches_other_paths=totals['dyn_chain'],
                     launches_serving_graph=graph_launches['dyn_chain'],
+                    launches_bench_scripts=by_scripts['dyn_chain'],
                     launches_evaluation=evaluation['launches'],
                     launches_training_serve=training['launches_serve'],
                     launches_streaming_serve=data['launches_serve'],
@@ -4518,9 +4736,11 @@ def main():
                     'exposure_tpu/ops/pallas_chain.py:345',
                     k2_timing['f32'], k2_worst,
                     totals['switch_chain'] + served['switch_chain'] +
-                    by_tools['switch_chain'] + graph_launches['switch_chain'],
+                    by_tools['switch_chain'] + graph_launches['switch_chain'] +
+                    by_scripts['switch_chain'],
                     'switch_chain', 'switch_chain_f32',
                     launches_serving_graph=graph_launches['switch_chain'],
+                    launches_bench_scripts=by_scripts['switch_chain'],
                     launches_parallel_serve=served['switch_chain'],
                     launches_serving_tools=by_tools['switch_chain']),
         # the same wrapper's bf16 kernel; nothing in the package asks for
@@ -4541,9 +4761,10 @@ def main():
                     'exposure_tpu/ops/pallas_chain.py:417',
                     k3_timing['replay'], k3_worst,
                     totals['static_chain'] + served['static_chain'] +
-                    by_tools['static_chain'],
+                    by_tools['static_chain'] + by_scripts['static_chain'],
                     'static_chain', 'static_chain_kernel',
                     shape=shape + ', one signature (E, G, S+, T, Ct)',
+                    launches_bench_scripts=by_scripts['static_chain'],
                     launches_parallel_serve=served['static_chain'],
                     launches_serving_tools=by_tools['static_chain']),
         probe_entry('mono_probe',

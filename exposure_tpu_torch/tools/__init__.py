@@ -14,10 +14,12 @@ plan's ids against the bank plan's), ``warmup_serving`` (cold start and the
 warm-up's routes), ``bench_serving_split`` (a batch's parts),
 ``bench_dyn_probe`` (K1 against K2 and the grouped runner on a planted mix),
 ``drive_refreeze`` (the auto-superset re-freeze under a policy swap) and
-``bench_stream_device`` (the fused streaming step without its upload); and
-``user_study`` (the host-only study UI, PyQt5 inside ``run_qt``).  Run one
-with ``python -m exposure_tpu_torch.tools.<tool>``; each prints its JAX
-tool's report keys.  A tool never writes into the repo unasked: a report
+``bench_stream_device`` (the fused streaming step without its upload);
+``user_study`` (the host-only study UI, PyQt5 inside ``run_qt``); and
+``bench_tf32``, which has no JAX counterpart (the root benchmark scripts'
+lines with cuDNN's TF32 on and off, each a fresh process).  Run one
+with ``python -m exposure_tpu_torch.tools.<tool>``; each other tool prints
+its JAX tool's report keys.  A tool never writes into the repo unasked: a report
 goes where ``--out`` says, and ``export_serving`` writes its default path
 only when no file is there.  A run a tool names that this checkout has
 neither trained nor shipped as an artifact is an error naming it.

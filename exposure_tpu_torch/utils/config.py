@@ -19,7 +19,18 @@ trainer's fused dispatches and the deferral of its bookkeeping
 (``core/trainer.py``): 100 and 2 in ``example`` and the configs derived
 from it, 1 and 0 in ``test``.  ``tests/test_torch_serving.py`` holds every
 row equal to ``exposure_tpu.utils.load_config(name)`` in both directions.
+
+A config of one's own is a Python file that defines ``cfg``, written
+against the port (for example from ``load_config('example')``):
+``load_config_file(path)`` loads one, and ``load_config(name)`` takes
+``config_<name>.py`` in the working directory for a name the table does
+not have.  It never reads the repo's ``configs/``, whose modules import the
+JAX package.
 """
+
+import importlib.util
+import os
+import sys
 
 from exposure_tpu_torch.utils.dict_util import Dict
 
@@ -317,13 +328,30 @@ CONFIGS = {
 }
 
 
+def load_config_file(path):
+    """The ``cfg`` that the Python file at ``path`` defines (the file runs
+    as a module of its own)."""
+    spec = importlib.util.spec_from_file_location(
+        'exposure_tpu_torch_config_' +
+        os.path.basename(path).replace('.', '_'), path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module.cfg
+
+
 def load_config(config_name):
-    """A fresh copy of the named config's knobs."""
-    try:
-        make = CONFIGS[config_name]
-    except KeyError:
-        raise KeyError('no config %r; known: %s'
-                       % (config_name, sorted(CONFIGS))) from None
-    cfg = make()
+    """A fresh copy of the named config's knobs: the table's row, else the
+    ``cfg`` of ``config_<name>.py`` in the working directory."""
+    make = CONFIGS.get(config_name)
+    if make is not None:
+        cfg = make()
+    else:
+        path = os.path.join(os.getcwd(), 'config_%s.py' % config_name)
+        if not os.path.exists(path):
+            raise KeyError('no config %r; known: %s, or a config_%s.py in '
+                           'the working directory'
+                           % (config_name, sorted(CONFIGS), config_name))
+        cfg = load_config_file(path)
     cfg.name = config_name
     return cfg

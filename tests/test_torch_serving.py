@@ -420,6 +420,7 @@ def test_port_imports_without_jax_or_flax():
         import exposure_tpu_torch.tools.probe_critic_family
         import exposure_tpu_torch.tools.select_policy
         import exposure_tpu_torch.tools.validate_parity
+        import exposure_tpu_torch.tools.bench_tf32
         import exposure_tpu_torch.tools.validate_selector
         import exposure_tpu_torch.tools.user_study
         import exposure_tpu_torch.tools.user_study.main
@@ -429,6 +430,9 @@ def test_port_imports_without_jax_or_flax():
         from exposure_tpu_torch.utils.config import CONFIGS, load_config
         for name in CONFIGS:
             load_config(name)
+        import bench_stream_torch
+        import bench_torch
+        import bench_train_torch
         import chip_smoke
         import evaluate_torch
         import train_torch
