@@ -45,6 +45,17 @@ Phases, one line or a few each (a failing phase exits non-zero):
 8. tools: the port's verify_kernel (K1, K2 and the grouped K3 route against
    the branchless chain, its 24 cases must pass) and bench_filters at
    B=256 u8, with the fast branch set and without;
+8b. card tools (``phase_card_tools``): ``bench_truth`` at its JAX defaults
+   (B=256 512x512 u8, K=5, 20 dependency-serialized calls: the null call,
+   the u8 copy, K2 on five block-uniform mixes; K2's executions counted,
+   each mix's first call on 8 images within 1 LSB of the plain version),
+   ``branch_roofline`` on phase 8's two tables (the traced operation counts
+   beside ``branch_ops``), ``bench_upload`` (1, 27, 270 MB, pageable and
+   pinned), ``bench_dispatch``, and the data tools on a planted drop
+   (``import_reference_data --validate-only`` in a fresh process, the
+   pack's shape its one finding; ``fetch_fivek_test``); the JSON line
+   ``{"card_tools": ...}``, K2's executions its row's
+   ``launches_card_tools``;
 9. small: the whole dynamic path on the card against the CPU pipeline
    (the plain versions throughout) on a small input;
 9b. evaluate: the PNG codec writes the evaluation inputs (the three sample
@@ -1121,6 +1132,151 @@ def phase_tools():
             fail('the tools did not launch %s: %s' % (name, counts))
     say('tools: launches %s' % {k: v for k, v in counts.items() if v})
     return counts, tables
+
+
+CARD_TOOLS_BUDGET_S = 45
+TRUTH_ITERS = 20        # bench_truth's JAX defaults: B=256, K=5, 20 calls
+TRUTH_CHECK_BATCH = 8   # images of each mix's first call held to the plain
+UPLOAD_MB = (1, 27, 270)    # bench_upload's JAX default sizes, 5 reps
+
+
+def _planted_drop(root):
+    """A small FiveK drop under ``root`` for ``import_reference_data``:
+    folds of the dataset's lengths, 4,000 artist file names and an 80x80
+    pack of 16 crops, so that the pack's shape is its one finding."""
+    from exposure_tpu_torch.tools import import_reference_data as ird
+    import numpy as np
+    rng = np.random.RandomState(SEED)
+    pack = os.path.join(root, ird.PACK_REL)
+    os.makedirs(os.path.dirname(pack))
+    np.save(pack, (rng.rand(16, 80, 80, 3) * 2).astype(np.float32))
+    os.makedirs(os.path.join(root, 'data', 'folds'))
+    for rel, n in ird.FOLDS.items():
+        with open(os.path.join(root, rel), 'w') as f:
+            f.write(''.join('%d\n' % i
+                            for i in rng.permutation(5000)[:n] + 1))
+    artists = os.path.join(root, ird.ARTIST_DIR)
+    os.makedirs(artists)
+    for i in range(ird.ARTIST_MIN_IMAGES):
+        open(os.path.join(artists, 'a%04d.jpg' % (i + 1)), 'wb').close()
+    source = os.path.join(root, 'data', 'fivek_dataset',
+                          'FiveK_Lightroom_Export_InputDayLight')
+    os.makedirs(source)
+    with open(os.path.join(root, 'data', 'folds', 'FiveK_test.txt')) as f:
+        test_ids = f.read().split()[:3]
+    for i in test_ids + ['5001']:
+        open(os.path.join(source, 'a%04d-x.tif' % int(i)), 'wb').close()
+    return len(test_ids)
+
+
+def phase_card_tools(tables):
+    """The last tools of the port on the card: ``bench_truth`` at its JAX
+    defaults (K2's executions counted, each mix's first call on 8 images
+    held to the plain version within 1 LSB), ``branch_roofline`` on
+    ``phase_tools``' two ``bench_filters`` tables (``tables``: no second
+    timing), ``bench_upload`` (pageable and pinned) and ``bench_dispatch``;
+    the data tools imported, ``import_reference_data --validate-only`` in a
+    fresh process on a planted drop (the pack's shape its one finding) and
+    ``fetch_fivek_test`` on it.  Returns the ``{"card_tools": ...}``
+    numbers, K2's executions under ``launches``."""
+    import tempfile
+    import numpy as np
+    import torch
+    from exposure_tpu_torch.ops.filters import build_filters
+    from exposure_tpu_torch.ops.switch_chain import (
+        apply_filter_chain_switch, apply_filter_chain_switch_reference)
+    from exposure_tpu_torch.tools import (
+        bench_dispatch, bench_truth, bench_upload, branch_roofline,
+        fetch_fivek, fetch_fivek_test, import_reference_data)
+    from exposure_tpu_torch.utils.config import load_config
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    reset_counts()
+    truth = bench_truth.report(PROBE_BATCH, RES, 5, TRUTH_ITERS, dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = counts['switch_chain']
+    want = len(bench_truth.MIXES) * (TRUTH_ITERS + 1)
+    if launches != want or any(v for k, v in counts.items()
+                               if k != 'switch_chain'):
+        fail('bench_truth: K2 executions %d, want %d and no other kernel: '
+             '%s' % (launches, want, counts))
+    numbers = [v for k, v in truth.items() if k.endswith(('_ms', '_s',
+                                                          '_gbps'))]
+    if not all(np.isfinite(v) and v > 0 for v in numbers):
+        fail('bench_truth: %s' % truth)
+    say('bench_truth: ' + json.dumps(truth))
+    filters = build_filters(load_config('example'))
+    img = bench_truth.images(TRUTH_CHECK_BATCH, RES)
+    worst = 0
+    for name, mix in bench_truth.MIXES.items():
+        ids, params = bench_truth.make_traj(filters, mix, 5, PROBE_BATCH)
+        ids, params = ids[:, :TRUTH_CHECK_BATCH], params[:, :TRUTH_CHECK_BATCH]
+        got = apply_filter_chain_switch(img.to(dev), ids.to(dev),
+                                        params.to(dev), filters).cpu()
+        want_img = apply_filter_chain_switch_reference(img, ids, params,
+                                                       filters)
+        lsb = int((got.int() - want_img.int()).abs().max())
+        worst = max(worst, lsb)
+        if lsb > 1:
+            fail('bench_truth %s: K2 %d LSB off its plain version'
+                 % (name, lsb))
+    roof = {}
+    for fast in (False, True):
+        branch_roofline.check_bench(tables[fast], fast, 'phase_tools')
+        roof['fast' if fast else 'exact'] = rep = branch_roofline.roofline(
+            fast, tables[fast])
+        if not all(np.isfinite(row['achieved_Tops_per_s']) and
+                   row['achieved_Tops_per_s'] > 0
+                   for row in rep['branches'].values()):
+            fail('branch_roofline: %s' % rep)
+        say('branch_roofline%s: %s' % (' --exact' if not fast else '',
+                                       json.dumps(rep)))
+    upload = bench_upload.report(UPLOAD_MB, 5, dev,
+                                 say=lambda s: say('bench_upload ' + s))
+    for mb in UPLOAD_MB:
+        for line in (upload[mb], upload[mb]['pinned']):
+            if not (line['mb_per_s'] > 0 and len(line['all_s']) == 5):
+                fail('bench_upload %d MB: %s' % (mb, upload[mb]))
+    say('bench_upload: ' + json.dumps(upload))
+    dispatch = bench_dispatch.report(dev)
+    if not all(0 <= v[0] <= v[1] for k, v in dispatch.items()
+               if k.endswith('_ms')):
+        fail('bench_dispatch: %s' % dispatch)
+    say('bench_dispatch: ' + json.dumps(dispatch))
+    with tempfile.TemporaryDirectory() as root:
+        n_test = _planted_drop(root)
+        proc = subprocess.run(
+            [sys.executable, '-m',
+             'exposure_tpu_torch.tools.import_reference_data',
+             '--validate-only', '--data-root', root, '--no-strict-folds'],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        found = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith('VALIDATE:')]
+        if proc.returncode != 1 or len(found) != 1 or \
+                'pack shape (16, 80, 80, 3)' not in found[0]:
+            fail('import_reference_data --validate-only: rc %d, %s %s'
+                 % (proc.returncode, proc.stdout[-2000:],
+                    proc.stderr[-2000:]))
+        fetch_fivek_test.fetch(root, os.path.join(root, 'test_set'))
+        copied = sorted(os.listdir(os.path.join(root, 'test_set')))
+        if len(copied) != n_test:
+            fail('fetch_fivek_test copied %s' % copied)
+    say('data tools: import_reference_data --validate-only: %s; '
+        'fetch_fivek_test copied %d; fetch_fivek imports (%s)'
+        % (found[0], len(copied), fetch_fivek.RELEASE_BASE))
+    seconds = time.perf_counter() - t0
+    say('card tools: %.1f s (budget %d s)' % (seconds, CARD_TOOLS_BUDGET_S))
+    if seconds > CARD_TOOLS_BUDGET_S:
+        fail('card tools took %.1f s, over %d s' % (seconds,
+                                                    CARD_TOOLS_BUDGET_S))
+    return {'bench_truth': truth, 'k2_max_lsb_8_images': worst,
+            'branch_roofline': {
+                k: {key: v[key] for key in ('differences', 'calibration',
+                                            'branches')}
+                for k, v in roof.items()},
+            'bench_upload': upload, 'bench_dispatch': dispatch,
+            'launches': launches, 'phase_s': seconds}
 
 
 def _images(rng, b, h, w):
@@ -4596,7 +4752,8 @@ def main():
                 phase_probe_tools()
             for key, v in tool_worst.items():   # the largest of both phases
                 probe_worst[key] = max(probe_worst[key], v)
-            tool_counts, _ = phase_tools()
+            tool_counts, tables = phase_tools()
+            card_tools = phase_card_tools(tables)
             with tempfile.TemporaryDirectory() as fivek_root:
                 data = phase_data(fivek_root)
                 parallel = phase_parallel(fivek_root, card)
@@ -4685,6 +4842,7 @@ def main():
     say(json.dumps({'research_probes': dict(research, card=card)}))
     say(json.dumps({'serving_graph': dict(graph_numbers, card=card)}))
     say(json.dumps({'bench_scripts': scripts}))
+    say(json.dumps({'card_tools': dict(card_tools, card=card)}))
     served = parallel['launches']
     by_tools = tools['launches']
     proxy = PROXY_CASE[0]
@@ -4737,8 +4895,9 @@ def main():
                     k2_timing['f32'], k2_worst,
                     totals['switch_chain'] + served['switch_chain'] +
                     by_tools['switch_chain'] + graph_launches['switch_chain'] +
-                    by_scripts['switch_chain'],
+                    by_scripts['switch_chain'] + card_tools['launches'],
                     'switch_chain', 'switch_chain_f32',
+                    launches_card_tools=card_tools['launches'],
                     launches_serving_graph=graph_launches['switch_chain'],
                     launches_bench_scripts=by_scripts['switch_chain'],
                     launches_parallel_serve=served['switch_chain'],

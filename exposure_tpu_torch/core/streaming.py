@@ -117,6 +117,49 @@ def assemble_stream(cfg, supervised, fake_provider, real_provider, giters,
     return g_fresh, real
 
 
+def host_buffers(shapes, dtype, pinned):
+    """New host tensors of ``shapes`` and ``dtype``, page-locked when
+    ``pinned`` (the buffers a bundle is filled into)."""
+    return tuple(torch.empty(s, dtype=dtype, pin_memory=pinned)
+                 for s in shapes)
+
+
+def upload(bufs, device, side, record=None):
+    """``(tensors on device, copy event)``: on the card ``bufs`` (pinned)
+    are copied with ``non_blocking=True`` on the ``side`` stream, into
+    tensors allocated there first (so that the copy's events time the copy
+    alone), and the compute stream waits on the copy's event, which the
+    caller waits on before it refills ``bufs``.  On the CPU the tensors are
+    copies and the event None.  ``record``, a dict, receives the CUDA events
+    ``copy`` (start and end on the side stream) and ``wait`` (around the
+    compute stream's wait)."""
+    device = torch.device(device)
+    if device.type != 'cuda':
+        return tuple(x.clone() for x in bufs), None
+    compute = torch.cuda.current_stream(device)
+    timed = record is not None
+    done = torch.cuda.Event(enable_timing=timed)
+    with torch.cuda.stream(side):
+        out = tuple(torch.empty(x.shape, dtype=x.dtype, device=device)
+                    for x in bufs)
+        if timed:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        for dst, src in zip(out, bufs):
+            dst.copy_(src, non_blocking=True)
+        done.record()
+    if timed:
+        waits = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        waits[0].record(compute)
+    compute.wait_event(done)
+    if timed:
+        waits[1].record(compute)
+        record.update(copy=(start, done), wait=tuple(waits))
+    for x in out:
+        x.record_stream(compute)
+    return out, done
+
+
 class BundleFeeder:
     """One producer thread that turns the items of ``plan`` into what the
     trainer consumes, in order: an item ``('bundle', (giters, citers,
@@ -172,9 +215,7 @@ class BundleFeeder:
                 if self.mesh is not None:
                     shapes = tuple(s[:1] + (s[1] // self.mesh.world,) + s[2:]
                                    for s in shapes)
-                return tuple(torch.empty(s, dtype=self.dtype,
-                                         pin_memory=self.cuda)
-                             for s in shapes)
+                return host_buffers(shapes, self.dtype, self.cuda)
             try:
                 event, done, bufs = self._returned.get(timeout=0.1)
             except queue.Empty:
@@ -228,45 +269,14 @@ class BundleFeeder:
                                'seed the providers alike on every rank')
         record = None if self.timings is None else {
             'key': key, 'assembly_s': assembly_s}
-        if not self.cuda:
-            out = tuple(x.clone() for x in bufs)
-            self._returned.put((None, key, bufs))
-        else:
-            out = self._upload(key, bufs, record)
+        out, done = upload(bufs, self.device, self._side, record)
+        self._returned.put((done, key, bufs))
         if record is not None:
             self.timings.append(record)
         n = key[2]
         if n > 1:
             out = tuple(x.reshape((n, x.shape[0] // n) + x.shape[1:])
                         for x in out)
-        return out
-
-    def _upload(self, key, bufs, record):
-        """Copy ``bufs`` to the device on the side stream, from tensors
-        allocated there first (so that the copy's events time the copy),
-        and make the compute stream wait on the copy's event."""
-        compute = torch.cuda.current_stream(self.device)
-        timed = record is not None
-        done = torch.cuda.Event(enable_timing=timed)
-        with torch.cuda.stream(self._side):
-            out = tuple(torch.empty(x.shape, dtype=x.dtype,
-                                    device=self.device) for x in bufs)
-            if timed:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record()
-            for dst, src in zip(out, bufs):
-                dst.copy_(src, non_blocking=True)
-            done.record()
-        if timed:
-            waits = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            waits[0].record(compute)
-        compute.wait_event(done)
-        if timed:
-            waits[1].record(compute)
-            record.update(copy=(start, done), wait=tuple(waits))
-        for x in out:
-            x.record_stream(compute)
-        self._returned.put((done, key, bufs))
         return out
 
     def close(self):

@@ -15,18 +15,31 @@ warm-up's routes), ``bench_serving_split`` (a batch's parts),
 ``bench_dyn_probe`` (K1 against K2 and the grouped runner on a planted mix),
 ``drive_refreeze`` (the auto-superset re-freeze under a policy swap) and
 ``bench_stream_device`` (the fused streaming step without its upload);
-``user_study`` (the host-only study UI, PyQt5 inside ``run_qt``); and
-``bench_tf32``, which has no JAX counterpart (the root benchmark scripts'
-lines with cuDNN's TF32 on and off, each a fresh process).  Run one
+``user_study`` (the host-only study UI, PyQt5 inside ``run_qt``).  The
+card's own numbers: ``bench_truth`` (a null call, a u8 copy and K2 on
+block-uniform mixes, each call's input the previous output),
+``branch_roofline`` (each branch's traced operation count beside
+``ops/dyn_chain.py::branch_ops`` and its rate in ``bench_filters``' table),
+``bench_upload`` (pageable against the streaming trainer's pinned upload)
+and ``bench_dispatch`` (the host's cost of each launch primitive).  The
+FiveK data tools, standard library and numpy: ``fetch_fivek`` (the
+download), ``fetch_fivek_test`` (the user-test fold's TIFFs) and
+``import_reference_data`` (a reference checkout's ``data/`` linked or
+copied in, and validated).  And ``bench_tf32``, which has no JAX
+counterpart (the root benchmark scripts' lines with cuDNN's TF32 on and
+off, each a fresh process).  Run one
 with ``python -m exposure_tpu_torch.tools.<tool>``; each other tool prints
 its JAX tool's report keys.  A tool never writes into the repo unasked: a report
-goes where ``--out`` says, and ``export_serving`` writes its default path
-only when no file is there.  A run a tool names that this checkout has
+goes where ``--out`` says, ``export_serving`` writes its default path
+only when no file is there, and the data tools write the dataset's layout
+under ``--data-root`` (the working directory by default, where the configs
+read it; ``data/`` and ``test_set/`` are ignored by git).  A run a tool names that this checkout has
 neither trained nor shipped as an artifact is an error naming it.
 
-A kernel tool needs a CUDA device and exits non-zero without one.  ``--cpu``,
-where the JAX tool has it (``verify_kernel``, ``bench_filters``), is an
-explicit request for the plain PyTorch versions on the CPU; the evaluation,
+A kernel or card tool needs a CUDA device and exits non-zero without one
+(``branch_roofline --bench`` reads a table the card wrote, and needs
+none).  ``--cpu`` (``verify_kernel``, ``bench_filters``, ``bench_truth``,
+where the JAX tool has ``--interpret``) is an explicit request for the plain PyTorch versions on the CPU; the evaluation,
 serving and streaming tools take ``--device cpu`` for the same
 (``entry_device``).
 

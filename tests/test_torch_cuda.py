@@ -55,7 +55,11 @@ iterations of ``test``; ``nccl`` refuses two ranks on one card and names
 The fused dispatch: iterations captured in a CUDA graph and replayed equal
 the eager ones bit for bit (resident and streaming u8, deterministic
 cuDNN); a replay after ``manual_seed`` draws what the eager calls draw; a
-capture that fails raises, and the runner never falls back to eager."""
+capture that fails raises, and the runner never falls back to eager.
+
+The card tools: ``bench_truth``'s dependency-serialized K2 chain within 1
+LSB of the plain version at every link, and ``bench_upload``'s pinned
+upload (the streaming trainer's) equal to its pageable one."""
 
 import numpy as np
 import pytest
@@ -1417,3 +1421,45 @@ def test_load_policy_under_a_live_graph(cuda_device, bf16):
         want = fresh(batch, 2, 0, device_out=True)
     assert torch.equal(got, want) and not torch.equal(got, before)
     assert graph.graph_report()['captures'] == 1
+
+
+@pytest.mark.cuda
+def test_bench_truth_chain_against_plain(cuda_device):
+    """``bench_truth``'s dependency-serialized K2 chain on the card (each
+    call's u8 output the next call's input) against the same chain through
+    the plain version: within 1 LSB at every link."""
+    from exposure_tpu_torch.tools import bench_truth
+    filters = build_filters(load_config('example'))
+    img = bench_truth.images(4, 96)
+    for name, mix in bench_truth.MIXES.items():
+        ids, params = bench_truth.make_traj(filters, mix, 5, 4)
+        x, want = img.to(cuda_device), img
+        for _ in range(3):
+            x = apply_filter_chain_switch(x, ids.to(cuda_device),
+                                          params.to(cuda_device), filters)
+            got = x.cpu()
+            want = apply_filter_chain_switch_reference(want, ids, params,
+                                                       filters)
+            assert int((got.int() - want.int()).abs().max()) <= 1, name
+            want = got     # the next link starts from the card's output
+        _, last = bench_truth.serialized_time(
+            apply_filter_chain_switch, img.to(cuda_device), 2,
+            ids.to(cuda_device), params.to(cuda_device), filters)
+        assert torch.equal(last.cpu(), got), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mb', [1, 27])
+def test_bench_upload_pinned_bytes_equal_pageable(cuda_device, mb):
+    from exposure_tpu_torch.core.streaming import host_buffers
+    from exposure_tpu_torch.tools import bench_upload
+    n = mb * (1 << 20) // 4
+    host = np.random.RandomState(mb).rand(n).astype(np.float32)
+    (buf,) = host_buffers(((n,),), torch.float32, True)
+    assert buf.is_pinned()
+    buf.numpy()[...] = host
+    side = torch.cuda.Stream(cuda_device)
+    pinned = bench_upload.pinned_upload(buf, cuda_device, side)
+    pageable = bench_upload.pageable_upload(host, cuda_device)
+    assert pinned.device.type == 'cuda' and torch.equal(pinned, pageable)
+    assert np.array_equal(pinned.cpu().numpy(), host)

@@ -371,71 +371,36 @@ def test_port_imports_without_jax_or_flax():
                 return None
 
         sys.meta_path.insert(0, Refuse())
-        import exposure_tpu_torch.core.rollout
-        import exposure_tpu_torch.core.serving
-        import exposure_tpu_torch.core.serving_graph
-        import exposure_tpu_torch.kernels
-        import exposure_tpu_torch.models.agent
-        import exposure_tpu_torch.ops.chain
-        import exposure_tpu_torch.ops.grouped_chain
-        import exposure_tpu_torch.ops.sampling
-        import exposure_tpu_torch.ops.static_chain
-        import exposure_tpu_torch.ops.switch_chain
-        import exposure_tpu_torch.tools.bench_bf16_probe
-        import exposure_tpu_torch.tools.bench_fastmath
-        import exposure_tpu_torch.tools.bench_filters
-        import exposure_tpu_torch.tools.bench_kernel_probe
-        import exposure_tpu_torch.tools.verify_kernel
-        import exposure_tpu_torch.core.evaluator
-        import exposure_tpu_torch.data
-        import exposure_tpu_torch.tools.edit_sequence
-        import exposure_tpu_torch.tools.histogram_intersection
-        import exposure_tpu_torch.tools.pickle_to_tex
-        import exposure_tpu_torch.tools.quality_report
-        import exposure_tpu_torch.utils.image_io
-        import exposure_tpu_torch.utils.viz
-        import exposure_tpu_torch.core.steps
-        import exposure_tpu_torch.core.streaming
-        import exposure_tpu_torch.core.trainer
-        import exposure_tpu_torch.data.artist
-        import exposure_tpu_torch.data.fivek
-        import exposure_tpu_torch.data.folder
-        import exposure_tpu_torch.data.folds
-        import exposure_tpu_torch.data.native_provider
-        import exposure_tpu_torch.native
-        import exposure_tpu_torch.native.build
-        import exposure_tpu_torch.tools.bench_host_assembly
-        import exposure_tpu_torch.tools.train_check
-        import exposure_tpu_torch.core.fused
-        import exposure_tpu_torch.tools.bench_train_split
-        import exposure_tpu_torch.tools.bench_dyn_probe
-        import exposure_tpu_torch.tools.bench_serving_split
-        import exposure_tpu_torch.tools.bench_stream_device
-        import exposure_tpu_torch.tools.drive_refreeze
-        import exposure_tpu_torch.tools.export_serving
-        import exposure_tpu_torch.tools.probe_selected_plan
-        import exposure_tpu_torch.tools.warmup_serving
-        import exposure_tpu_torch.tools.ablate_w_usage
-        import exposure_tpu_torch.tools.diagnose_diversity
-        import exposure_tpu_torch.tools.probe_critic_family
-        import exposure_tpu_torch.tools.select_policy
-        import exposure_tpu_torch.tools.validate_parity
-        import exposure_tpu_torch.tools.bench_tf32
-        import exposure_tpu_torch.tools.validate_selector
-        import exposure_tpu_torch.tools.user_study
-        import exposure_tpu_torch.tools.user_study.main
-        import exposure_tpu_torch.parallel.dryrun
-        import exposure_tpu_torch.utils.dict_util
-        import exposure_tpu_torch.utils.prefetch
+        import importlib
+        import pkgutil
+
+        import exposure_tpu_torch
+
+        def unimportable(name):
+            raise ImportError('cannot import ' + name)
+
+        walked = [m.name for m in pkgutil.walk_packages(
+            exposure_tpu_torch.__path__, 'exposure_tpu_torch.',
+            onerror=unimportable)]
+        for name in walked:
+            importlib.import_module(name)
+        # every module of the package, the seven last tools among them
+        for name in ('tools.bench_truth', 'tools.branch_roofline',
+                     'tools.bench_upload', 'tools.bench_dispatch',
+                     'tools.import_reference_data', 'tools.fetch_fivek_test',
+                     'tools.fetch_fivek', 'tools.user_study.main',
+                     'core.serving_graph', 'kernels', 'native.build'):
+            assert 'exposure_tpu_torch.' + name in walked, name
         from exposure_tpu_torch.utils.config import CONFIGS, load_config
         for name in CONFIGS:
             load_config(name)
-        import bench_stream_torch
-        import bench_torch
-        import bench_train_torch
-        import chip_smoke
-        import evaluate_torch
-        import train_torch
+        import glob
+        roots = sorted(glob.glob('*_torch.py')) + ['chip_smoke.py']
+        assert {'bench_torch.py', 'bench_stream_torch.py',
+                'bench_train_torch.py', 'evaluate_torch.py',
+                'train_torch.py'} <= set(roots), roots
+        for path in roots:
+            importlib.import_module(path[:-3])
         bad = [m for m in sys.modules
                if m.split('.')[0] in ('jax', 'jaxlib', 'flax',
                                       'exposure_tpu')]
