@@ -8,8 +8,10 @@
 
 Phases, one line or a few each (a failing phase exits non-zero):
 
-1. card: require CUDA, print the card's name and power limit, turn TF32 off
-   for convolutions and matmuls (it can flip near-tie argmax decisions);
+1. card: require CUDA, print the card's name and power limit; the TF32
+   flags stay torch's defaults (cuDNN TF32 on), so that every phase shows
+   the port holding float32 itself in its plans, training updates and
+   critic scores (``exposure_tpu_torch/utils/precision.py``);
 2. build: compile the four CUDA kernel libraries from
    ``exposure_tpu_torch/csrc`` (the three chain kernels and the probes) at
    once, one nvcc each; each chain kernel variant's registers, stack frame
@@ -162,7 +164,9 @@ Phases, one line or a few each (a failing phase exits non-zero):
    (slot overflow, a missing signature, an empty slot, the K2 merge) and
    through the accumulate route (``merge_below``), against K1;
 13. bf16 plan: the served plan in bfloat16 against the f32 plan;
-13b. serving graph (``phase_serving_graph``): the dynamic selected-plan,
+13b. serving graph (``phase_serving_graph``): first one batch's plan and
+   u8 output as graphs with the process's TF32 flags on and then off, equal
+   bit for bit (its ids printed); then the dynamic selected-plan,
    dynamic bank-plan and switch modes (a batch one CUDA graph) and the
    grouped mode (its plan one graph) against ``graphs=False``: outputs and
    plans bit for bit under deterministic algorithms (a second per-call run
@@ -387,10 +391,10 @@ def phase_card():
         fail('nvidia-smi failed: %s' % smi.stderr.strip())
     card = smi.stdout.strip().splitlines()[0]
     say(card)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    say('card: %s | torch %s cuda %s | devices %d | TF32 off: '
-        'cudnn.allow_tf32=%s cuda.matmul.allow_tf32=%s'
+    # the process keeps torch's TF32 defaults: the port's plans, updates
+    # and scores hold float32 themselves (utils/precision.py)
+    say('card: %s | torch %s cuda %s | devices %d | TF32 flags left as '
+        'torch sets them: cudnn.allow_tf32=%s cuda.matmul.allow_tf32=%s'
         % (torch.cuda.get_device_name(0), torch.__version__,
            torch.version.cuda, torch.cuda.device_count(),
            torch.backends.cudnn.allow_tf32,
@@ -1729,8 +1733,53 @@ def _swap_under_graph(batches, dev):
     return out
 
 
+def _flags_alike(batches, dev):
+    """One batch of the main path served as graphs (the dynamic selected
+    plan: its plan captured alone, and the whole batch) in a fresh pipeline
+    with the process's TF32 flags on, then in another with them off, under
+    deterministic algorithms: the plan's [K, B] ids and the u8 output equal
+    bit for bit, since the port's plans hold float32 whatever the flags
+    (``exposure_tpu_torch/utils/precision.py``).  Prints the ids of the
+    first images, the filters' counts a step and digests; returns the
+    values differing by tensor (0)."""
+    import torch
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    got = {}
+    try:
+        for flags in (True, False):
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = (flags, flags)
+            pipe = _pipeline(dev, graphs=True)
+            with deterministic_algorithms():
+                ids = pipe._plan_for(batches[0], SEED, 0)[0].clone()
+                out = pipe(batches[0], SEED, 0, device_out=True)
+            got[flags] = (ids, out)
+            pipe.release()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    differing = {'ids': _differing([got[True][0]], [got[False][0]]),
+                 'u8': _differing([got[True][1]], [got[False][1]])}
+    ids = got[True][0].cpu()
+    counts = [torch.bincount(row.long(), minlength=8).tolist()
+              for row in ids]
+    say('serving graph: one batch [%d, %d, %d, 3] u8, the dynamic selected '
+        'plan as graphs, TF32 flags on then off: ids of images 0-15 by step '
+        '%s; filters\' counts a step %s; ids digest %s / %s, output digest '
+        '%s / %s; values differing %s' % (
+            BATCH, RES, RES, ids[:, :16].tolist(), counts,
+            _digest([got[True][0]]), _digest([got[False][0]]),
+            _digest([got[True][1]]), _digest([got[False][1]]), differing))
+    if differing['ids'] or differing['u8']:
+        fail('serving graph: the TF32 flags moved the plan: %s' % differing)
+    return differing
+
+
 def phase_serving_graph(batches):
-    """Serving as one program a batch (``core/serving_graph.py``): each of
+    """Serving as one program a batch (``core/serving_graph.py``): one
+    batch with the TF32 flags on and off (``_flags_alike``); each of
     ``GRAPH_MODES`` on the trained artifact at full width with
     ``graphs=True`` against ``graphs=False``: under deterministic
     algorithms the graph's outputs (and a grouped mode's plans) equal the
@@ -1749,6 +1798,7 @@ def phase_serving_graph(batches):
     dev = torch.device(DEVICE)
     t_phase = time.perf_counter()
     numbers, launches = {}, {name: 0 for name in read_counts()}
+    numbers['tf32_flags_differing'] = _flags_alike(batches, dev)
     for mode, kw in GRAPH_MODES:
         pipes = {'graph': _pipeline(dev, graphs=True, **kw),
                  'eager': _pipeline(dev, graphs=False, **kw)}
@@ -2393,7 +2443,6 @@ def _diversity_checks(report, root):
     from exposure_tpu_torch.core.rollout import rollout
     from exposure_tpu_torch.tools.diagnose_diversity import analyze
     from exposure_tpu_torch.utils.config import load_config
-    from exposure_tpu_torch.utils.ops import tf32_off
     cfg = load_config(RESEARCH_CONFIG)
     cfg.name = report['run']
     card = Evaluator(cfg, model_root=root, device=DEVICE)
@@ -2405,7 +2454,7 @@ def _diversity_checks(report, root):
     got = report['argmax']
     differ = total = 0
     x = torch.from_numpy(np.asarray(inputs, np.float32))
-    with torch.no_grad(), tf32_off():
+    with torch.no_grad():
         for k in range(got['keys']):
             a = rollout(card.policy, x.to(DEVICE), torch.Generator(
                 device=DEVICE).manual_seed(1000 + k), cfg=cfg,
@@ -3188,7 +3237,7 @@ def _train_check():
     report = check.card_against_cpu(load_config(TRAIN_CONFIG), DEVICE,
                                     giters=1, citers=1, seed=SEED)
     say('train: card against CPU, one outer iteration (giters 1, citers 1, '
-        '%s at full width, dropout off, TF32 off, the CPU\'s draws '
+        '%s at full width, dropout off, float32, the CPU\'s draws '
         'replayed; %.1f s): metrics [card, CPU] %s' % (
             TRAIN_CONFIG, time.perf_counter() - t0,
             json.dumps(report['metrics'])))
@@ -3873,7 +3922,7 @@ def _u8_first_step(cfg, paths):
     from exposure_tpu_torch.data.native_provider import NativePackProvider
     from exposure_tpu_torch.models.networks import build_models
     from exposure_tpu_torch.utils.draws import Draws
-    from exposure_tpu_torch.utils.ops import deterministic_algorithms, tf32_off
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
     cfg = cfg.copy()
     cfg.stream_dtype = 'uint8'
     nets = build_models(cfg)
@@ -3895,7 +3944,7 @@ def _u8_first_step(cfg, paths):
     step = build_streaming_outer_step(cfg, *nets[1:], nets[0], cfg.giters,
                                       cfg.citers)
     outs = []
-    with tf32_off(), deterministic_algorithms():
+    with deterministic_algorithms():
         for gb, rb in ((g, r), host, host):
             pool = PoolState.create(pool_images.clone(), cfg.num_state_dim)
             draws = Draws(torch.Generator(DEVICE).manual_seed(SEED), DEVICE)

@@ -35,10 +35,11 @@ State.  As in the JAX evaluator, ``Evaluator.state`` is the run's whole
 given by the caller; ``critic_logits`` scores a batch with its critic
 (``probe_critic_family`` and ``select_policy`` rank policies so).
 
-TF32 is turned off around the plan and the critic (it flips near-tie argmax
-decisions) and restored after them.  Dropout stays on at evaluation, as in
-the reference, drawn from ``core/serving.py::batch_generator(seed, 0,
-device)``.
+The plan and the critic run in float32 whatever the process's TF32 flags
+(``utils/precision.py``, entered by ``rollout`` and ``critic_logits``), as
+``RetouchPipeline``'s plans do, so both pick the same filters.  Dropout
+stays on at evaluation, as in the reference, drawn from
+``core/serving.py::batch_generator(seed, 0, device)``.
 
 Plan graphs (``graphs``, on by default on the card): the plan is captured
 once per proxy batch shape as a CUDA graph and replayed
@@ -84,7 +85,8 @@ from exposure_tpu_torch.utils.image_io import (
     read_tiff16,
     write_image,
 )
-from exposure_tpu_torch.utils.ops import STATE_STOPPED_DIM, tf32_off
+from exposure_tpu_torch.utils.ops import STATE_STOPPED_DIM
+from exposure_tpu_torch.utils.precision import tf32_off
 
 _REALTIME_VIS_FAILED = [False]
 
@@ -208,9 +210,8 @@ class Evaluator:
 
     # ------------------------------------------------------------------
     def _plan(self, proxies, generator):
-        with tf32_off():
-            return rollout(self.policy, proxies, generator, cfg=self.cfg,
-                           filters=self.filters, is_train=0)
+        return rollout(self.policy, proxies, generator, cfg=self.cfg,
+                       filters=self.filters, is_train=0)
 
     @torch.no_grad()
     def plan_trajectory(self, low_res_batch, generator=None):
@@ -253,6 +254,7 @@ class Evaluator:
         return active
 
     @torch.no_grad()
+    @tf32_off()
     def critic_logits(self, images):
         """The critic's logits ([B, 1] numpy) of [B, S, S, 3] float32
         images, on ``self.state.crit_params``, TF32 off."""
@@ -260,8 +262,7 @@ class Evaluator:
             raise ValueError('an Evaluator given policy= has no train state, '
                              'so no critic weights')
         x = torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
-        with tf32_off():
-            return _host(apply(self.critic, self.state.crit_params, x))
+        return _host(apply(self.critic, self.state.crit_params, x))
 
     @torch.no_grad()
     def retouch(self, high_res_batch, traj):

@@ -9,7 +9,12 @@ epsilon-mixed action distribution, and advances the 64px proxy through the
 dynamic chain kernel on the selected branch only, the same kernel and
 branch math the full-resolution replay uses.  Both draw dropout from one
 ``torch.Generator`` in step order; at ``is_train=0`` ``rollout`` draws no
-selection noise, so the two plans see the same dropout at every step."""
+selection noise, so the two plans see the same dropout at every step.
+
+Every plan runs in float32 whatever the process's TF32 flags
+(``utils/precision.py``), per call and in a captured graph, which replays
+the kernels launched inside the contract; a bfloat16 policy and proxy (the
+bf16 plan) stay bfloat16."""
 
 from typing import NamedTuple
 
@@ -25,6 +30,7 @@ from exposure_tpu_torch.models.agent import (
     pack_param_rows,
 )
 from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
+from exposure_tpu_torch.utils.precision import tf32_off
 
 
 class Trajectory(NamedTuple):
@@ -39,6 +45,7 @@ class Trajectory(NamedTuple):
     final_state: torch.Tensor   # [B, D]
 
 
+@tf32_off()
 def rollout(policy, images, generator, *, cfg, filters, is_train=0,
             num_steps=None, progress=1.0):
     """Run ``num_steps`` (default ``cfg.test_steps``) agent steps."""
@@ -62,6 +69,7 @@ def rollout(policy, images, generator, *, cfg, filters, is_train=0,
                       final_image=img, final_state=st)
 
 
+@tf32_off()
 def serve_rollout(policy, images, generator, *, cfg, filters,
                   num_steps=None, fast_math=True):
     """Plan a trajectory for a batch of proxies.

@@ -59,6 +59,7 @@ from exposure_tpu_torch.data.device_sampler import (
     sample_batch,
 )
 from exposure_tpu_torch.parallel.mesh import local_batch_size
+from exposure_tpu_torch.utils.precision import tf32_off
 
 
 class StepMetrics(NamedTuple):
@@ -165,9 +166,13 @@ def _make_phase_bodies(cfg, policy, critic_mod, value_mod, filters,
                        local_batch, taps=None, mesh=None):
     """The generator-phase and critic-phase update cores.  ``taps``: a
     list each update appends its gradients to (and a generator update its
-    selection), or None; ``mesh``: the ranks to average over, or None."""
+    selection), or None; ``mesh``: the ranks to average over, or None.
+    Each update runs in float32 whatever the process's TF32 flags
+    (``utils/precision.py``): the forward, the backward and the gradient
+    penalty's double backward all launch inside it."""
     betas = (cfg.get('adam_beta1', 0.5), cfg.get('adam_beta2', 0.9))
 
+    @tf32_off()
     def g_update(st, pl, fresh_triplet, draws, sc, i):
         """Generator update ``i`` of the step, its scalars from ``sc``."""
         (fresh_batch, fresh_gt), (fresh2, fresh2_gt), \
@@ -212,6 +217,7 @@ def _make_phase_bodies(cfg, policy, critic_mod, value_mod, filters,
                       fresh_gt_for_pool=fresh_pool_gt)
         return st, pl, (g_loss, v_loss, reward)
 
+    @tf32_off()
     def c_update(st, pool, real_batch, draws, sc, i):
         """Critic update ``i`` of the step, its scalars from ``sc``."""
         fake_batch, _ = sample_terminated(pool, draws, local_batch)

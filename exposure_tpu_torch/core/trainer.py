@@ -107,7 +107,7 @@ from exposure_tpu_torch.parallel.mesh import (
 from exposure_tpu_torch.utils.draws import Draws
 from exposure_tpu_torch.utils.image_io import make_image_grid, write_image
 from exposure_tpu_torch.utils.logging_util import MedianWindow, MetricLogger, Tee
-from exposure_tpu_torch.utils.ops import tf32_off
+from exposure_tpu_torch.utils.precision import tf32_off
 
 _REALTIME_VIS_FAILED = [False]
 _ITERATION_STRIDE = 1 << 32   # seeds (seed + 1) * stride + iteration
@@ -640,34 +640,33 @@ class Trainer:
         lanes = {'ckpt': concurrent.futures.ThreadPoolExecutor(1),
                  'viz': concurrent.futures.ThreadPoolExecutor(1)}
         self._lanes = lanes
-        with tf32_off():
-            try:
-                it = self.state.step
-                while it <= end:
-                    self._profile(it)
-                    chunk = self._plan(it, end)
-                    if chunk > 1:
-                        citers, metrics = self._run_fused(it, chunk)
-                    else:
-                        citers, metrics = self.run_iteration(
-                            it, self._generator)
-                        metrics = torch.stack(list(metrics))[None]
-                    now = time.time()
-                    pending.append(ChunkRecord(
-                        it, chunk, citers, metrics,
-                        *self._kept(it, chunk), now - books['last_t']))
-                    books['last_t'] = now
-                    while len(pending) > self.depth:
-                        self._process_chunk(pending.popleft(), books)
-                    self._reap()
-                    it += chunk
-                while pending:
+        try:
+            it = self.state.step
+            while it <= end:
+                self._profile(it)
+                chunk = self._plan(it, end)
+                if chunk > 1:
+                    citers, metrics = self._run_fused(it, chunk)
+                else:
+                    citers, metrics = self.run_iteration(
+                        it, self._generator)
+                    metrics = torch.stack(list(metrics))[None]
+                now = time.time()
+                pending.append(ChunkRecord(
+                    it, chunk, citers, metrics,
+                    *self._kept(it, chunk), now - books['last_t']))
+                books['last_t'] = now
+                while len(pending) > self.depth:
                     self._process_chunk(pending.popleft(), books)
-            finally:
-                self._lanes = None
-                for lane in lanes.values():
-                    lane.shutdown(wait=True)
-                self._stop_profile()
+                self._reap()
+                it += chunk
+            while pending:
+                self._process_chunk(pending.popleft(), books)
+        finally:
+            self._lanes = None
+            for lane in lanes.values():
+                lane.shutdown(wait=True)
+            self._stop_profile()
         self._reap(wait=True)
         return self._metrics_last
 
@@ -876,13 +875,13 @@ class Trainer:
         state = self.state if state is None else state
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        with tf32_off():
-            return rollout(self._policy(state), self._as_tensor(images),
-                           generator, cfg=cfg, filters=self.filters,
-                           is_train=is_train,
-                           num_steps=num_steps or cfg.test_steps)
+        return rollout(self._policy(state), self._as_tensor(images),
+                       generator, cfg=cfg, filters=self.filters,
+                       is_train=is_train,
+                       num_steps=num_steps or cfg.test_steps)
 
     @torch.no_grad()
+    @tf32_off()
     def critic_scores(self, images, state=None):
         """Critic logits of a host batch, centred by the EMA of the mean
         logit."""
@@ -892,12 +891,14 @@ class Trainer:
         return (logits - state.ema.value).cpu().numpy()
 
     @torch.no_grad()
+    @tf32_off()
     def state_values(self, images, states, state=None):
         """V(s) of host batches."""
         state = self.state if state is None else state
         return apply(self.value, state.val_params, self._as_tensor(images),
                      self._as_tensor(states))[:, 0].cpu().numpy()
 
+    @tf32_off()
     def critic_gradients(self, images, state=None):
         """Per-pixel d(critic logit)/d(image), display-scaled: ``10 * grad
         + 0.5`` clipped to [0, 1]."""

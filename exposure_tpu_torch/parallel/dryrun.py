@@ -310,7 +310,6 @@ def _serve_part(mesh, out, settings, trained):
     from exposure_tpu_torch.ops.grouped_chain import GroupedChainRunner
     from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
     from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
-    from exposure_tpu_torch.utils.ops import tf32_off
     wrappers = {'dyn_chain': apply_filter_chain_dynamic,
                 'switch_chain': apply_filter_chain_switch,
                 'static_chain': apply_filter_chain_static}
@@ -346,7 +345,7 @@ def _serve_part(mesh, out, settings, trained):
     for fn in wrappers.values():
         fn.launches = 0
     lsb = {}
-    with torch.no_grad(), tf32_off():
+    with torch.no_grad():
         # the bank rollout and K2
         traj = rollout(policy, proxy_resize(images, s), gen(), cfg=cfg,
                        filters=filters, is_train=0)

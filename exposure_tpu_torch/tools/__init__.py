@@ -26,8 +26,9 @@ FiveK data tools, standard library and numpy: ``fetch_fivek`` (the
 download), ``fetch_fivek_test`` (the user-test fold's TIFFs) and
 ``import_reference_data`` (a reference checkout's ``data/`` linked or
 copied in, and validated).  And ``bench_tf32``, which has no JAX
-counterpart (the root benchmark scripts' lines with cuDNN's TF32 on and
-off, each a fresh process).  Run one
+counterpart (the root benchmark scripts' lines with the process's TF32
+flags on and off, each a fresh process: they must agree, as the port
+computes in float32 whatever the flags).  Run one
 with ``python -m exposure_tpu_torch.tools.<tool>``; each other tool prints
 its JAX tool's report keys.  A tool never writes into the repo unasked: a report
 goes where ``--out`` says, ``export_serving`` writes its default path

@@ -7,7 +7,9 @@ tunnel):
 
   resize       the 512^2 u8 batch to the 64^2 f32 proxy
   cnn1         one ``PolicyNet`` call on the enriched proxies (the plan
-               makes one a step), in f32 and in bf16
+               makes one a step), in f32 and in bf16, under the plans'
+               precision contract (``utils/precision.py``), as a plan
+               runs it
   plan         the resize and the 5-step bank ``rollout``, f32 and bf16
   replay       the grouped replay (K3 through ``GroupedChainRunner``, host
                grouping included) on the plan's own ids and params
@@ -51,6 +53,7 @@ def split(cfg, filters, policy, imgs_u8, device, runs=RUNS):
     )
     from exposure_tpu_torch.ops.grouped_chain import GroupedChainRunner
     from exposure_tpu_torch.tools import median_seconds
+    from exposure_tpu_torch.utils.precision import tf32_off
     b, s = imgs_u8.shape[0], cfg.source_img_size
 
     def ms(fn, calls=1):
@@ -65,7 +68,8 @@ def split(cfg, filters, policy, imgs_u8, device, runs=RUNS):
         proxy = proxy_resize(imgs_u8, s)
         st0 = initial_states(b, cfg.num_state_dim, device=device)
         enriched = enrich_image_input(cfg, proxy, st0)
-        results['cnn1_ms'] = ms(lambda: policy(enriched, gen()))
+        # the forward alone is no plan: it enters the plans' contract here
+        results['cnn1_ms'] = ms(tf32_off()(lambda: policy(enriched, gen())))
         bf_enriched = enrich_image_input(
             cfg, proxy.to(torch.bfloat16), st0.to(torch.bfloat16))
         results['cnn1_bf16_ms'] = ms(lambda: bf_policy(bf_enriched, gen()))

@@ -1,19 +1,22 @@
-"""The root benchmark scripts' lines with cuDNN's TF32 on (torch's default)
-and off, each a fresh process, in turns.
+"""The root benchmark scripts' lines with the process's TF32 flags on and
+off, each a fresh process, in turns: the card's proof that the port's
+precision contract holds.
 
     python -m exposure_tpu_torch.tools.bench_tf32 [--turns on off off on]
         [--out report.json]
 
-The scripts run under torch's defaults, where cuDNN may run float32
-convolutions in TF32 (matmuls stay float32); ``chip_smoke.py`` turns TF32
-off for its own phases, so that the card's plans stay comparable with the
-CPU's.  This tool measures what the setting moves: for each turn it sets
-``torch.backends.cudnn.allow_tf32`` in a fresh interpreter and runs, through
-their command lines, ``bench_torch.py --dyn --run synthetic_explore/best``
-(the dynamic line with the f32 plan), ``bench_train_torch.py`` and
-``bench_stream_torch.py --pack-gb 1 --iters 20 --u8 --fuse 5`` (on packs
-written once into a temp dir).  The report gives each line's values by
-setting, in turn order, with the card's name.  Needs a CUDA device.
+Torch's defaults let cuDNN run float32 convolutions in TF32.  The port's
+plans, training updates and critic scores run in float32 whatever the
+process set (``utils/precision.py``), so the two settings must time the
+same kernels: each line's "on" and "off" values agree within their spread
+across turns.  For each turn the tool sets ``torch.backends.cudnn.allow_tf32``
+and ``torch.backends.cuda.matmul.allow_tf32`` in a fresh interpreter and
+runs, through their command lines, ``bench_torch.py --dyn --run
+synthetic_explore/best`` (the dynamic line with the f32 plan),
+``bench_train_torch.py`` and ``bench_stream_torch.py --pack-gb 1 --iters
+20 --u8 --fuse 5`` (on packs written once into a temp dir).  The report
+gives each line's values by setting, in turn order, with the card's name.
+Needs a CUDA device.
 """
 
 import argparse
@@ -27,14 +30,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 _PRELUDE = ('import runpy, sys, torch\n'
             'torch.backends.cudnn.allow_tf32 = %s\n'
+            'torch.backends.cuda.matmul.allow_tf32 = %s\n'
             'sys.argv = sys.argv[1:]\n'
             'runpy.run_path(sys.argv[0], run_name="__main__")\n')
 
 
 def _line(args, tf32):
-    """The JSON line ``python3 <args>`` prints with cuDNN TF32 ``tf32``."""
+    """The JSON line ``python3 <args>`` prints with the TF32 flags
+    ``tf32``."""
     proc = subprocess.run(
-        [sys.executable, '-c', _PRELUDE % bool(tf32)] + list(args),
+        [sys.executable, '-c', _PRELUDE % (bool(tf32), bool(tf32))] +
+        list(args),
         cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
         capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:

@@ -143,7 +143,6 @@ def run(config='synthetic', device='cuda', chunk=10, runs=5,
     """The report (a dict) of ``config``'s split on ``device``."""
     from exposure_tpu_torch.core.trainer import Trainer
     from exposure_tpu_torch.utils.config import load_config
-    from exposure_tpu_torch.utils.ops import tf32_off
     cfg = load_config(config)
     cfg.name = '%s/bench-split' % config
     kinds = ('graph', 'plain') if torch.device(device).type == 'cuda' \
@@ -156,39 +155,38 @@ def run(config='synthetic', device='cuda', chunk=10, runs=5,
             report = {'config': config, 'device': device_name(device),
                       'timing': timing_name(device), 'chunk': chunk,
                       'runs': runs, 'turns': turns}
-            with tf32_off():
-                for name, (g, c) in _mixes(cfg).items():
-                    calls = {k: _Chained(trainer, g, c, chunk, k)
-                             for k in kinds}
-                    times = {k: [] for k in kinds}
-                    for kind in turns:
-                        times[kind].append(1e3 * median_seconds(
-                            calls[kind], device, runs=runs, warmup=1) / chunk)
-                    report[name] = {k: statistics.median(v)
-                                    for k, v in times.items()}
-                    report[name + '_turns'] = times
-                    print('%-14s %s' % (name, json.dumps(report[name])),
-                          flush=True)
-                samplers = {k: _sampler(trainer, k) for k in kinds}
+            for name, (g, c) in _mixes(cfg).items():
+                calls = {k: _Chained(trainer, g, c, chunk, k)
+                         for k in kinds}
                 times = {k: [] for k in kinds}
                 for kind in turns:
                     times[kind].append(1e3 * median_seconds(
-                        samplers[kind], device, runs=runs, warmup=1))
-                report['sampling_ms'] = {k: statistics.median(v)
-                                         for k, v in times.items()}
-                print('%-14s %s' % ('sampling_ms',
-                                    json.dumps(report['sampling_ms'])),
+                        calls[kind], device, runs=runs, warmup=1) / chunk)
+                report[name] = {k: statistics.median(v)
+                                for k, v in times.items()}
+                report[name + '_turns'] = times
+                print('%-14s %s' % (name, json.dumps(report[name])),
                       flush=True)
-                report['decomposition_surplus_ms'] = {
-                    k: report['g_phase_ms'][k] + report['c_phase_ms'][k] -
-                    report['outer_ms'][k] for k in kinds}
-                gi, ci = _mixes(cfg)['outer_ms']
-                report['profile'] = {}
-                for kind in kinds:
-                    call = _Chained(trainer, gi, ci, chunk, kind)
-                    call()          # the warm-up (and the capture)
-                    report['profile'][kind] = profile_calls(call, chunk,
-                                                            device)
+            samplers = {k: _sampler(trainer, k) for k in kinds}
+            times = {k: [] for k in kinds}
+            for kind in turns:
+                times[kind].append(1e3 * median_seconds(
+                    samplers[kind], device, runs=runs, warmup=1))
+            report['sampling_ms'] = {k: statistics.median(v)
+                                     for k, v in times.items()}
+            print('%-14s %s' % ('sampling_ms',
+                                json.dumps(report['sampling_ms'])),
+                  flush=True)
+            report['decomposition_surplus_ms'] = {
+                k: report['g_phase_ms'][k] + report['c_phase_ms'][k] -
+                report['outer_ms'][k] for k in kinds}
+            gi, ci = _mixes(cfg)['outer_ms']
+            report['profile'] = {}
+            for kind in kinds:
+                call = _Chained(trainer, gi, ci, chunk, kind)
+                call()          # the warm-up (and the capture)
+                report['profile'][kind] = profile_calls(call, chunk,
+                                                        device)
         finally:
             trainer.close()
     return report

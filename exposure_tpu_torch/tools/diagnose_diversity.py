@@ -69,7 +69,6 @@ def analyze(cfg, ev, inputs, keys=4, n_sample_keys=2, generator=None):
     sampling) stream in place of a JAX ``PRNGKey(seed)``: by default a
     generator on the evaluator's device seeded with ``seed``."""
     from exposure_tpu_torch.core.rollout import rollout
-    from exposure_tpu_torch.utils.ops import tf32_off
 
     filters = ev.filters
     short = [f.get_short_name() for f in filters]
@@ -78,9 +77,8 @@ def analyze(cfg, ev, inputs, keys=4, n_sample_keys=2, generator=None):
 
     @torch.no_grad()
     def plan(im, seed, it):
-        with tf32_off():
-            traj = rollout(ev.policy, im, generator(seed), cfg=cfg,
-                           filters=filters, is_train=it)
+        traj = rollout(ev.policy, im, generator(seed), cfg=cfg,
+                       filters=filters, is_train=it)
         return traj.filter_ids.cpu().numpy(), traj.pdfs.cpu().numpy()
 
     imgs = torch.as_tensor(np.asarray(inputs, np.float32)).to(ev.device)

@@ -64,7 +64,7 @@ def step_equality(mesh, cfg, seed=0, pack_rows=256):
     from exposure_tpu_torch.core.train_state import init_train_state
     from exposure_tpu_torch.models.networks import build_models
     from exposure_tpu_torch.utils.draws import Draws
-    from exposure_tpu_torch.utils.ops import tf32_off
+    from exposure_tpu_torch.utils.precision import tf32_off
     dev = mesh.device
     nets = build_models(cfg)
     state = init_train_state(cfg, *nets[1:], seed=seed, device=dev)

@@ -2,7 +2,7 @@
 the CPU.
 
     python -m exposure_tpu_torch.tools.train_check [--config synthetic_explore]
-        [--giters 1] [--citers 1] [--seed 0] [--tf32]
+        [--giters 1] [--citers 1] [--seed 0]
         [--stream float32|uint8]
 
 Both devices start from the same state (``init_train_state``), pool and
@@ -10,9 +10,9 @@ dataset packs, and take the same draws: drawn on the CPU, recorded, then
 replayed on the card (``utils/draws.py``).  ``--stream`` checks the
 streaming step instead (``build_streaming_outer_step``): both devices take
 the same host bundle, assembled from the config's providers
-(``core/streaming.py``) in that dtype.  Dropout is off and TF32 is off
-(``--tf32`` turns it on for the card: a control run, whose gradients the
-check must refuse).  The iteration is that of training iteration 1 (its
+(``core/streaming.py``) in that dtype.  Dropout is off; the step runs in
+float32 whatever the process's TF32 flags (``utils/precision.py``), as on
+the CPU.  The iteration is that of training iteration 1 (its
 learning rates and progress) on a pool where every third record has
 terminated, so that the selection drops records and the critic samples
 terminated ones.
@@ -25,7 +25,7 @@ The report holds the card against the CPU:
   halfway in log terms between the worst reading with TF32 off (4.84e-4,
   the critic's: a difference of two means that nearly cancel) and the
   least with TF32 on (4.0e-3, the generator's), at ``synthetic_explore``'s
-  full width on an H100, seeds 0-2 (``--tf32``);
+  full width on an H100, seeds 0-2;
 - Adam's moments against the CPU's: ``mu`` within ``GRAD_FRAC`` of the
   largest of its tree, ``nu`` (a square) within twice that;
 - Adam replayed on the CPU from the same state on the gradients the card
@@ -51,7 +51,6 @@ report and fails on any of its failures.
 """
 
 import argparse
-import contextlib
 import json
 import random
 
@@ -72,11 +71,7 @@ from exposure_tpu_torch.core.train_state import (
 from exposure_tpu_torch.models.networks import build_models
 from exposure_tpu_torch.utils.config import load_config
 from exposure_tpu_torch.utils.draws import Draws, ReplayedDraws
-from exposure_tpu_torch.utils.ops import (
-    STATE_STEP_DIM,
-    STATE_STOPPED_DIM,
-    tf32_off,
-)
+from exposure_tpu_torch.utils.ops import STATE_STEP_DIM, STATE_STOPPED_DIM
 
 METRIC_RTOL, METRIC_ATOL = 1e-4, 1e-7
 GRAD_FRAC = 1.4e-3
@@ -105,7 +100,7 @@ def _host(tree):
 
 
 def _run(cfg, nets, state, pool, data, draws, device, giters, citers,
-         rates, tf32, stream):
+         rates, stream):
     """One step on ``device``: ``data`` is the two packs ``(images, size,
     augment)``, or with ``stream`` the bundle's two tensors."""
     filters, policy, critic, value = nets
@@ -118,10 +113,9 @@ def _run(cfg, nets, state, pool, data, draws, device, giters, citers,
                                 data[0][1:], data[1][1:], giters, citers,
                                 taps=taps)
         data = (data[0][0], data[1][0])
-    with contextlib.nullcontext() if tf32 else tf32_off():
-        st, pl, metrics = step(state.to(device), pool.to(device),
-                               data[0].to(device), data[1].to(device),
-                               draws, *rates)
+    st, pl, metrics = step(state.to(device), pool.to(device),
+                           data[0].to(device), data[1].to(device), draws,
+                           *rates)
     taps = [{k: _host(v) if isinstance(v, dict) else v.detach().cpu()
              for k, v in tap.items()} for tap in taps]
     return (st.to('cpu'), pl.to('cpu'),
@@ -181,10 +175,10 @@ def _tie_margin(pdf, noise):
 
 
 def card_against_cpu(cfg, device='cuda', giters=1, citers=1, seed=0,
-                     it=1, tf32=False, stream=None):
+                     it=1, stream=None):
     """Run one outer iteration (``giters`` generator and ``citers`` critic
-    updates) on the CPU and on ``device`` from the same state and draws,
-    TF32 off (``tf32``: left as the caller set it); with ``stream``
+    updates) on the CPU and on ``device`` from the same state and draws;
+    with ``stream``
     (``'float32'`` or ``'uint8'``) the streaming step on one host bundle of
     that dtype.  Returns the report: ``{'metrics', 'grad_frac',
     'moment_frac', 'replay', 'param_lrs', 'ids', 'pool', 'failures'}``."""
@@ -206,10 +200,10 @@ def card_against_cpu(cfg, device='cuda', giters=1, citers=1, seed=0,
     rates = (lr_g, lr_c, it / cfg.max_iter_step)
     draws = Draws(torch.Generator().manual_seed(seed), record=True)
     cpu = _run(cfg, nets, state, pool, data, draws, 'cpu', giters, citers,
-               rates, tf32, stream)
+               rates, stream)
     replay = ReplayedDraws(draws.log, device)
     card = _run(cfg, nets, state, pool, data, replay, device, giters,
-                citers, rates, tf32, stream)
+                citers, rates, stream)
     if replay.left():
         raise RuntimeError('the card took %d draws fewer than the CPU'
                            % replay.left())
@@ -304,19 +298,13 @@ def main(argv=None):
     parser.add_argument('--giters', type=int, default=1)
     parser.add_argument('--citers', type=int, default=1)
     parser.add_argument('--seed', type=int, default=0)
-    parser.add_argument('--tf32', action='store_true',
-                        help='the card in TF32: a control the check refuses')
     parser.add_argument('--stream', choices=('float32', 'uint8'),
                         help='check the streaming step on a host bundle')
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('train_check needs a CUDA device')
-    if args.tf32:
-        torch.backends.cudnn.allow_tf32 = True
-        torch.backends.cuda.matmul.allow_tf32 = True
     report = card_against_cpu(load_config(args.config), 'cuda', args.giters,
-                              args.citers, args.seed, tf32=args.tf32,
-                              stream=args.stream)
+                              args.citers, args.seed, stream=args.stream)
     print(json.dumps(report))
     if report['failures']:
         raise SystemExit(1)

@@ -101,21 +101,6 @@ def clip(x, lo=None, hi=None):
 
 
 @contextlib.contextmanager
-def tf32_off():
-    """TF32 off for cuDNN convolutions and matmuls inside the block (it
-    flips near-tie argmax decisions), restored after it."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
-
-
-@contextlib.contextmanager
 def deterministic_algorithms():
     """cuDNN's and torch's deterministic algorithms inside the block (the
     default ones add in an order that can differ from call to call on the

@@ -61,6 +61,9 @@ The card tools: ``bench_truth``'s dependency-serialized K2 chain within 1
 LSB of the plain version at every link, and ``bench_upload``'s pinned
 upload (the streaming trainer's) equal to its pageable one."""
 
+import contextlib
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1463,3 +1466,139 @@ def test_bench_upload_pinned_bytes_equal_pageable(cuda_device, mb):
     pageable = bench_upload.pageable_upload(host, cuda_device)
     assert pinned.device.type == 'cuda' and torch.equal(pinned, pageable)
     assert np.array_equal(pinned.cpu().numpy(), host)
+
+
+# -- one precision whatever the process's TF32 flags (utils/precision.py) --
+ARTIFACT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), 'artifacts', 'serving', 'synthetic_explore--best.msgpack.gz')
+
+
+@contextlib.contextmanager
+def _process_tf32(on):
+    """The process's TF32 flags set to ``on`` inside the block."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = (on, on)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('selected_plan', [True, False],
+                         ids=['selected_plan', 'bank_plan'])
+def test_pipeline_plans_the_evaluators_ids_under_both_flags(cuda_device,
+                                                            selected_plan):
+    """The trained ``synthetic_explore`` artifact at full width, dropout
+    off, on one seeded batch of its test data (B=64), under deterministic
+    algorithms: with the process's TF32 flags on and then off, the
+    pipeline's [K, B] ids, per call and as a graph, equal the
+    ``Evaluator``'s plan ids; the pipeline's plan (ids, params, mask) and
+    the Evaluator's trajectory are the same bits under either setting, and
+    the bank plan's params are the Evaluator's (the same ``rollout``).  The
+    selected plan advances the proxy through K1 with the exact branch set
+    (``fast_math=False``), the filters the Evaluator's bank plan runs."""
+    import random
+    from exposure_tpu_torch.core.artifacts import (
+        flax_to_state_dict,
+        load_artifact,
+    )
+    from exposure_tpu_torch.core.evaluator import Evaluator
+    from exposure_tpu_torch.core.serving import (
+        RetouchPipeline,
+        batch_generator,
+    )
+    from exposure_tpu_torch.models.networks import build_policy
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    cfg = load_config('synthetic_explore')
+    cfg.name = 'synthetic_explore/best'
+    cfg.dropout_keep_prob = 1.0
+    weights = flax_to_state_dict(load_artifact(ARTIFACT)['gen_params'])
+
+    def policy():
+        net = build_policy(cfg, build_filters(cfg))
+        net.load_state_dict(weights)
+        return net
+    random.seed(0)
+    base, _ = cfg.fake_data_provider_test().get_next_batch(64)
+    imgs = torch.from_numpy((np.clip(base, 0, 1) * 255).astype(
+        np.uint8)).to(cuda_device)
+    plans, trajs = {}, {}
+    for on in (True, False):
+        with _process_tf32(on), deterministic_algorithms():
+            ev = Evaluator(cfg, policy=policy(), device=cuda_device)
+            for graphs in (True, False):
+                pipe = RetouchPipeline(
+                    cfg, policy(), device=cuda_device, dynamic=True,
+                    selected_plan=selected_plan, fast_math=False,
+                    graphs=graphs)
+                proxy = pipe.proxy(imgs)
+                if graphs:
+                    plan = pipe._plan_for(imgs, 0, 0)
+                else:
+                    plan = pipe.plan(proxy, batch_generator(0, 0,
+                                                            cuda_device))
+                plans[on, graphs] = [t.cpu() for t in plan]
+                pipe.release()
+            traj, _ = ev.plan_trajectory(proxy)
+            trajs[on] = [t.cpu() for t in traj]
+    want = trajs[False]
+    assert want[2].shape == (cfg.test_steps, 64)
+    assert all(torch.equal(a, b) for a, b in zip(trajs[True], want))
+    ref = plans[False, False]
+    for key, plan in plans.items():
+        assert torch.equal(plan[0], want[2]), (
+            key, int((plan[0] != want[2]).sum()))
+        assert all(torch.equal(a, b) for a, b in zip(plan, ref)), key
+    if not selected_plan:
+        assert torch.equal(ref[1], want[3])
+
+
+@pytest.mark.cuda
+def test_outer_step_bit_equal_under_both_flags(cuda_device):
+    """One ``build_outer_step`` iteration (giters 1, citers 1) of
+    ``synthetic_explore`` at full width under deterministic algorithms,
+    with the process's TF32 flags on and then off, from the same state,
+    pool, packs and draws: its metrics, every update's gradients and the
+    new state equal bit for bit."""
+    from exposure_tpu_torch.core.replay import PoolState
+    from exposure_tpu_torch.core.steps import build_outer_step
+    from exposure_tpu_torch.core.train_state import init_train_state
+    from exposure_tpu_torch.models.networks import build_models
+    from exposure_tpu_torch.utils.draws import Draws
+    from exposure_tpu_torch.utils.ops import deterministic_algorithms
+    cfg = load_config('synthetic_explore')
+    cfg.name = 'synthetic_explore/none'
+    filters, policy, critic, value = build_models(cfg)
+    state = init_train_state(cfg, policy, critic, value, seed=0,
+                             device=cuda_device)
+    rng = np.random.RandomState(0)
+    p = cfg.replay_memory_size
+    pool_images = torch.from_numpy(rng.rand(p, 64, 64, 3).astype(
+        np.float32)).to(cuda_device)
+    packs = [torch.from_numpy(rng.rand(256, s, s, 3).astype(
+        np.float32)).to(cuda_device) for s in (80, 64)]
+    runs = {}
+    for on in (True, False):
+        taps = []
+        step = build_outer_step(cfg, policy, critic, value, filters,
+                                (64, True), (64, True), 1, 1, taps=taps)
+        pool = PoolState.create(pool_images.clone(), cfg.num_state_dim)
+        pool.states[::3, 1] = 1.0
+        with _process_tf32(on), deterministic_algorithms():
+            st, _, metrics = step(state, pool, *packs, Draws(
+                torch.Generator(cuda_device).manual_seed(0), cuda_device),
+                cfg.lr_g(1), cfg.lr_c(1), 1 / cfg.max_iter_step)
+        grads = [(tree, k, v) for tap in taps for tree, g in tap.items()
+                 if isinstance(g, dict) for k, v in g.items()]
+        runs[on] = (torch.stack(list(metrics)), grads, st.tensors())
+    (m_on, g_on, s_on), (m_off, g_off, s_off) = runs[True], runs[False]
+    assert bool(torch.isfinite(m_off).all())
+    assert torch.equal(m_on, m_off), (m_on, m_off)
+    assert len(g_on) == len(g_off) > 0
+    for (tree, k, a), (_, _, b) in zip(g_on, g_off):
+        assert torch.equal(a, b), (tree, k)
+    assert [k for k in s_off if not torch.equal(s_on[k], s_off[k])] == []

@@ -388,15 +388,17 @@ def test_evaluator_defaults_and_refusals(tmp_path, monkeypatch):
 
 
 def test_tf32_is_off_inside_the_plan_and_restored(pair, monkeypatch):
+    # the plan holds the contract itself: its steps see TF32 off
+    from exposure_tpu_torch.core import rollout as trollout
     seen = {}
-    real = tev.rollout
+    real = trollout.agent_step
 
     def spy(*a, **kw):
         seen['inside'] = (torch.backends.cudnn.allow_tf32,
                           torch.backends.cuda.matmul.allow_tf32)
         return real(*a, **kw)
 
-    monkeypatch.setattr(tev, 'rollout', spy)
+    monkeypatch.setattr(trollout, 'agent_step', spy)
     before = (torch.backends.cudnn.allow_tf32,
               torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = True
