@@ -53,7 +53,8 @@ strip and ``<fn>_debug.pkl`` with the per-step decisions (python scalars,
 strings and numpy arrays only, so either package reads the other's).
 ``Evaluator.seconds`` accumulates the host-clock seconds spent reading
 images, planning, replaying and writing images; each span ends in a copy to
-the host, so it includes the device's work.
+the host, so it includes the device's work.  With tracing on
+(``utils/trace.py``) each is also a host range ``exposure.eval.<span>``.
 """
 
 import collections
@@ -78,6 +79,7 @@ from exposure_tpu_torch.core.train_state import init_train_state
 from exposure_tpu_torch.models.networks import build_models
 from exposure_tpu_torch.ops.chain import apply_filter_chain, apply_filter_step
 from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
+from exposure_tpu_torch.utils import trace
 from exposure_tpu_torch.utils.image_io import (
     get_image_center,
     linearize_prophoto_rgb,
@@ -176,12 +178,15 @@ class Evaluator:
         self._graphs = GraphCache(MAX_GRAPHS)
 
     @contextlib.contextmanager
-    def _timed(self, span):
+    def _timed(self, name):
+        """Host seconds of ``name`` into ``seconds``, inside the host range
+        ``eval.<name>`` while tracing is on (``utils/trace.py``)."""
         t0 = time.perf_counter()
         try:
-            yield
+            with trace.span('eval.' + name):
+                yield
         finally:
-            self.seconds[span] += time.perf_counter() - t0
+            self.seconds[name] += time.perf_counter() - t0
 
     # ------------------------------------------------------------------
     def _replay(self, batch, ids, params, active, mask):

@@ -40,6 +40,12 @@ outside the capture, and is a real iteration of the chunk), then captures
 the next one; a capture that fails raises, and nothing falls back to the
 eager step.  On the CPU the same static-buffer body runs eagerly, iteration
 after iteration.
+
+With tracing on (``utils/trace.py``) a chunk is the host range
+``fused.run``, holding ``fused.table`` (the scalars' copy), and per
+iteration ``fused.draws`` (the reseed and the scalars' row),
+``fused.capture`` or ``fused.replay``, and ``fused.metrics``; the body's
+device regions are ``core/steps.py``'s.
 """
 
 import dataclasses
@@ -48,6 +54,7 @@ import torch
 
 from exposure_tpu_torch.core.replay import PoolState
 from exposure_tpu_torch.core.train_state import EmaState
+from exposure_tpu_torch.utils import trace
 
 
 def to_device(rows, device):
@@ -215,28 +222,35 @@ class FusedRunner:
         ...])``.  Returns ``(state, pool, metrics [N, 7])``: the state and
         pool are the static buffers, the metrics one row an iteration in
         ``StepMetrics``' order."""
-        n = len(iters)
-        self._load(state, pool, data)
-        counts, rows = state, []
-        for i in range(n):
-            rows.append(self.row(counts, lr_gs[i], lr_cs[i], progresses[i]))
-            counts = advanced(counts, self.giters, self.citers)
-        table = to_device(rows, self.device)
-        metrics = torch.empty((n, 7), dtype=torch.float32,
-                              device=self.device)
-        for i, it in enumerate(iters):
-            draws = self.draws_for(int(it))
-            self._vec.copy_(table[i])
-            if self.stacked:
-                for dst, src in zip(self._data, data):
-                    dst.copy_(src[i])
-            if not self.graphs:
-                self._iterate(draws)
-            elif self.graph is None:
-                self._warm_up_and_capture(draws)
-            else:
-                self.graph.replay()
-                self.replays += 1
-            metrics[i].copy_(self._metrics)
-        done = _with_counts(self._state, counts)
-        return done, self._pool, metrics
+        with trace.span('fused.run'):
+            n = len(iters)
+            self._load(state, pool, data)
+            counts, rows = state, []
+            for i in range(n):
+                rows.append(self.row(counts, lr_gs[i], lr_cs[i],
+                                     progresses[i]))
+                counts = advanced(counts, self.giters, self.citers)
+            with trace.span('fused.table'):
+                table = to_device(rows, self.device)
+            metrics = torch.empty((n, 7), dtype=torch.float32,
+                                  device=self.device)
+            for i, it in enumerate(iters):
+                with trace.span('fused.draws'):
+                    draws = self.draws_for(int(it))
+                    self._vec.copy_(table[i])
+                if self.stacked:
+                    for dst, src in zip(self._data, data):
+                        dst.copy_(src[i])
+                if not self.graphs:
+                    self._iterate(draws)
+                elif self.graph is None:
+                    with trace.span('fused.capture'):
+                        self._warm_up_and_capture(draws)
+                else:
+                    with trace.span('fused.replay'):
+                        self.graph.replay()
+                    self.replays += 1
+                with trace.span('fused.metrics'):
+                    metrics[i].copy_(self._metrics)
+            done = _with_counts(self._state, counts)
+            return done, self._pool, metrics

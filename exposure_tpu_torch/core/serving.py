@@ -49,6 +49,12 @@ ids on the host, as in JAX.  A graph's outputs are overwritten by its next
 replay, so the pipeline hands out copies.  At most ``MAX_GRAPHS`` graphs
 are kept (``release()`` frees them).
 
+Tracing (``utils/trace.py``, off by default): the three parts are the
+device regions ``serve.resize``, ``serve.plan`` and ``serve.replay`` in
+every mode, so a batch graph captured with tracing on stamps them at every
+replay; a call is the host range ``serve.call`` and its hand-out
+``serve.deliver`` (the graph's own ranges: ``core/serving_graph.py``).
+
 >>> pipe = RetouchPipeline.from_artifact(
 ...     'synthetic_explore',
 ...     'artifacts/serving/synthetic_explore--best.msgpack.gz')
@@ -81,6 +87,7 @@ from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
 from exposure_tpu_torch.ops.filters import build_filters, max_filter_parameters
 from exposure_tpu_torch.ops.grouped_chain import GroupedChainRunner, bucket_size
 from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
+from exposure_tpu_torch.utils import trace
 from exposure_tpu_torch.utils.config import load_config
 
 # Distinct batches of one seed get distinct dropout streams; the stride is
@@ -121,13 +128,16 @@ def proxy_resize(images, size):
 def _deliver(out, device_out):
     """A replay's output as the caller asked for it: the device tensor, or
     a numpy array on the host."""
-    return out if device_out else out.cpu().numpy()
+    with trace.span('serve.deliver'):
+        return out if device_out else out.cpu().numpy()
 
 
 def _deliver_static(out, device_out):
     """A graph's output, which its next replay overwrites, as the caller
     asked for it: a copy on the device, or a numpy array on the host."""
-    return out.clone() if device_out else out.to('cpu', copy=True).numpy()
+    with trace.span('serve.deliver'):
+        return out.clone() if device_out else \
+            out.to('cpu', copy=True).numpy()
 
 
 class RetouchPipeline:
@@ -347,49 +357,54 @@ class RetouchPipeline:
         return self._as_tensor(images).to(self.device).contiguous()
 
     def proxy(self, images):
-        return proxy_resize(images, self.cfg.source_img_size)
+        with trace.region('serve.resize', self.device):
+            return proxy_resize(images, self.cfg.source_img_size)
 
     @torch.no_grad()
     def plan(self, proxy, generator):
         """-> (ids [K, B] int32, params [K, B, max_p] f32,
         mask [K, B, max_m] f32): the selected-branch plan in the dynamic
         selected-plan mode, the bank plan otherwise."""
-        if self.bf16:
-            proxy = proxy.to(torch.bfloat16)
-        if self.selected_plan:
-            ids, params, mask = serve_rollout(
-                self._plan_policy, proxy, generator, cfg=self.cfg,
-                filters=self.filters, fast_math=self.fast_math)
-        else:
-            traj = rollout(self._plan_policy, proxy, generator, cfg=self.cfg,
-                           filters=self.filters, is_train=0)
-            ids, params, mask = traj.filter_ids, traj.params, \
-                traj.mask_params
-        return ids, params.to(torch.float32), mask.to(torch.float32)
+        with trace.region('serve.plan', self.device):
+            if self.bf16:
+                proxy = proxy.to(torch.bfloat16)
+            if self.selected_plan:
+                ids, params, mask = serve_rollout(
+                    self._plan_policy, proxy, generator, cfg=self.cfg,
+                    filters=self.filters, fast_math=self.fast_math)
+            else:
+                traj = rollout(self._plan_policy, proxy, generator,
+                               cfg=self.cfg, filters=self.filters,
+                               is_train=0)
+                ids, params, mask = traj.filter_ids, traj.params, \
+                    traj.mask_params
+            return ids, params.to(torch.float32), mask.to(torch.float32)
 
     def replay(self, images, ids, params, mask, ids_host=None):
         """The plan on the full-resolution batch, through the mode's
         replay.  ``ids_host``: the grouped modes' host copy of ``ids``
         (copied here, waiting for the plan, when not given)."""
         mask = mask if self.masking else None
-        if self.dynamic:
-            return apply_filter_chain_dynamic(
-                images, ids, params, self.filters, mask_params=mask,
-                fast_math=self.fast_math)
-        if self.grouped:
-            return self._replay(images, ids, params, mask, ids_host)
-        if self.use_kernels:
-            return apply_filter_chain_switch(
-                images, ids, params, self.filters, mask_params=mask,
-                fast_math=self.fast_math)
-        src = images.to(torch.float32)
-        if images.dtype == torch.uint8:
-            src = src * (1.0 / 255.0)
-        out = apply_filter_chain(src, ids, params, self.filters,
-                                 mask_params=mask)
-        if images.dtype == torch.uint8:
-            out = torch.round(torch.clamp(out, 0, 1) * 255).to(torch.uint8)
-        return out
+        with trace.region('serve.replay', self.device):
+            if self.dynamic:
+                return apply_filter_chain_dynamic(
+                    images, ids, params, self.filters, mask_params=mask,
+                    fast_math=self.fast_math)
+            if self.grouped:
+                return self._replay(images, ids, params, mask, ids_host)
+            if self.use_kernels:
+                return apply_filter_chain_switch(
+                    images, ids, params, self.filters, mask_params=mask,
+                    fast_math=self.fast_math)
+            src = images.to(torch.float32)
+            if images.dtype == torch.uint8:
+                src = src * (1.0 / 255.0)
+            out = apply_filter_chain(src, ids, params, self.filters,
+                                     mask_params=mask)
+            if images.dtype == torch.uint8:
+                out = torch.round(torch.clamp(out, 0, 1) * 255).to(
+                    torch.uint8)
+            return out
 
     def _replay(self, images, ids, params, mask, ids_host):
         if ids_host is None:
@@ -447,12 +462,14 @@ class RetouchPipeline:
         pipeline does; ``device_out=True`` returns a tensor on the
         pipeline's device (without waiting for the device), so the caller
         decides when and what to transfer."""
-        if self.graphs and not self.grouped:
-            return _deliver_static(self._single(images, seed, index),
-                                   device_out)
-        images = self._to_device(images)
-        ids, params, mask = self._plan_batch(images, seed, index)
-        return _deliver(self.replay(images, ids, params, mask), device_out)
+        with trace.span('serve.call'):
+            if self.graphs and not self.grouped:
+                return _deliver_static(self._single(images, seed, index),
+                                       device_out)
+            images = self._to_device(images)
+            ids, params, mask = self._plan_batch(images, seed, index)
+            return _deliver(self.replay(images, ids, params, mask),
+                            device_out)
 
     def _ids_to_host(self, ids):
         """Start the copy of a plan's ids to the host: (host tensor, event

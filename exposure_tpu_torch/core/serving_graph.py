@@ -25,6 +25,11 @@ launch again without calling the wrapper.  Each graph keeps the launches its
 capture recorded (``launches``), and the module adds them up in ``RECORDED``
 and, once a replay, in ``REPLAYED``: a kernel's executions are its wrapper's
 count minus ``RECORDED`` plus ``REPLAYED`` (``executions``).
+
+With tracing on (``utils/trace.py``) a run opens the host ranges
+``serve.upload`` (the input's copy), ``serve.capture`` and ``serve.launch``
+(the host's call of the replay; the device's work is in the body's
+regions).
 """
 
 import collections
@@ -35,6 +40,7 @@ import torch
 from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
 from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
 from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
+from exposure_tpu_torch.utils import trace
 
 # kernel launches the captures recorded, and those the replays ran, by the
 # wrapper's name (``switch_chain_bf16``: the bf16 part of ``switch_chain``)
@@ -121,12 +127,15 @@ class BatchGraph:
         the body's draws leave it).  Returns the outputs, which the next
         run overwrites."""
         if x is not self.input:
-            self.input.copy_(x)
+            with trace.span('serve.upload'):
+                self.input.copy_(x)
         if self.device.type == 'cuda':
             if self.graph is None:
-                self._capture()
+                with trace.span('serve.capture'):
+                    self._capture()
             self._seed(seed)
-            self.graph.replay()
+            with trace.span('serve.launch'):
+                self.graph.replay()
             REPLAYED.update(self.launches)
         else:
             self._seed(seed)

@@ -34,6 +34,11 @@ one piece, so that no host value is frozen into a step captured in a CUDA
 graph.  The JAX fused N-iteration steps (``build_fused_iterations_step``,
 ``build_streaming_fused_step``) replay one plain iteration N times
 (``core/fused.py``).
+
+With tracing on (``utils/trace.py``) a fused iteration's phases are the
+device regions ``train.generator`` and ``train.critic``, and each update's
+Adam step (the generator's and the value net's together) a region
+``train.adam`` inside its phase.
 """
 
 from typing import NamedTuple
@@ -59,6 +64,7 @@ from exposure_tpu_torch.data.device_sampler import (
     sample_batch,
 )
 from exposure_tpu_torch.parallel.mesh import local_batch_size
+from exposure_tpu_torch.utils import trace
 from exposure_tpu_torch.utils.precision import tf32_off
 
 
@@ -200,12 +206,13 @@ def _make_phase_bodies(cfg, policy, critic_mod, value_mod, filters,
                 'val': {k: grads['val', k] for k in st.val_params},
                 'sel_idx': sel_idx, 'ids': aux.selected_filter_id,
                 'pdf': aux.pdf})
-        gen_params, opt_g = apply_lr_update(
-            {k: grads['gen', k] for k in st.gen_params}, st.opt_g,
-            st.gen_params, sc.lr_g, *betas, bc=sc.bc_g[i])
-        val_params, opt_v = apply_lr_update(
-            {k: grads['val', k] for k in st.val_params}, st.opt_v,
-            st.val_params, sc.lr_v, *betas, bc=sc.bc_v[i])
+        with trace.region('train.adam', pl.images.device):
+            gen_params, opt_g = apply_lr_update(
+                {k: grads['gen', k] for k in st.gen_params}, st.opt_g,
+                st.gen_params, sc.lr_g, *betas, bc=sc.bc_g[i])
+            val_params, opt_v = apply_lr_update(
+                {k: grads['val', k] for k in st.val_params}, st.opt_v,
+                st.val_params, sc.lr_v, *betas, bc=sc.bc_v[i])
         st = st.replace(gen_params=gen_params, val_params=val_params,
                         opt_g=opt_g, opt_v=opt_v)
 
@@ -230,9 +237,10 @@ def _make_phase_bodies(cfg, policy, critic_mod, value_mod, filters,
             mesh, grads, [aux.emd, aux.critic_gradient_norm, aux.c_average])
         if taps is not None:
             taps.append({'crit': dict(zip(names, grads))})
-        crit_params, opt_c = apply_lr_update(
-            dict(zip(names, grads)), st.opt_c, st.crit_params, sc.lr_c,
-            *betas, bc=sc.bc_c[i])
+        with trace.region('train.adam', pool.images.device):
+            crit_params, opt_c = apply_lr_update(
+                dict(zip(names, grads)), st.opt_c, st.crit_params, sc.lr_c,
+                *betas, bc=sc.bc_c[i])
         if cfg.gan == 'w' and cfg.gradient_penalty_lambda <= 0:
             # weight clipping when the gradient penalty is off
             crit_params = clip_tree(crit_params, cfg.clamp_critic)
@@ -426,12 +434,15 @@ def _fused(cfg, g_step, c_step, giters, citers, draws_for, generator, mesh,
         if stacked:     # the iteration's slice of the bundle, by phase
             g_data, c_data = (data[0], data[1][:0]), (data[0][:0], data[1])
         metrics = None
+        device = pool.images.device
         if g_step is not None:
-            state, pool, metrics = g_step(state, pool, *g_data, draws,
-                                          scalars=scalars)
+            with trace.region('train.generator', device):
+                state, pool, metrics = g_step(state, pool, *g_data, draws,
+                                              scalars=scalars)
         if c_step is not None:
-            state, pool, c_metrics = c_step(state, pool, *c_data, draws,
-                                            scalars=scalars)
+            with trace.region('train.critic', device):
+                state, pool, c_metrics = c_step(state, pool, *c_data, draws,
+                                                scalars=scalars)
             metrics = c_metrics if metrics is None else with_critic(
                 metrics, c_metrics)
         return state, pool, metrics

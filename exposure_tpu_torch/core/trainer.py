@@ -61,7 +61,10 @@ Differences from the JAX trainer, each by design:
   (``core/steps.py``).
 - ``profile_dir``: rank 0 traces iterations ``PROFILE_START``..
   ``PROFILE_STOP`` with ``torch.profiler`` into it (TensorBoard's format,
-  as ``jax.profiler``'s trace), stopped on leaving ``train``.
+  as ``jax.profiler``'s trace), stopped on leaving ``train``; the
+  trainer's build turns the program's tracing on for the process
+  (``utils/trace.py``), so the trace carries its ``exposure.*`` ranges and
+  every graph captured afterwards its regions' stamps.
 """
 
 import collections
@@ -104,6 +107,7 @@ from exposure_tpu_torch.parallel.mesh import (
     local_batch_size,
     pad_to_devices,
 )
+from exposure_tpu_torch.utils import trace
 from exposure_tpu_torch.utils.draws import Draws
 from exposure_tpu_torch.utils.image_io import make_image_grid, write_image
 from exposure_tpu_torch.utils.logging_util import MedianWindow, MetricLogger, Tee
@@ -306,6 +310,9 @@ class Trainer:
         self._books = None
         self._lanes, self._futures, self._viz_self = None, [], None
         self._prof, self._prof_done = None, False
+        if cfg.get('profile_dir', None) and self.rank == 0:
+            # the trace then carries the program's ranges and regions
+            trace.enable()
 
     def close(self):
         """Stop the streaming producer and the profiler, close the metrics

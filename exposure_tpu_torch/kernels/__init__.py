@@ -206,6 +206,14 @@ def _bind_probes(lib):
     lib.probes_error_string.restype = ctypes.c_char_p
 
 
+def _bind_trace_stamp(lib):
+    vp, n = ctypes.c_void_p, ctypes.c_longlong
+    lib.trace_stamp_launch.argtypes = [vp, vp, n, n, vp]  # ring, count,
+    lib.trace_stamp_launch.restype = ctypes.c_int          # capacity, code
+    lib.trace_stamp_error_string.argtypes = [ctypes.c_int]
+    lib.trace_stamp_error_string.restype = ctypes.c_char_p
+
+
 def dyn_chain_kernel():
     """The ``dyn_chain`` library with what its build reported."""
     return build('dyn_chain', _bind_dyn_chain)
@@ -246,6 +254,18 @@ def probes_library():
     return probes_kernel().lib
 
 
+def trace_stamp_kernel():
+    """The ``trace_stamp`` library of ``utils/trace.py``'s regions with
+    what its build reported."""
+    return build('trace_stamp', _bind_trace_stamp)
+
+
+def trace_stamp_library():
+    """The bound ``trace_stamp`` library (built on first use: the first
+    region on a card while tracing is on)."""
+    return trace_stamp_kernel().lib
+
+
 def build_all():
     """Build (or load) every kernel library at once, one nvcc each, and
     return ``{name: KernelLibrary}``."""
@@ -253,7 +273,8 @@ def build_all():
     accessors = {'dyn_chain': dyn_chain_kernel,
                  'switch_chain': switch_chain_kernel,
                  'static_chain': static_chain_kernel,
-                 'probes': probes_kernel}
+                 'probes': probes_kernel,
+                 'trace_stamp': trace_stamp_kernel}
     with ThreadPoolExecutor(len(accessors)) as pool:
         futures = {name: pool.submit(fn) for name, fn in accessors.items()}
         return {name: fut.result() for name, fut in futures.items()}

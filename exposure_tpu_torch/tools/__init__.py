@@ -122,10 +122,46 @@ LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
                 'cudaMemsetAsync')
 
 
+def union_us(intervals):
+    """The length of the union of ``(start, end)`` intervals: overlapping
+    ones count once."""
+    total, reach = 0.0, None
+    for s, e in sorted(intervals):
+        if reach is None or s > reach:
+            total += e - s
+            reach = e
+        elif e > reach:
+            total += e - reach
+            reach = e
+    return total
+
+
+def _annotation(event):
+    """Whether a device event is a host range the profiler mirrors onto
+    the device's timeline (``record_function``: the program's
+    ``exposure.*`` ranges, any other annotation), not device work."""
+    return getattr(event, 'is_user_annotation', False) or \
+        event.name.startswith('exposure.')
+
+
+def device_work(events):
+    """``(activities, busy us)`` of a profile's events: the device's
+    kernels, copies and fills, mirrored host ranges left out, and the union
+    of their intervals."""
+    work = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not _annotation(e)]
+    return work, union_us((e.time_range.start, e.time_range.end)
+                          for e in work)
+
+
 def profile_calls(fn, n, device):
     """``fn()``, which does ``n`` units of work, under ``torch.profiler``:
-    per unit the device's kernels, the host's launch calls (``LAUNCH_CALLS``,
-    by name in total), the device-busy ms and the wall ms (host clock to the
+    per unit the device's activities (``device_work``: kernels, copies and
+    fills, not the host ranges the profiler mirrors onto the device), the
+    host's launch calls (``LAUNCH_CALLS``, by name in total), the
+    device-busy ms (the union of the activities' intervals, so that
+    overlapping ones count once) and the wall ms (host clock to the
     device's end), and the idle share of the wall.  On the CPU the profiler
     sees no device: the device numbers are None."""
     from torch.profiler import ProfilerActivity, profile
@@ -141,9 +177,8 @@ def profile_calls(fn, n, device):
             torch.cuda.synchronize(device)
         wall = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    kernels, busy = device_work(events)
+    busy /= 1e3
     calls = {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CPU and \

@@ -31,6 +31,7 @@ from exposure_tpu_torch.core import trainer as ttrainer
 from exposure_tpu_torch.core.steps import StepMetrics
 from exposure_tpu_torch.core.trainer import Trainer
 from exposure_tpu_torch.data.synthetic import PairedSyntheticDataProvider
+from exposure_tpu_torch.utils import trace
 from exposure_tpu_torch.utils.config import load_config
 
 pytestmark = pytest.mark.usefixtures('few_threads')
@@ -208,12 +209,21 @@ def test_profile_dir_traces_the_window(tmp_path, monkeypatch):
     ``torch.profiler`` into the directory, stopped when ``train``
     returns."""
     assert (ttrainer.PROFILE_START, ttrainer.PROFILE_STOP) == (20, 30)
+    events = _profiled(tmp_path, monkeypatch)
+    assert any('conv' in str(e.get('name', '')) for e in events)
+
+
+def _profiled(tmp_path, monkeypatch, **knobs):
+    """The events of the trace a trainer with ``profile_dir`` writes over
+    iteration 1 of 2 (the program's tracing restored afterwards)."""
     monkeypatch.setattr(ttrainer, 'PROFILE_START', 1)
     monkeypatch.setattr(ttrainer, 'PROFILE_STOP', 1)
+    monkeypatch.setattr(trace, '_on', trace.enabled())
     prof = tmp_path / 'trace'
-    trainer = Trainer(_cfg(profile_dir=str(prof)), model_root=str(tmp_path),
-                      device='cpu')
+    trainer = Trainer(_cfg(profile_dir=str(prof), **knobs),
+                      model_root=str(tmp_path), device='cpu')
     try:
+        assert trace.enabled()
         trainer.train(last_iter=2)
         assert trainer._prof is None and trainer._prof_done
     finally:
@@ -221,5 +231,15 @@ def test_profile_dir_traces_the_window(tmp_path, monkeypatch):
     traces = [f for f in os.listdir(prof) if f.endswith('.pt.trace.json')]
     assert len(traces) == 1
     with open(prof / traces[0]) as f:
-        events = json.load(f)['traceEvents']
-    assert any('conv' in str(e.get('name', '')) for e in events)
+        return json.load(f)['traceEvents']
+
+
+def test_profile_dir_trace_carries_the_program_ranges(tmp_path, monkeypatch):
+    """A trainer with ``profile_dir`` turns the program's tracing on, so a
+    fused dispatch in the traced window leaves its ``exposure.fused.*``
+    host ranges in the trace."""
+    events = _profiled(tmp_path, monkeypatch, iters_per_dispatch=2,
+                       checkpoint_interval=100)
+    names = {str(e.get('name', '')) for e in events}
+    assert {'exposure.fused.run', 'exposure.fused.table',
+            'exposure.fused.draws', 'exposure.fused.metrics'} <= names
