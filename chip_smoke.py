@@ -12,14 +12,20 @@ Phases, one line or a few each (a failing phase exits non-zero):
    flags stay torch's defaults (cuDNN TF32 on), so that every phase shows
    the port holding float32 itself in its plans, training updates and
    critic scores (``exposure_tpu_torch/utils/precision.py``);
-2. build: compile the four CUDA kernel libraries from
-   ``exposure_tpu_torch/csrc`` (the three chain kernels and the probes) at
-   once, one nvcc each; each chain kernel variant's registers, stack frame
-   and spills from ptxas (K2's bf16 variants too), the probes' ptxas lines;
-   then bf16_ops: the packed bf16 operations that K2's bf16 path and K4c run
-   (``csrc/fastmath.cuh``) against their scalar f32-then-round forms over all
-   2^32 pairs of operands, with the counts of differing results printed (any
-   in an operation a kernel runs fails the run);
+2. build: compile the five CUDA kernel libraries from
+   ``exposure_tpu_torch/csrc`` (the three chain kernels, the probes and the
+   proxy resize) at once, one nvcc each; each chain kernel variant's
+   registers, stack frame and spills from ptxas (K2's bf16 variants too),
+   the other libraries' ptxas lines; then bf16_ops: the packed bf16
+   operations that K2's bf16 path and K4c run (``csrc/fastmath.cuh``)
+   against their scalar f32-then-round forms over all 2^32 pairs of
+   operands, with the counts of differing results printed (any in an
+   operation a kernel runs fails the run); then the proxy resize
+   (``csrc/proxy_resize.cu``) at the serving cells' two batch shapes,
+   [512, 512, 512, 3] and [32, 3024, 4032, 3] u8 to 64x64, against its
+   plain version, torch's ``F.interpolate`` path (the library call it
+   replaces): kernel ms, bound ms and ``library_ms``, the
+   ``{"proxy_resize": ...}`` line;
 3. K1: the dynamic filter-chain kernel against its plain PyTorch version
    over the chain cases of the JAX package's kernel checks (f32 and u8,
    odd shapes, inactive steps, the all-identity trajectory, exact and fast
@@ -290,8 +296,13 @@ KERNEL_CALLS = 4     # calls back to back in a timing (a kernel's, and
                      # Tensor.copy_'s beside it): device time
 # kernel outputs of --turns (names of _kernel_outputs, by prefix) that a
 # deliberate change of the numbers lets differ from the parent's; any other
-# differing value fails the turns
-TURNS_MAY_DIFFER = ()
+# differing value fails the turns.  The proxy resize kernel sums its taps in
+# another order than torch's interpolate (proxies within 8.3e-7), so the
+# plans' parameters move in their last bits: against a parent from before
+# it, 27,059 of the main path's 1.61e9 values differ by 1 LSB (none by more)
+# and every mode's digest differs, while the replay of a fixed plan and
+# every kernel output stay equal
+TURNS_MAY_DIFFER = ('main', 'mode_')
 # K4c in bf16 against its plain version, as K2-bf16
 PROBE_BF16_FRAC = 1e-3
 CHAIN_LIBS = ('dyn_chain', 'static_chain', 'switch_chain')
@@ -331,20 +342,26 @@ def _on_card(fn):
 
 
 def wrappers():
-    """The six kernel wrappers, whose ``launches`` count the kernel
-    launches they make."""
+    """The kernel wrappers, whose ``launches`` count the kernel launches
+    they make: the three chain kernels, the three probes and the proxy
+    resize (left out for a ``--serve`` checkout from before it)."""
     from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
     from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
     from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
     from exposure_tpu_torch.tools.bench_bf16_probe import run_probe
     from exposure_tpu_torch.tools.bench_fastmath import run_op
     from exposure_tpu_torch.tools.bench_kernel_probe import mono_chain
-    return {'dyn_chain': apply_filter_chain_dynamic,
-            'switch_chain': apply_filter_chain_switch,
-            'static_chain': apply_filter_chain_static,
-            'mono_probe': mono_chain,
-            'fastmath_probe': run_op,
-            'bf16_probe': run_probe}
+    found = {'dyn_chain': apply_filter_chain_dynamic,
+             'switch_chain': apply_filter_chain_switch,
+             'static_chain': apply_filter_chain_static,
+             'mono_probe': mono_chain,
+             'fastmath_probe': run_op,
+             'bf16_probe': run_probe}
+    try:
+        from exposure_tpu_torch.ops.proxy_resize import proxy_resize
+    except ImportError:
+        return found
+    return dict(found, proxy_resize=proxy_resize)
 
 
 def _serving_graph():
@@ -431,7 +448,7 @@ def ptxas_variants(log):
 
 
 def start_build():
-    """Start the four libraries' builds at once, one nvcc each, in
+    """Start the libraries' builds at once, one nvcc each, in
     background threads; returns ``finish()``, which waits for them and
     reports as ``phase_build`` does.  A phase that needs a library before
     then waits for that library alone (``kernels.build`` holds a lock a
@@ -440,10 +457,12 @@ def start_build():
     from concurrent.futures import ThreadPoolExecutor
     from exposure_tpu_torch import kernels
     t0 = time.perf_counter()
-    pool = ThreadPoolExecutor(4)
+    names = ('dyn_chain', 'switch_chain', 'static_chain', 'probes',
+             'proxy_resize')
+    names = [n for n in names if hasattr(kernels, n + '_kernel')]
+    pool = ThreadPoolExecutor(len(names))
     futures = {name: pool.submit(getattr(kernels, name + '_kernel'))
-               for name in ('dyn_chain', 'switch_chain', 'static_chain',
-                            'probes')}
+               for name in names}
     pool.shutdown(wait=False)
 
     def finish():
@@ -457,7 +476,7 @@ def start_build():
 
 
 def phase_build():
-    """Build the four libraries at once; print each chain kernel variant's
+    """Build the libraries at once; print each chain kernel variant's
     registers, stack frame and spills.  Returns ``{library: variants}``."""
     return start_build()()
 
@@ -637,6 +656,59 @@ def phase_bf16_ops():
         fail('packed bf16 operations differ from their scalar forms: %s'
              % bad)
     return counts
+
+
+# the serving cells' batches, [B, H, W] u8, resized to 64x64
+RESIZE_CASES = ((512, 512, 512), (32, 3024, 4032))
+RESIZE_ATOL = 2e-6     # the kernel against torch's interpolate: f32 sums
+
+
+def phase_resize(card):
+    """The proxy resize kernel at ``RESIZE_CASES`` against its plain
+    version (torch's antialiased ``F.interpolate`` path, the library call
+    it replaces, so ``plain_ms`` is ``library_ms``), timed with CUDA
+    events beside its bound (bytes: the batch read once, the proxy written
+    once; the taps' operations); prints the ``{"proxy_resize": ...}``
+    line and returns its cases."""
+    import torch
+    from exposure_tpu_torch.ops.proxy_resize import (
+        proxy_resize, proxy_resize_reference, resize_taps)
+    from exposure_tpu_torch.tools import bound_ms
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cases = {}
+    for b, h, w in RESIZE_CASES:
+        img = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
+                            device=DEVICE, generator=g)
+        before = proxy_resize.launches
+        got = proxy_resize(img, 64)
+        torch.cuda.synchronize()
+        if proxy_resize.launches != before + 1:
+            fail('proxy_resize: the wrapper did not launch the kernel')
+        err = float((got - proxy_resize_reference(img, 64)).abs().max())
+        if err > RESIZE_ATOL:
+            fail('proxy_resize [%d, %d, %d, 3]: max_abs_err %.3e over %g'
+                 % (b, h, w, err, RESIZE_ATOL))
+        ms = cuda_ms(lambda: proxy_resize(img, 64), calls=KERNEL_CALLS)
+        plain = cuda_ms(lambda: proxy_resize_reference(img, 64), runs=5,
+                        warmup=1)
+        taps = 3 * b * (int(resize_taps(h, 64)[1].sum()) * w +
+                        int(resize_taps(w, 64)[1].sum()) * 64)
+        nbytes = img.numel() + b * 64 * 64 * 3 * 4
+        bound, by = bound_ms(2 * taps, nbytes)
+        cases['%dx%dx%d' % (b, h, w)] = {
+            'ms': ms, 'plain_ms': plain, 'library_ms': plain,
+            'bound_ms': bound, 'bound_by': by, 'flops': 2 * taps,
+            'bytes': nbytes, 'max_abs_err': err}
+        say('proxy_resize [%d, %d, %d, 3] u8 -> 64x64: max_abs_err %.3e  '
+            'kernel %.4f ms  plain (F.interpolate) %.4f ms  bound %.4f ms '
+            '(%s)' % (b, h, w, err, ms, plain, bound, by))
+        del img, got
+    line = {'name': 'proxy_resize', 'route': 'cuda',
+            'source': 'exposure_tpu_torch/csrc/proxy_resize.cu',
+            'replaces': 'none (jax.image.resize is XLA\'s)',
+            'cases': cases, 'card': card}
+    say(json.dumps({'proxy_resize': line}))
+    return cases
 
 
 def phase_k1():
@@ -1392,8 +1464,9 @@ def _k1_by_stage(pipe):
 
 def phase_main_path(batches):
     """The served path; returns K1's launches in it, ``{'proxy': n,
-    'replay': n}`` (the plan's steps on the proxy, and the replay), img/s
-    and the outputs."""
+    'replay': n}`` (the plan's steps on the proxy, and the replay), img/s,
+    the outputs and the proxy resize's executions (one a batch; None for
+    a ``--serve`` checkout from before the kernel)."""
     import torch
     from exposure_tpu_torch.core.serving import batch_generator
     from exposure_tpu_torch.ops.dyn_chain import (
@@ -1428,12 +1501,18 @@ def phase_main_path(batches):
              'expected K1 %d times on the proxy and %d on the replay'
              % (counts, MAIN_BATCHES, by_stage, steps * MAIN_BATCHES,
                 MAIN_BATCHES))
+    resized = counts.get('proxy_resize')
+    if resized not in (None, MAIN_BATCHES):
+        fail('main path: the proxy resize kernel ran %d times over %d '
+             'batches, expected once a batch' % (resized, MAIN_BATCHES))
     graphs = ''
     if getattr(pipe, 'graphs', False):
         rep = pipe.graph_report()
+        expected = {'dyn_chain': steps + 1}
+        if resized is not None:
+            expected['proxy_resize'] = 1
         if rep['captures'] != 1 or rep['replays'] != MAIN_BATCHES + 1 or \
-                list(rep['launches_per_replay'].values()) != \
-                [{'dyn_chain': steps + 1}]:
+                list(rep['launches_per_replay'].values()) != [expected]:
             fail('main path: one graph captured and replayed per batch '
                  'expected, got %s' % rep)
         graphs = ('; one CUDA graph (captured in %.3f s by the warm-up, '
@@ -1446,11 +1525,11 @@ def phase_main_path(batches):
                 i, tuple(out.shape), out.dtype, out.device))
     changed = float((outs[0] != batches[0]).float().mean())
     say('main: %d batches of [%d, %d, %d, 3] u8 -> u8 on %s; K1 launches '
-        '%d (%d per batch: %d on the proxy in the plan, %d replay)%s; %.3f '
-        'of output values differ from the input'
+        '%d (%d per batch: %d on the proxy in the plan, %d replay)%s; proxy '
+        'resize executions %s; %.3f of output values differ from the input'
         % (MAIN_BATCHES, BATCH, RES, RES, outs[0].device, launches,
            launches // MAIN_BATCHES, by_stage['proxy'] // MAIN_BATCHES,
-           by_stage['replay'] // MAIN_BATCHES, graphs, changed))
+           by_stage['replay'] // MAIN_BATCHES, graphs, resized, changed))
 
     # the plan of batch 0 again; its replay of 16 images against the plain
     # version on the same plan
@@ -1490,7 +1569,7 @@ def phase_main_path(batches):
                             resize_ms, plan_ms, replay_ms))
     if hasattr(pipe, 'release'):
         pipe.release()
-    return by_stage, img_s, outs
+    return by_stage, img_s, outs, resized
 
 
 MODES = [
@@ -1500,7 +1579,10 @@ MODES = [
     ('grouped_superset', dict(grouped=True)),
     ('auto_superset', dict(auto_superset=True, auto_record_batches=2)),
 ]
-# the kernel each mode must launch, and those it must not
+# the kernel each mode must launch, and those it must not; every mode also
+# resizes each batch's proxy in one execution of the proxy resize kernel
+# (where the checkout has it), and once more for each graph the counted run
+# captures (a capture runs its body once eagerly first)
 MODE_KERNELS = {
     'dynamic_bank_plan': ('dyn_chain', ('switch_chain', 'static_chain')),
     'switch': ('switch_chain', ('dyn_chain', 'static_chain')),
@@ -1508,6 +1590,13 @@ MODE_KERNELS = {
     'grouped_superset': ('static_chain', ('dyn_chain',)),
     'auto_superset': ('static_chain', ('dyn_chain',)),
 }
+
+
+def _captures(pipe):
+    """The graphs a pipeline has captured so far (0 without graphs)."""
+    if not getattr(pipe, 'graphs', False):
+        return 0
+    return pipe.graph_report()['captures']
 
 
 def phase_modes(batches, digests=None):
@@ -1537,13 +1626,18 @@ def phase_modes(batches, digests=None):
         reset_counts()
         if pipe.grouped:
             pipe._runner.launches.clear()
+        captured = _captures(pipe)
         outs = list(pipe.map_batches(batches, seed=SEED,
                                      **_on_card(pipe.map_batches)))
         torch.cuda.synchronize()
         counts = read_counts()
+        captured = _captures(pipe) - captured
         must, must_not = MODE_KERNELS[mode]
-        if counts[must] == 0 or any(counts[k] for k in must_not):
-            fail('mode %s launched %s' % (mode, counts))
+        resizes = MAIN_BATCHES + captured
+        if counts[must] == 0 or any(counts[k] for k in must_not) or \
+                counts.get('proxy_resize', resizes) != resizes:
+            fail('mode %s launched %s over %d batches (%d graphs captured)'
+                 % (mode, counts, MAIN_BATCHES, captured))
         for name in totals:
             totals[name] += counts[name]
         if ref is None:
@@ -4788,6 +4882,7 @@ def main():
         try:
             # the phases that need no K2 run while its library compiles
             packed = phase_bf16_ops()
+            resize = phase_resize(card)
             k1_worst, k1_timing, k1_errors = phase_k1()
             k3_worst, k3_timing = phase_k3()
             probe_worst = phase_probes()
@@ -4811,7 +4906,7 @@ def main():
             batches = [torch.from_numpy(_images(rng, BATCH, RES, RES))
                        .to(DEVICE) for _ in range(MAIN_BATCHES)]
             torch.cuda.synchronize()
-            k1_main, _, _ = phase_main_path(batches)
+            k1_main, _, _, resize_main = phase_main_path(batches)
             totals, _ = phase_modes(batches)
             phase_planted(batches[0])
             phase_bf16_plan(batches)
@@ -4874,6 +4969,27 @@ def main():
                           'bound_by': v[2]['bound_by'], 'library_ms': v[3]}
                       for k, v in rows.items()},
             'shape': shape, 'card': card}, **extra)
+
+    def resize_entry(cases, launches, **extra):
+        """The proxy resize at the main path's shape, each case below;
+        launches counted on the main path, the modes and tools of this
+        process and the graph phase (the dry run's, the scripts' and the
+        tool processes' wrappers count the chain kernels only)."""
+        main = cases['%dx%dx%d' % (BATCH, RES, RES)]
+        return dict({
+            'name': 'proxy_resize', 'route': 'cuda',
+            'source': 'exposure_tpu_torch/csrc/proxy_resize.cu',
+            'replaces': 'no TPU kernel (jax.image.resize is XLA\'s); on '
+                        'the card the u8 -> f32 copies and F.interpolate',
+            'launches': launches,
+            'max_abs_err': max(c['max_abs_err'] for c in cases.values()),
+            'max_lsb_u8': None, 'ms': main['ms'],
+            'plain_ms': main['plain_ms'], 'bound_ms': main['bound_ms'],
+            'bound_by': main['bound_by'], 'flops': main['flops'],
+            'bytes': main['bytes'], 'library_ms': main['library_ms'],
+            'cases': cases,
+            'shape': '[%d, %d, %d, 3] u8 -> [%d, 64, 64, 3] f32'
+                     % (BATCH, RES, RES, BATCH), 'card': card}, **extra)
 
     say(json.dumps({'data': {
         'card': card, 'host_loader_build_s': data['build_s'],
@@ -4992,6 +5108,11 @@ def main():
                         BF16_PROBE_BATCH, RES, RES, BF16_PROBE_STEPS),
                     bf16_max_lsb=probe_worst['bf16_probe_bf16_lsb'],
                     bf16_frac_off_plain=probe_worst['bf16_probe_frac_off']),
+        resize_entry(resize, resize_main + totals['proxy_resize'] +
+                     graph_launches['proxy_resize'],
+                     launches_main_path=resize_main,
+                     launches_other_paths=totals['proxy_resize'],
+                     launches_serving_graph=graph_launches['proxy_resize']),
     ]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -5170,7 +5291,7 @@ def serve(tree, work, tag, first, kernels_only):
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
                for _ in range(MAIN_BATCHES)]
-    _, img_s, outs = phase_main_path(batches)
+    _, img_s, outs, _ = phase_main_path(batches)
     main_digest = _digest(outs)
     if first:
         np.save(os.path.join(work, tag + '_main.npy'),

@@ -2,7 +2,8 @@
 ``exposure_tpu/core/serving.py``).
 
 Per batch: scale the [B, H, W, 3] images to [0, 1] and resize them to the
-64x64 proxy (``proxy``), plan a 5-step trajectory on the proxy with the
+64x64 proxy (``proxy``: ``ops/proxy_resize.py``, one kernel launch on the
+card), plan a 5-step trajectory on the proxy with the
 policy (``plan``), then replay the [K, B] ids and [K, B, P] params on the
 full-resolution batch (``replay``).  uint8 input gives uint8 output;
 float32 input is the linear [0, 1] domain.
@@ -72,7 +73,6 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from exposure_tpu_torch.core.artifacts import (
     flax_to_state_dict,
@@ -86,6 +86,7 @@ from exposure_tpu_torch.ops.chain import apply_filter_chain
 from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
 from exposure_tpu_torch.ops.filters import build_filters, max_filter_parameters
 from exposure_tpu_torch.ops.grouped_chain import GroupedChainRunner, bucket_size
+from exposure_tpu_torch.ops.proxy_resize import proxy_resize
 from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
 from exposure_tpu_torch.utils import trace
 from exposure_tpu_torch.utils.config import load_config
@@ -95,9 +96,8 @@ from exposure_tpu_torch.utils.config import load_config
 _SEED_STRIDE = 0x9E3779B1
 
 # Graphs a pipeline keeps.  Each one's pool holds, at B=512 of 512x512 u8,
-# the static input and output (0.4 GB each), the f32 copy of the batch that
-# the resize reads (1.61 GB) and the proxy's activations: a few GB a graph,
-# so a handful of shapes stays a small share of the card.
+# the static input and output (0.4 GB each) and the plan's activations, so
+# a handful of shapes stays a small share of the card.
 MAX_GRAPHS = 4
 
 
@@ -111,18 +111,6 @@ def batch_generator(seed, index, device):
     g = torch.Generator(device=device)
     g.manual_seed(batch_seed(seed, index))
     return g
-
-
-def proxy_resize(images, size):
-    """[B, H, W, 3] uint8 or float32 -> [B, size, size, 3] float32 proxy:
-    scale to [0, 1], then antialiased bilinear resize (matches
-    ``jax.image.resize(..., 'linear')``)."""
-    x = images.to(torch.float32)
-    if images.dtype == torch.uint8:
-        x = x * (1.0 / 255.0)
-    x = F.interpolate(x.permute(0, 3, 1, 2), size=(size, size),
-                      mode='bilinear', antialias=True, align_corners=False)
-    return x.permute(0, 2, 3, 1).contiguous()
 
 
 def _deliver(out, device_out):

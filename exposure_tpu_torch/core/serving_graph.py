@@ -38,6 +38,7 @@ import time
 import torch
 
 from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
+from exposure_tpu_torch.ops.proxy_resize import proxy_resize
 from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
 from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
 from exposure_tpu_torch.utils import trace
@@ -49,11 +50,13 @@ REPLAYED = collections.Counter()
 
 
 def wrapper_counts():
-    """The chain kernels' wrapper counts, by name."""
+    """The serving kernels' wrapper counts, by name: the chain kernels and
+    the proxy resize."""
     return {'dyn_chain': apply_filter_chain_dynamic.launches,
             'switch_chain': apply_filter_chain_switch.launches,
             'switch_chain_bf16': apply_filter_chain_switch.launches_bf16,
-            'static_chain': apply_filter_chain_static.launches}
+            'static_chain': apply_filter_chain_static.launches,
+            'proxy_resize': proxy_resize.launches}
 
 
 def executions(counts):

@@ -214,6 +214,22 @@ def _bind_trace_stamp(lib):
     lib.trace_stamp_error_string.restype = ctypes.c_char_p
 
 
+def _bind_proxy_resize(lib):
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.proxy_resize_launch.argtypes = [
+        vp, vp, vp, vp,            # img, out, steps, band offsets
+        vp, vp, vp, vp,            # slices, col first, col count, col w
+        i, i, i, i, i,             # taps_x, B, H, W, S
+        i, i, i,                   # band rows, n_bands, n_slices
+        i, i, i, i,                # threads, buf_floats, is_u8, vec
+        vp]                        # stream
+    lib.proxy_resize_launch.restype = i
+    lib.proxy_resize_prepare.argtypes = []
+    lib.proxy_resize_prepare.restype = i
+    lib.proxy_resize_error_string.argtypes = [i]
+    lib.proxy_resize_error_string.restype = ctypes.c_char_p
+
+
 def dyn_chain_kernel():
     """The ``dyn_chain`` library with what its build reported."""
     return build('dyn_chain', _bind_dyn_chain)
@@ -266,6 +282,17 @@ def trace_stamp_library():
     return trace_stamp_kernel().lib
 
 
+def proxy_resize_kernel():
+    """The ``proxy_resize`` library (``ops/proxy_resize.py``) with what its
+    build reported."""
+    return build('proxy_resize', _bind_proxy_resize)
+
+
+def proxy_resize_library():
+    """The bound ``proxy_resize`` library (built on first use)."""
+    return proxy_resize_kernel().lib
+
+
 def build_all():
     """Build (or load) every kernel library at once, one nvcc each, and
     return ``{name: KernelLibrary}``."""
@@ -274,7 +301,8 @@ def build_all():
                  'switch_chain': switch_chain_kernel,
                  'static_chain': static_chain_kernel,
                  'probes': probes_kernel,
-                 'trace_stamp': trace_stamp_kernel}
+                 'trace_stamp': trace_stamp_kernel,
+                 'proxy_resize': proxy_resize_kernel}
     with ThreadPoolExecutor(len(accessors)) as pool:
         futures = {name: pool.submit(fn) for name, fn in accessors.items()}
         return {name: fut.result() for name, fut in futures.items()}

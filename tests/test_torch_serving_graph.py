@@ -276,7 +276,8 @@ def test_executions_count_recorded_and_replayed_launches(monkeypatch):
     sg.reset_counts()
     assert not sg.RECORDED and not sg.REPLAYED
     assert set(sg.wrapper_counts()) == {'dyn_chain', 'switch_chain',
-                                        'switch_chain_bf16', 'static_chain'}
+                                        'switch_chain_bf16', 'static_chain',
+                                        'proxy_resize'}
 
 
 def test_evaluator_plan_graph_is_the_per_call_plan(served):

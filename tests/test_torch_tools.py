@@ -288,12 +288,36 @@ def test_turns_judge_any_differing_kernel_value():
     differing = smoke._values_differing(parent, change)
     assert differing == {'k1_E_exact_u8': 0, 'k2f32_case_masked': 1,
                          'k4c_small_cos_bf16_cast': 2}
-    assert smoke.TURNS_MAY_DIFFER == ()
+    # the served outputs that the proxy resize's rounding moves, and no
+    # kernel output and not the fixed plan's replay
+    assert smoke.TURNS_MAY_DIFFER == ('main', 'mode_')
     assert smoke._moved_outputs(differing) == {
         'k2f32_case_masked': 1, 'k4c_small_cos_bf16_cast': 2}
+    assert smoke._moved_outputs({'main': 3, 'mode_switch': 1, 'replay': 1,
+                                 'k1_E_exact_u8': 1}) == {
+        'replay': 1, 'k1_E_exact_u8': 1}
     assert smoke._moved_outputs(differing, ('k4c_',)) == {
         'k2f32_case_masked': 1}
     assert smoke._moved_outputs(smoke._values_differing(parent, parent)) == {}
+
+
+def test_smoke_counts_proxy_resize_executions(monkeypatch):
+    """The proxy resize kernel is one of ``chip_smoke.py``'s counted
+    wrappers: reset with the others, its executions read through the
+    graphs' records like the chain kernels'."""
+    import exposure_tpu_torch.core.serving_graph as sg
+    from exposure_tpu_torch.ops.proxy_resize import proxy_resize
+    smoke = _load_smoke()
+    assert smoke.wrappers()['proxy_resize'] is proxy_resize
+    monkeypatch.setattr(proxy_resize, 'launches', 3)
+    monkeypatch.setattr(sg, 'RECORDED', sg.collections.Counter())
+    monkeypatch.setattr(sg, 'REPLAYED', sg.collections.Counter())
+    smoke.reset_counts()
+    assert proxy_resize.launches == 0
+    proxy_resize.launches = 1 + 1           # a warm-up, a capture
+    sg.RECORDED.update({'proxy_resize': 1})
+    sg.REPLAYED.update({'proxy_resize': 4})
+    assert smoke.read_counts()['proxy_resize'] == 1 + 4
 
 
 def test_smoke_counts_kernel_executions_under_graphs(monkeypatch):
