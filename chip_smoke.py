@@ -374,10 +374,19 @@ def _serving_graph():
     return serving_graph
 
 
+def _extractor_forwards():
+    """``FeatureExtractor``'s forwards by layout, or None in a ``--serve``
+    checkout from before the count."""
+    from exposure_tpu_torch.models.networks import FeatureExtractor
+    return getattr(FeatureExtractor, 'forwards', None)
+
+
 def reset_counts():
     for fn in wrappers().values():
         fn.launches = 0
     wrappers()['switch_chain'].launches_bf16 = 0
+    if _extractor_forwards() is not None:
+        _extractor_forwards().clear()
     if _serving_graph():
         _serving_graph().reset_counts()
 
@@ -386,9 +395,15 @@ def read_counts():
     """Kernel executions by wrapper: its launches, less those a CUDA graph's
     capture recorded (which ran nothing), plus those its replays ran
     (``core/serving_graph.py::executions``); ``switch_chain_bf16`` is the
-    part of ``switch_chain``'s that ran the bf16 kernel."""
+    part of ``switch_chain``'s that ran the bf16 kernel; ``extractor_nchw``
+    and ``extractor_channels_last`` count the policy's feature extractors
+    by the layout their convolutions ran in."""
     counts = {name: fn.launches for name, fn in wrappers().items()}
     counts['switch_chain_bf16'] = wrappers()['switch_chain'].launches_bf16
+    forwards = _extractor_forwards()
+    if forwards is not None:
+        counts['extractor_nchw'] = forwards['nchw']
+        counts['extractor_channels_last'] = forwards['channels_last']
     if _serving_graph():
         counts = _serving_graph().executions(counts)
     return counts
@@ -1505,12 +1520,21 @@ def phase_main_path(batches):
     if resized not in (None, MAIN_BATCHES):
         fail('main path: the proxy resize kernel ran %d times over %d '
              'batches, expected once a batch' % (resized, MAIN_BATCHES))
+    nchw = counts.get('extractor_nchw')
+    if nchw not in (None, 2 * steps * MAIN_BATCHES) or \
+            counts.get('extractor_channels_last'):
+        fail('main path: the float32 extractors ran %d forwards in NCHW '
+             'and %d channels-last over %d batches, expected %d in NCHW'
+             % (nchw, counts['extractor_channels_last'], MAIN_BATCHES,
+                2 * steps * MAIN_BATCHES))
     graphs = ''
     if getattr(pipe, 'graphs', False):
         rep = pipe.graph_report()
         expected = {'dyn_chain': steps + 1}
         if resized is not None:
             expected['proxy_resize'] = 1
+        if nchw is not None:
+            expected['extractor_nchw'] = 2 * steps
         if rep['captures'] != 1 or rep['replays'] != MAIN_BATCHES + 1 or \
                 list(rep['launches_per_replay'].values()) != [expected]:
             fail('main path: one graph captured and replayed per batch '
@@ -1526,10 +1550,12 @@ def phase_main_path(batches):
     changed = float((outs[0] != batches[0]).float().mean())
     say('main: %d batches of [%d, %d, %d, 3] u8 -> u8 on %s; K1 launches '
         '%d (%d per batch: %d on the proxy in the plan, %d replay)%s; proxy '
-        'resize executions %s; %.3f of output values differ from the input'
+        'resize executions %s; extractor forwards in NCHW %s; %.3f of '
+        'output values differ from the input'
         % (MAIN_BATCHES, BATCH, RES, RES, outs[0].device, launches,
            launches // MAIN_BATCHES, by_stage['proxy'] // MAIN_BATCHES,
-           by_stage['replay'] // MAIN_BATCHES, graphs, resized, changed))
+           by_stage['replay'] // MAIN_BATCHES, graphs, resized, nchw,
+           changed))
 
     # the plan of batch 0 again; its replay of 16 images against the plain
     # version on the same plan

@@ -37,6 +37,7 @@ import time
 
 import torch
 
+from exposure_tpu_torch.models.networks import FeatureExtractor
 from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
 from exposure_tpu_torch.ops.proxy_resize import proxy_resize
 from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
@@ -50,13 +51,17 @@ REPLAYED = collections.Counter()
 
 
 def wrapper_counts():
-    """The serving kernels' wrapper counts, by name: the chain kernels and
-    the proxy resize."""
+    """The serving kernels' wrapper counts, by name: the chain kernels, the
+    proxy resize, and the policy's feature extractors by the layout their
+    convolutions ran in (``extractor_nchw``, ``extractor_channels_last``)."""
     return {'dyn_chain': apply_filter_chain_dynamic.launches,
             'switch_chain': apply_filter_chain_switch.launches,
             'switch_chain_bf16': apply_filter_chain_switch.launches_bf16,
             'static_chain': apply_filter_chain_static.launches,
-            'proxy_resize': proxy_resize.launches}
+            'proxy_resize': proxy_resize.launches,
+            'extractor_nchw': FeatureExtractor.forwards['nchw'],
+            'extractor_channels_last':
+                FeatureExtractor.forwards['channels_last']}
 
 
 def executions(counts):

@@ -3,7 +3,15 @@
 ``exposure_tpu/core/trainer.py``).
 
 Inputs keep the JAX package's NHWC layout; the modules permute to NCHW for
-the convolutions.  Three details carry the flax semantics over:
+the convolutions.  ``FeatureExtractor`` chooses the memory layout by the
+input's dtype: float32 runs NCHW-contiguous, cuDNN's native layout for its
+float32 kernels (a channels-last stack makes cuDNN convert every layer's
+input and output to NCHW and back); bfloat16 and float16, whose tensor-core
+kernels are channels-last, keep the permuted NHWC memory.  cuDNN's
+heuristic chooses the float32 kernel per shape: at 512 proxies it is the
+one either layout runs, so the plan is bit for bit the channels-last one.
+``PolicyNet``'s two extractors share one input.  Three details carry the
+flax semantics over:
 
 - ``SAME`` padding of a 4x4 stride-2 convolution is ``padding=1`` at even
   input sizes (64 -> 32 -> 16 -> 8 -> 4); odd sizes are refused.
@@ -25,6 +33,7 @@ kernels (``nn.initializers.glorot_uniform``, the reference's
 ``xavier_initializer``) and zero biases; torch's own defaults differ.
 """
 
+import collections
 import math
 
 import torch
@@ -47,8 +56,43 @@ def dropout(x, keep_prob, generator):
     return x * keep / keep_prob
 
 
+def _channels_last(dtype):
+    """Whether convolutions of ``dtype`` run channels-last: bfloat16 and
+    float16 ones on tensor-core kernels whose layout it is; float32 ones
+    on cuDNN's NCHW kernels."""
+    return dtype in (torch.bfloat16, torch.float16)
+
+
+def conv_input(x):
+    """``x - 0.5`` of an NHWC batch as the convolutions' NCHW-shaped input:
+    NCHW memory in float32, written in one pass; the channels-last view of
+    NHWC memory in bfloat16 and float16."""
+    if _channels_last(x.dtype):
+        return (x - 0.5).permute(0, 3, 1, 2)
+    return _CentredNCHW.apply(x)
+
+
+class _CentredNCHW(torch.autograd.Function):
+    """``x - 0.5`` of an NHWC tensor, written NCHW-contiguous in one pass
+    (an ``out=`` tensor, which autograd refuses; the backward permutes the
+    gradient back)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = x.new_empty(x.shape[0], x.shape[3], x.shape[1], x.shape[2])
+        return torch.sub(x.permute(0, 3, 1, 2), 0.5, out=out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.permute(0, 2, 3, 1)
+
+
 class FeatureExtractor(nn.Module):
     """Strided-conv feature pyramid -> flat feature vector with dropout."""
+
+    # forwards by the layout their convolutions ran in, ``nchw`` or
+    # ``channels_last`` (``core/serving_graph.py::wrapper_counts``)
+    forwards = collections.Counter()
 
     def __init__(self, in_channels, output_dim, base_channels=32,
                  dropout_keep_prob=0.5, input_size=64):
@@ -77,11 +121,16 @@ class FeatureExtractor(nn.Module):
 
     def forward(self, x, generator=None):
         """[B, S, S, C] NHWC -> [B, output_dim]."""
-        if x.shape[1] != self.input_size or x.shape[2] != self.input_size:
-            raise ValueError('expected %dx%d input, got %s'
+        return self.features(conv_input(x), generator)
+
+    def features(self, x, generator=None):
+        """``conv_input``'s [B, C, S, S] -> [B, output_dim]."""
+        if x.shape[2] != self.input_size or x.shape[3] != self.input_size:
+            raise ValueError('expected %dx%d input, got %dx%d'
                              % (self.input_size, self.input_size,
-                                tuple(x.shape)))
-        x = (x - 0.5).permute(0, 3, 1, 2)
+                                x.shape[2], x.shape[3]))
+        FeatureExtractor.forwards[
+            'channels_last' if _channels_last(x.dtype) else 'nchw'] += 1
         for conv in self.convs:
             if x.shape[-1] % 2 or x.shape[-2] % 2:
                 raise ValueError('SAME padding equals padding=1 only at '
@@ -119,11 +168,13 @@ class PolicyNet(nn.Module):
         self.selector_fc2 = nn.Linear(fc1_size, len(self.filter_output_dims))
 
     def forward(self, enriched, generator=None):
-        """[B, S, S, C] -> (list of [B, out_j] raw heads, [B, K] logits)."""
-        shared = self.shared_extractor(enriched, generator)
+        """[B, S, S, C] -> (list of [B, out_j] raw heads, [B, K] logits).
+        Both extractors read one ``conv_input``."""
+        x = conv_input(enriched)
+        shared = self.shared_extractor.features(x, generator)
         raw_params = [fc2(lrelu(fc1(shared)))
                       for fc1, fc2 in zip(self.filter_fc1, self.filter_fc2)]
-        sel = self.selector_extractor(enriched, generator)
+        sel = self.selector_extractor.features(x, generator)
         logits = self.selector_fc2(lrelu(self.selector_fc1(sel)))
         return raw_params, logits
 

@@ -1602,3 +1602,104 @@ def test_outer_step_bit_equal_under_both_flags(cuda_device):
     for (tree, k, a), (_, _, b) in zip(g_on, g_off):
         assert torch.equal(a, b), (tree, k)
     assert [k for k in s_off if not torch.equal(s_on[k], s_off[k])] == []
+
+
+# -- the policy's convolutions in cuDNN's float32 layout (models/networks.py)
+_LAYOUT_CONVERSIONS = ('nhwcToNchw', 'nchwToNhwc')
+
+
+def _device_kernels(fn):
+    """The names of the kernels ``fn`` ran on the card, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _artifact_policy(cuda_device):
+    from exposure_tpu_torch.core.artifacts import (
+        flax_to_state_dict,
+        load_artifact,
+    )
+    from exposure_tpu_torch.models.networks import build_policy
+    cfg = load_config('synthetic_explore')
+    cfg.dropout_keep_prob = 1.0
+    policy = build_policy(cfg, build_filters(cfg))
+    policy.load_state_dict(flax_to_state_dict(
+        load_artifact(ARTIFACT)['gen_params']))
+    return cfg, policy.to(cuda_device)
+
+
+@pytest.mark.cuda
+def test_float32_policy_runs_without_layout_conversions(cuda_device):
+    """One float32 ``PolicyNet`` forward on the artifact's weights at
+    ``[512, 64, 64, 14]``: no cuDNN layout conversion kernel runs, both
+    extractors count an NCHW forward, and heads and logits equal the
+    permute-only formulation (channels-last memory, whose conversions are
+    exact copies around the same float32 kernels) bit for bit."""
+    from exposure_tpu_torch.models.networks import FeatureExtractor
+    from exposure_tpu_torch.utils.ops import lrelu
+    from exposure_tpu_torch.utils.precision import tf32_off
+    cfg, policy = _artifact_policy(cuda_device)
+    x = torch.rand(512, 64, 64, 3 + cfg.num_state_dim, device=cuda_device,
+                   generator=torch.Generator(cuda_device).manual_seed(23))
+
+    def permute_only(fx):
+        h = (x - 0.5).permute(0, 3, 1, 2)
+        for conv in fx.convs:
+            h = lrelu(conv(h))
+        return h.permute(0, 2, 3, 1).reshape(x.shape[0], fx.output_dim)
+
+    out = {}
+    with torch.no_grad(), tf32_off():
+        policy(x)                                  # cuDNN's first calls
+        before = dict(FeatureExtractor.forwards)
+        names = _device_kernels(lambda: out.setdefault('got', policy(x)))
+        after = dict(FeatureExtractor.forwards)
+        shared = permute_only(policy.shared_extractor)
+        sel = permute_only(policy.selector_extractor)
+        want = [fc2(lrelu(fc1(shared)))
+                for fc1, fc2 in zip(policy.filter_fc1, policy.filter_fc2)]
+        want.append(policy.selector_fc2(lrelu(policy.selector_fc1(sel))))
+    assert names, 'the profiler saw no kernel on the card'
+    assert [n for n in names if any(c in n for c in _LAYOUT_CONVERSIONS)] \
+        == []
+    assert after.get('nchw', 0) - before.get('nchw', 0) == 2
+    assert after.get('channels_last', 0) == before.get('channels_last', 0)
+    raw, logits = out['got']
+    for got, ref in zip(raw + [logits], want):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
+def test_captured_selected_plan_extractor_layout(cuda_device, bf16):
+    """One captured selected-plan batch of 512 photos on the artifact:
+    every extractor forward of the graph counts in the layout its dtype
+    chooses (NCHW in float32, channels-last in the bf16 plan), and the
+    float32 batch runs no cuDNN layout conversion kernel."""
+    from exposure_tpu_torch.core import serving_graph as sg
+    from exposure_tpu_torch.core.serving import RetouchPipeline
+    pipe = RetouchPipeline.from_artifact('synthetic_explore', ARTIFACT,
+                                         device=cuda_device, bf16=bf16)
+    g = torch.Generator(device=cuda_device).manual_seed(29)
+    batch = torch.randint(0, 256, (512, 96, 128, 3), generator=g,
+                          dtype=torch.uint8, device=cuda_device)
+    pipe.warmup(batch)
+    torch.cuda.synchronize()
+    before = sg.executions(sg.wrapper_counts())
+    names = _device_kernels(lambda: pipe(batch, 7, 0, device_out=True))
+    after = sg.executions(sg.wrapper_counts())
+    assert pipe.graph_report()['captures'] == 1
+    assert names, 'the profiler saw no kernel on the card'
+    layout, other = ('extractor_channels_last', 'extractor_nchw') if bf16 \
+        else ('extractor_nchw', 'extractor_channels_last')
+    assert after[layout] - before[layout] == 2 * pipe.cfg.test_steps
+    assert after[other] == before[other]
+    if not bf16:
+        assert [n for n in names
+                if any(c in n for c in _LAYOUT_CONVERSIONS)] == []
+    pipe.release()

@@ -9,9 +9,17 @@
   Tolerance 1e-5: f32 convolutions and 4096-d products summed in another
   order;
 - the traps in carrying the network over: flatten order, SAME padding,
-  dropout on at serving, head width.
+  dropout on at serving, head width;
+- the extractors' memory layout, chosen by dtype: float32 reaches every
+  conv NCHW-contiguous, bfloat16 keeps the channels-last view; the policy
+  equals the permute-only formulation (the channels-last view in every
+  dtype) within 1e-6, forward and backward; the layout counter counts one
+  forward an extractor call.  On the CPU the two layouts run different
+  convolution kernels (a few ulps apart); bit equality of the two
+  formulations is a card test (tests/test_torch_cuda.py).
 """
 
+import collections
 import gzip
 import os
 
@@ -29,10 +37,12 @@ from exposure_tpu_torch.core.artifacts import (
     load_artifact,
     msgpack_restore,
 )
+from exposure_tpu_torch.core import serving_graph
 from exposure_tpu_torch.models.networks import (
     FeatureExtractor,
     build_policy,
     dropout,
+    init_like_flax,
 )
 from exposure_tpu_torch.ops.filters import build_filters
 from exposure_tpu_torch.utils.config import load_config as t_load_config
@@ -140,7 +150,9 @@ def test_flatten_order_is_nhwc():
     x = torch.rand(1, 16, 16, 1, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         out = fx(x)
-        h = (x - 0.5).permute(0, 3, 1, 2)
+        # float32 runs the convs on NCHW-contiguous memory
+        h = (x - 0.5).permute(0, 3, 1, 2).clone(
+            memory_format=torch.contiguous_format)
         for conv in fx.convs:
             h = lrelu(conv(h))
     nhwc = h.permute(0, 2, 3, 1).reshape(1, -1)
@@ -175,3 +187,123 @@ def test_head_width_includes_mask_params_without_masking():
     assert not cfg.masking
     policy = build_policy(cfg, build_filters(cfg))
     assert policy.filter_output_dims == (7, 7, 9, 7, 14, 7, 7, 30)
+
+
+def _permute_only_extractor(fx, x):
+    """``FeatureExtractor`` with keep 1 as it ran in every dtype before
+    the layout was chosen: ``x - 0.5`` permuted to an NCHW view of NHWC
+    memory (channels-last) through the convs."""
+    h = (x - 0.5).permute(0, 3, 1, 2)
+    for conv in fx.convs:
+        h = lrelu(conv(h))
+    return h.permute(0, 2, 3, 1).reshape(x.shape[0], fx.output_dim)
+
+
+def _permute_only_policy(policy, x):
+    shared = _permute_only_extractor(policy.shared_extractor, x)
+    raw = [fc2(lrelu(fc1(shared)))
+           for fc1, fc2 in zip(policy.filter_fc1, policy.filter_fc2)]
+    sel = _permute_only_extractor(policy.selector_extractor, x)
+    return raw + [policy.selector_fc2(lrelu(policy.selector_fc1(sel)))]
+
+
+def _explore_policy(weights):
+    """The ``synthetic_explore`` policy, keep 1, on the artifact's weights
+    or on Glorot-uniform ones from seed 0."""
+    cfg = t_load_config('synthetic_explore')
+    cfg.dropout_keep_prob = 1.0
+    policy = build_policy(cfg, build_filters(cfg))
+    if weights == 'artifact':
+        policy.load_state_dict(flax_to_state_dict(
+            load_artifact(ARTIFACT)['gen_params']))
+    else:
+        init_like_flax(policy, torch.Generator().manual_seed(0))
+    return policy
+
+
+@pytest.fixture
+def forwards(monkeypatch):
+    """A fresh count of the extractors' forwards by layout."""
+    counter = collections.Counter()
+    monkeypatch.setattr(FeatureExtractor, 'forwards', counter)
+    return counter
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['float32', 'bfloat16'])
+def test_conv_layout_follows_the_dtype(dtype):
+    """float32 reaches every conv NCHW-contiguous and leaves it so;
+    bfloat16 keeps the channels-last view, whose tensor-core kernels are
+    channels-last."""
+    fx = FeatureExtractor(14, 64, base_channels=8, dropout_keep_prob=1.0,
+                          input_size=32).to(dtype)
+    seen = []
+    for conv in fx.convs:
+        conv.register_forward_hook(
+            lambda m, args, out: seen.append((args[0], out)))
+    x = torch.rand(2, 32, 32, 14).to(dtype)
+    with torch.no_grad():
+        fx(x)
+    assert len(seen) == len(fx.convs) == 3
+    for inp, out in seen:
+        if dtype == torch.float32:
+            assert inp.is_contiguous() and out.is_contiguous()
+        else:
+            assert not inp.is_contiguous()
+            assert inp.is_contiguous(memory_format=torch.channels_last)
+            assert out.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize('weights', ['random', 'artifact'])
+def test_policy_equals_the_permute_only_formulation(rng, weights):
+    """Heads and logits within 1e-6 (relative and absolute) of the
+    channels-last formulation on random inputs; the two layouts run
+    different CPU kernels, whose sums differ in the last bits."""
+    policy = _explore_policy(weights)
+    x = torch.from_numpy(rng.rand(4, 64, 64, 14).astype(np.float32))
+    with torch.no_grad():
+        raw, logits = policy(x)
+        want = _permute_only_policy(policy, x)
+    for got, ref in zip(raw + [logits], want):
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
+def test_nchw_input_is_differentiable(rng):
+    """The float32 input's one-pass ``x - 0.5`` into NCHW memory passes
+    the gradient back to the NHWC input as the permuted view does."""
+    fx = FeatureExtractor(14, 64, base_channels=8, dropout_keep_prob=1.0,
+                          input_size=32)
+    x = torch.from_numpy(rng.rand(2, 32, 32, 14).astype(np.float32))
+    weights = torch.from_numpy(rng.rand(2, 64).astype(np.float32))
+    grads = []
+    for run in (fx, lambda v: _permute_only_extractor(fx, v)):
+        v = x.clone().requires_grad_(True)
+        grad, = torch.autograd.grad((run(v) * weights).sum(), v)
+        grads.append(grad)
+    assert grads[0].shape == x.shape
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['float32', 'bfloat16'])
+def test_layout_counter_counts_each_extractor_call(forwards, dtype):
+    """One forward an extractor call, under the layout it ran in, read
+    through the serving graphs' wrapper counts too; ``PolicyNet``'s two
+    extractors read one input."""
+    cfg = t_load_config('test')
+    policy = build_policy(cfg, build_filters(cfg)).to(dtype)
+    x = torch.rand(3, 64, 64, 3 + cfg.num_state_dim).to(dtype)
+    firsts = []
+    for fx in (policy.shared_extractor, policy.selector_extractor):
+        fx.convs[0].register_forward_hook(
+            lambda m, args, out: firsts.append(args[0]))
+    with torch.no_grad():
+        for _ in range(2):
+            policy(x, torch.Generator().manual_seed(0))
+    assert len(firsts) == 4
+    assert firsts[0] is firsts[1] and firsts[2] is firsts[3]
+    layout = 'nchw' if dtype == torch.float32 else 'channels_last'
+    assert forwards == {layout: 2 * 2}
+    counts = serving_graph.wrapper_counts()
+    assert counts['extractor_' + layout] == 4
+    assert counts['extractor_nchw'] + counts['extractor_channels_last'] == 4

@@ -277,7 +277,26 @@ def test_executions_count_recorded_and_replayed_launches(monkeypatch):
     assert not sg.RECORDED and not sg.REPLAYED
     assert set(sg.wrapper_counts()) == {'dyn_chain', 'switch_chain',
                                         'switch_chain_bf16', 'static_chain',
-                                        'proxy_resize'}
+                                        'proxy_resize', 'extractor_nchw',
+                                        'extractor_channels_last'}
+
+
+@pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
+def test_extractor_layout_counts_a_served_batch(served, bf16):
+    """The selected plan's extractor forwards, two a step, in the layout
+    their dtype chooses: NCHW in float32, channels-last in the bf16
+    plan."""
+    cfg, policy = served
+    pipe = _pipe(cfg, copy.deepcopy(policy), True, bf16=bf16)
+    batches = [_images(50 + i, 'uint8') for i in range(2)]
+    before = sg.executions(sg.wrapper_counts())
+    list(pipe.map_batches(batches, seed=3))
+    after = sg.executions(sg.wrapper_counts())
+    layout = 'extractor_channels_last' if bf16 else 'extractor_nchw'
+    other = 'extractor_nchw' if bf16 else 'extractor_channels_last'
+    assert after[layout] - before[layout] == \
+        2 * cfg.test_steps * len(batches)
+    assert after[other] == before[other]
 
 
 def test_evaluator_plan_graph_is_the_per_call_plan(served):

@@ -320,6 +320,27 @@ def test_smoke_counts_proxy_resize_executions(monkeypatch):
     assert smoke.read_counts()['proxy_resize'] == 1 + 4
 
 
+def test_smoke_counts_extractor_forwards_by_layout(monkeypatch):
+    """``chip_smoke.py`` resets and reads the policy extractors' forwards
+    by layout with the kernels' counts, as executions under graphs."""
+    import collections
+    import exposure_tpu_torch.core.serving_graph as sg
+    from exposure_tpu_torch.models.networks import FeatureExtractor
+    smoke = _load_smoke()
+    monkeypatch.setattr(FeatureExtractor, 'forwards',
+                        collections.Counter(nchw=3, channels_last=1))
+    monkeypatch.setattr(sg, 'RECORDED', sg.collections.Counter())
+    monkeypatch.setattr(sg, 'REPLAYED', sg.collections.Counter())
+    smoke.reset_counts()
+    assert not FeatureExtractor.forwards
+    FeatureExtractor.forwards['nchw'] += 10 + 10   # a warm-up, a capture
+    sg.RECORDED.update({'extractor_nchw': 10})
+    sg.REPLAYED.update({'extractor_nchw': 10 * 4})
+    counts = smoke.read_counts()
+    assert counts['extractor_nchw'] == 10 + 40
+    assert counts['extractor_channels_last'] == 0
+
+
 def test_smoke_counts_kernel_executions_under_graphs(monkeypatch):
     """``chip_smoke.py::read_counts`` turns the wrappers' launches into
     executions (a capture's recorded launches ran nothing, each replay ran
