@@ -154,9 +154,11 @@ Phases, one line or a few each (a failing phase exits non-zero):
    plan), dropout on, each batch one replay of a CUDA graph that
    ``warmup`` captured (``core/serving_graph.py``); checks the output, the
    K1 executions (6 per batch: 5 proxy steps in the plan + 1 replay; the
-   launches each stage recorded in the capture times the replays), the
-   replay against the plain version, no host sync, and prints img/s and
-   its split across resize, plan and replay;
+   launches each stage recorded in the capture times the replays), one
+   replay under ``torch.profiler`` with no cuDNN layout conversion
+   (``nhwcToNchw``/``nchwToNhwc``) among its kernels, the replay against
+   the plain version, no host sync, and prints img/s and its split across
+   resize, plan and replay;
 11. modes: the same artifact and batches through the dynamic mode with the
    bank plan, the switch mode, the grouped mode, the grouped mode with
    ``warmup(superset=True)`` and the auto-superset mode
@@ -221,11 +223,11 @@ Phases, one line or a few each (a failing phase exits non-zero):
 Every kernel count is set to 0 just before a path is driven (the serving
 modes, and the tools, which are the probes' path) and read just after;
 the comparisons with the plain versions do not count.  A count is of
-executions: a wrapper's launches, less those a graph's capture recorded,
-plus those its replays ran (``read_counts``).  The line
-before the last is a JSON summary of every kernel: launches, error, time
-beside its plain version's, its H100 bound (``ops/dyn_chain.py::chain_cost``
-for the chains, ``probe_cost`` for the probes; ``tools.bound_ms``) and the
+executions: the kernels' launches (``kernels.launch_counts``), less those
+a graph's capture recorded, plus those its replays ran (``read_counts``).
+The line before the last is a JSON summary of every kernel: launches,
+error, time beside its plain version's, its H100 bound
+(``ops/dyn_chain.py::chain_cost`` for the chains, ``probe_cost`` for the probes; ``tools.bound_ms``) and the
 time of the PyTorch call that computes the same function, where one does
 (``Tensor.copy_`` for the probes' 0-step copy; no single call computes a
 filter chain); K2's bf16 kernel has an entry of its own, and each probe
@@ -294,15 +296,11 @@ PROBE_ITERS = 7      # bench_kernel_probe's timed calls (its CLI default: 20)
 PLAIN_RUNS = 3       # timed runs of the probes' plain versions
 KERNEL_CALLS = 4     # calls back to back in a timing (a kernel's, and
                      # Tensor.copy_'s beside it): device time
-# kernel outputs of --turns (names of _kernel_outputs, by prefix) that a
-# deliberate change of the numbers lets differ from the parent's; any other
-# differing value fails the turns.  The proxy resize kernel sums its taps in
-# another order than torch's interpolate (proxies within 8.3e-7), so the
-# plans' parameters move in their last bits: against a parent from before
-# it, 27,059 of the main path's 1.61e9 values differ by 1 LSB (none by more)
-# and every mode's digest differs, while the replay of a fixed plan and
-# every kernel output stay equal
-TURNS_MAY_DIFFER = ('main', 'mode_')
+# outputs of --turns (``main``, ``replay``, ``mode_<mode>`` or names of
+# _kernel_outputs, by prefix) that a deliberate change of the numbers lets
+# differ from the parent's; any other differing value fails the turns.  A
+# change that keeps the numbers lists none
+TURNS_MAY_DIFFER = ()
 # K4c in bf16 against its plain version, as K2-bf16
 PROBE_BF16_FRAC = 1e-3
 CHAIN_LIBS = ('dyn_chain', 'static_chain', 'switch_chain')
@@ -330,83 +328,23 @@ def cuda_ms(fn, runs=7, warmup=2, calls=1):
                                 calls=calls)
 
 
-def _on_card(fn):
-    """The keyword that keeps the output of a pipeline's ``__call__`` or
-    ``map_batches`` on the card, so that no timing or count gains a copy to
-    the host; none for a ``--serve`` checkout from before ``device_out``,
-    whose pipeline returns device tensors always."""
-    import inspect
-    if 'device_out' in inspect.signature(fn).parameters:
-        return {'device_out': True}
-    return {}
-
-
-def wrappers():
-    """The kernel wrappers, whose ``launches`` count the kernel launches
-    they make: the three chain kernels, the three probes and the proxy
-    resize (left out for a ``--serve`` checkout from before it)."""
-    from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
-    from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
-    from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
-    from exposure_tpu_torch.tools.bench_bf16_probe import run_probe
-    from exposure_tpu_torch.tools.bench_fastmath import run_op
-    from exposure_tpu_torch.tools.bench_kernel_probe import mono_chain
-    found = {'dyn_chain': apply_filter_chain_dynamic,
-             'switch_chain': apply_filter_chain_switch,
-             'static_chain': apply_filter_chain_static,
-             'mono_probe': mono_chain,
-             'fastmath_probe': run_op,
-             'bf16_probe': run_probe}
-    try:
-        from exposure_tpu_torch.ops.proxy_resize import proxy_resize
-    except ImportError:
-        return found
-    return dict(found, proxy_resize=proxy_resize)
-
-
-def _serving_graph():
-    """``exposure_tpu_torch/core/serving_graph.py``, or None in a ``--serve``
-    checkout from before it (whose wrappers count every execution)."""
-    try:
-        from exposure_tpu_torch.core import serving_graph
-    except ImportError:
-        return None
-    return serving_graph
-
-
-def _extractor_forwards():
-    """``FeatureExtractor``'s forwards by layout, or None in a ``--serve``
-    checkout from before the count."""
-    from exposure_tpu_torch.models.networks import FeatureExtractor
-    return getattr(FeatureExtractor, 'forwards', None)
-
-
 def reset_counts():
-    for fn in wrappers().values():
-        fn.launches = 0
-    wrappers()['switch_chain'].launches_bf16 = 0
-    if _extractor_forwards() is not None:
-        _extractor_forwards().clear()
-    if _serving_graph():
-        _serving_graph().reset_counts()
+    """Set the kernels' launch counts and the graphs' records to 0."""
+    from exposure_tpu_torch import kernels
+    from exposure_tpu_torch.core import serving_graph
+    kernels.reset_launch_counts()
+    serving_graph.reset_counts()
 
 
 def read_counts():
-    """Kernel executions by wrapper: its launches, less those a CUDA graph's
-    capture recorded (which ran nothing), plus those its replays ran
-    (``core/serving_graph.py::executions``); ``switch_chain_bf16`` is the
-    part of ``switch_chain``'s that ran the bf16 kernel; ``extractor_nchw``
-    and ``extractor_channels_last`` count the policy's feature extractors
-    by the layout their convolutions ran in."""
-    counts = {name: fn.launches for name, fn in wrappers().items()}
-    counts['switch_chain_bf16'] = wrappers()['switch_chain'].launches_bf16
-    forwards = _extractor_forwards()
-    if forwards is not None:
-        counts['extractor_nchw'] = forwards['nchw']
-        counts['extractor_channels_last'] = forwards['channels_last']
-    if _serving_graph():
-        counts = _serving_graph().executions(counts)
-    return counts
+    """Kernel executions by the launch counter's key: the launches, less
+    those a CUDA graph's capture recorded (which ran nothing), plus those
+    its replays ran (``core/serving_graph.py::executions``);
+    ``switch_chain_bf16`` is the part of ``switch_chain``'s that ran the
+    bf16 kernel."""
+    from exposure_tpu_torch import kernels
+    from exposure_tpu_torch.core import serving_graph
+    return serving_graph.executions(kernels.launch_counts())
 
 
 def phase_card():
@@ -474,7 +412,6 @@ def start_build():
     t0 = time.perf_counter()
     names = ('dyn_chain', 'switch_chain', 'static_chain', 'probes',
              'proxy_resize')
-    names = [n for n in names if hasattr(kernels, n + '_kernel')]
     pool = ThreadPoolExecutor(len(names))
     futures = {name: pool.submit(getattr(kernels, name + '_kernel'))
                for name in names}
@@ -694,11 +631,7 @@ def phase_resize(card):
     for b, h, w in RESIZE_CASES:
         img = torch.randint(0, 256, (b, h, w, 3), dtype=torch.uint8,
                             device=DEVICE, generator=g)
-        before = proxy_resize.launches
-        got = proxy_resize(img, 64)
-        torch.cuda.synchronize()
-        if proxy_resize.launches != before + 1:
-            fail('proxy_resize: the wrapper did not launch the kernel')
+        got = _launch_checked('proxy_resize', proxy_resize, img, 64)
         err = float((got - proxy_resize_reference(img, 64)).abs().max())
         if err > RESIZE_ATOL:
             fail('proxy_resize [%d, %d, %d, 3]: max_abs_err %.3e over %g'
@@ -742,11 +675,8 @@ def phase_k1():
         img, ids, params, kw = _case_inputs(g, filters, b, h, w, k, dt,
                                             variant, dev)
         kw['fast_math'] = fast
-        before = apply_filter_chain_dynamic.launches
-        got = apply_filter_chain_dynamic(img, ids, params, filters, **kw)
-        torch.cuda.synchronize()
-        if apply_filter_chain_dynamic.launches != before + 1:
-            fail('K1 %s: the wrapper did not launch the kernel' % name)
+        got = _launch_checked('dyn_chain', apply_filter_chain_dynamic, img,
+                              ids, params, filters, **kw)
         want = apply_filter_chain_dynamic_reference(img, ids, params,
                                                     filters, **kw)
         err, outliers = _compare(got, want)
@@ -947,12 +877,8 @@ def phase_k3():
             n_active = b - 2
             kw['n_active'] = n_active
         out_kw = {'out': torch.zeros_like(img)} if variant == 'rows' else {}
-        before = apply_filter_chain_static.launches
-        got = apply_filter_chain_static(img, sig, params, filters, **kw,
-                                        **out_kw)
-        torch.cuda.synchronize()
-        if apply_filter_chain_static.launches != before + 1:
-            fail('K3 %s: the wrapper did not launch the kernel' % name)
+        got = _launch_checked('static_chain', apply_filter_chain_static,
+                              img, sig, params, filters, **kw, **out_kw)
         if variant == 'rows':
             out_kw = {'out': torch.zeros_like(img)}
         want = apply_filter_chain_static_reference(img, sig, params, filters,
@@ -985,15 +911,15 @@ def phase_k3():
     return worst, timing
 
 
-def _launch_checked(name, fn, *args):
-    """``fn(*args)`` on the card, failing unless the wrapper ``name``
-    launched its kernel exactly once."""
+def _launch_checked(name, fn, *args, **kw):
+    """``fn(*args, **kw)`` on the card, failing unless it launched the
+    kernel counted as ``name`` exactly once."""
     import torch
-    wrapper = wrappers()[name]
-    before = wrapper.launches
-    got = fn(*args)
+    from exposure_tpu_torch import kernels
+    before = kernels.launch_counts()[name]
+    got = fn(*args, **kw)
     torch.cuda.synchronize()
-    if wrapper.launches != before + 1:
+    if kernels.launch_counts()[name] != before + 1:
         fail('%s: the wrapper did not launch the kernel' % name)
     return got
 
@@ -1421,7 +1347,7 @@ def _timed_stream(pipe, batches, trap):
             try:
                 start.record()
                 for _ in pipe.map_batches(batches, seed=SEED + 1 + n,
-                                          **_on_card(pipe.map_batches)):
+                                          device_out=True):
                     pass
                 end.record()
             finally:
@@ -1445,17 +1371,17 @@ def _k1_by_stage(pipe):
     executions by stage since the wrap or the last ``read``: the eager
     ones, plus each stage's recorded launches times the replays of the
     pipeline's graphs since then."""
-    from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
     import torch
+    from exposure_tpu_torch import kernels
     eager = {'plan': 0, 'replay': 0}
     recorded = {'plan': 0, 'replay': 0}
     for stage in eager:
         def counted(*args, _fn=getattr(pipe, stage), _stage=stage, **kw):
-            before = apply_filter_chain_dynamic.launches
+            before = kernels.launch_counts()['dyn_chain']
             try:
                 return _fn(*args, **kw)
             finally:
-                n = apply_filter_chain_dynamic.launches - before
+                n = kernels.launch_counts()['dyn_chain'] - before
                 if torch.cuda.is_current_stream_capturing():
                     recorded[_stage] += n
                 else:
@@ -1463,8 +1389,7 @@ def _k1_by_stage(pipe):
         setattr(pipe, stage, counted)
 
     def replays():
-        return pipe.graph_report()['replays'] \
-            if hasattr(pipe, 'graph_report') else 0
+        return pipe.graph_report()['replays']
     last = [replays()]
 
     def read():
@@ -1477,11 +1402,77 @@ def _k1_by_stage(pipe):
     return read
 
 
-def phase_main_path(batches):
+# cuDNN's kernels that convert a tensor between NCHW and NHWC: no float32
+# plan runs one (``models/networks.py`` gives its convolutions NCHW)
+LAYOUT_CONVERSIONS = ('nhwcToNchw', 'nchwToNhwc')
+
+
+def layout_conversions(names):
+    """The kernel names among ``names`` that convert layouts
+    (``LAYOUT_CONVERSIONS``)."""
+    return sorted({n for n in names
+                   if any(c in n for c in LAYOUT_CONVERSIONS)})
+
+
+def _replay_kernels(pipe, batch):
+    """The names of the device kernels that one run of ``pipe`` on
+    ``batch`` (a replay of its captured graph) runs, under
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from exposure_tpu_torch.tools import device_work
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe(batch, SEED, 0, device_out=True)
+        torch.cuda.synchronize()
+    return {e.name for e in device_work(prof.events())[0]}
+
+
+def _main_path_counts(pipe, by_stage, counts, warm, batch):
+    """Fail unless the main path's counted run executed K1 ``test_steps``
+    times a batch on the proxy and once on the replay, the proxy resize
+    once a batch and no other chain kernel, from one graph captured by the
+    warm-up and replayed per batch; and unless one replay, profiled, runs
+    K1 and no layout conversion.  Returns the line's note on the graph."""
+    steps = pipe.cfg.test_steps
+    launches = counts['dyn_chain']
+    if by_stage != {'proxy': steps * MAIN_BATCHES, 'replay': MAIN_BATCHES} \
+            or launches != sum(by_stage.values()) or \
+            counts['switch_chain'] or counts['static_chain']:
+        fail('main path launched %s over %d batches (K1: %s by stage), '
+             'expected K1 %d times on the proxy and %d on the replay'
+             % (counts, MAIN_BATCHES, by_stage, steps * MAIN_BATCHES,
+                MAIN_BATCHES))
+    if counts['proxy_resize'] != MAIN_BATCHES:
+        fail('main path: the proxy resize kernel ran %d times over %d '
+             'batches, expected once a batch'
+             % (counts['proxy_resize'], MAIN_BATCHES))
+    rep = pipe.graph_report()
+    if rep['captures'] != 1 or rep['replays'] != MAIN_BATCHES + 1 or \
+            list(rep['launches_per_replay'].values()) != [
+                {'dyn_chain': steps + 1, 'proxy_resize': 1}]:
+        fail('main path: one graph captured and replayed per batch '
+             'expected, got %s' % rep)
+    names = _replay_kernels(pipe, batch)
+    converting = layout_conversions(names)
+    if converting or not any('dyn_chain_kernel' in n for n in names):
+        fail('main path: a profiled replay ran layout conversions %s (and '
+             'K1: %s) among %d kernels' % (
+                 converting, any('dyn_chain_kernel' in n for n in names),
+                 len(names)))
+    return ('; one CUDA graph (captured in %.3f s by the warm-up, its K1 '
+            'launches %d a replay) replayed per batch; a profiled replay '
+            'runs %d kernels, no layout conversion'
+            % (warm['capture_seconds'], steps + 1, len(names)))
+
+
+def phase_main_path(batches, counted=True):
     """The served path; returns K1's launches in it, ``{'proxy': n,
     'replay': n}`` (the plan's steps on the proxy, and the replay), img/s,
-    the outputs and the proxy resize's executions (one a batch; None for
-    a ``--serve`` checkout from before the kernel)."""
+    the outputs and the proxy resize's executions (one a batch).
+    ``counted=False`` (``--serve`` of another tree) checks no count: both
+    are None."""
     import torch
     from exposure_tpu_torch.core.serving import batch_generator
     from exposure_tpu_torch.ops.dyn_chain import (
@@ -1497,65 +1488,34 @@ def phase_main_path(batches):
 
     # the warm-up captures the batch's graph (and syncs), so that the
     # counted and timed runs below are replays
-    by_stage = _k1_by_stage(pipe)
+    by_stage = _k1_by_stage(pipe) if counted else None
     warm = pipe.warmup(batches[0], seed=SEED)
-    by_stage()
-    reset_counts()
-    outs = list(pipe.map_batches(batches, seed=SEED,
-                                 **_on_card(pipe.map_batches)))
+    if counted:
+        by_stage()
+        reset_counts()
+    outs = list(pipe.map_batches(batches, seed=SEED, device_out=True))
     torch.cuda.synchronize()
-    counts = read_counts()
-    launches = counts['dyn_chain']
-    by_stage = by_stage()
-    del pipe.plan, pipe.replay     # the timed runs below go unwrapped
-    steps = pipe.cfg.test_steps
-    if by_stage != {'proxy': steps * MAIN_BATCHES, 'replay': MAIN_BATCHES} \
-            or launches != sum(by_stage.values()) or \
-            counts['switch_chain'] or counts['static_chain']:
-        fail('main path launched %s over %d batches (K1: %s by stage), '
-             'expected K1 %d times on the proxy and %d on the replay'
-             % (counts, MAIN_BATCHES, by_stage, steps * MAIN_BATCHES,
-                MAIN_BATCHES))
-    resized = counts.get('proxy_resize')
-    if resized not in (None, MAIN_BATCHES):
-        fail('main path: the proxy resize kernel ran %d times over %d '
-             'batches, expected once a batch' % (resized, MAIN_BATCHES))
-    nchw = counts.get('extractor_nchw')
-    if nchw not in (None, 2 * steps * MAIN_BATCHES) or \
-            counts.get('extractor_channels_last'):
-        fail('main path: the float32 extractors ran %d forwards in NCHW '
-             'and %d channels-last over %d batches, expected %d in NCHW'
-             % (nchw, counts['extractor_channels_last'], MAIN_BATCHES,
-                2 * steps * MAIN_BATCHES))
-    graphs = ''
-    if getattr(pipe, 'graphs', False):
-        rep = pipe.graph_report()
-        expected = {'dyn_chain': steps + 1}
-        if resized is not None:
-            expected['proxy_resize'] = 1
-        if nchw is not None:
-            expected['extractor_nchw'] = 2 * steps
-        if rep['captures'] != 1 or rep['replays'] != MAIN_BATCHES + 1 or \
-                list(rep['launches_per_replay'].values()) != [expected]:
-            fail('main path: one graph captured and replayed per batch '
-                 'expected, got %s' % rep)
-        graphs = ('; one CUDA graph (captured in %.3f s by the warm-up, '
-                  'its K1 launches %d a replay) replayed per batch'
-                  % (warm['capture_seconds'], steps + 1))
+    resized = None
+    if counted:
+        counts = read_counts()
+        by_stage = by_stage()
+        del pipe.plan, pipe.replay     # the runs below go unwrapped
+        graphs = _main_path_counts(pipe, by_stage, counts, warm, batches[0])
+        resized = counts['proxy_resize']
+        say('main: K1 launches %d (%d per batch: %d on the proxy in the '
+            'plan, %d replay)%s; proxy resize executions %d'
+            % (counts['dyn_chain'], counts['dyn_chain'] // MAIN_BATCHES,
+               by_stage['proxy'] // MAIN_BATCHES,
+               by_stage['replay'] // MAIN_BATCHES, graphs, resized))
     for i, out in enumerate(outs):
         if out.shape != batches[i].shape or out.dtype != torch.uint8 or \
                 out.device.type != torch.device(DEVICE).type:
             fail('main path output %d: %s %s on %s' % (
                 i, tuple(out.shape), out.dtype, out.device))
     changed = float((outs[0] != batches[0]).float().mean())
-    say('main: %d batches of [%d, %d, %d, 3] u8 -> u8 on %s; K1 launches '
-        '%d (%d per batch: %d on the proxy in the plan, %d replay)%s; proxy '
-        'resize executions %s; extractor forwards in NCHW %s; %.3f of '
+    say('main: %d batches of [%d, %d, %d, 3] u8 -> u8 on %s; %.3f of '
         'output values differ from the input'
-        % (MAIN_BATCHES, BATCH, RES, RES, outs[0].device, launches,
-           launches // MAIN_BATCHES, by_stage['proxy'] // MAIN_BATCHES,
-           by_stage['replay'] // MAIN_BATCHES, graphs, resized, nchw,
-           changed))
+        % (MAIN_BATCHES, BATCH, RES, RES, outs[0].device, changed))
 
     # the plan of batch 0 again; its replay of 16 images against the plain
     # version on the same plan
@@ -1593,8 +1553,7 @@ def phase_main_path(batches):
                             BATCH, RES, RES,
                             1e3 * BATCH / img_s,
                             resize_ms, plan_ms, replay_ms))
-    if hasattr(pipe, 'release'):
-        pipe.release()
+    pipe.release()
     return by_stage, img_s, outs, resized
 
 
@@ -1606,9 +1565,9 @@ MODES = [
     ('auto_superset', dict(auto_superset=True, auto_record_batches=2)),
 ]
 # the kernel each mode must launch, and those it must not; every mode also
-# resizes each batch's proxy in one execution of the proxy resize kernel
-# (where the checkout has it), and once more for each graph the counted run
-# captures (a capture runs its body once eagerly first)
+# resizes each batch's proxy in one execution of the proxy resize kernel,
+# and once more for each graph the counted run captures (a capture runs its
+# body once eagerly first)
 MODE_KERNELS = {
     'dynamic_bank_plan': ('dyn_chain', ('switch_chain', 'static_chain')),
     'switch': ('switch_chain', ('dyn_chain', 'static_chain')),
@@ -1618,21 +1577,16 @@ MODE_KERNELS = {
 }
 
 
-def _captures(pipe):
-    """The graphs a pipeline has captured so far (0 without graphs)."""
-    if not getattr(pipe, 'graphs', False):
-        return 0
-    return pipe.graph_report()['captures']
-
-
-def phase_modes(batches, digests=None):
+def phase_modes(batches, digests=None, counted=True):
     """Every other serving mode on the trained artifact at full width;
     returns the launches per kernel summed over the modes' runs, and
     ``(mode, img/s)`` rows.  ``digests``: a dict that gets each mode's
-    output digest (``--serve``, whose trees' modes are compared)."""
+    output digest (``--serve``, whose trees' modes are compared);
+    ``counted=False`` (``--serve`` of another tree) checks no count."""
+    import collections
     import torch
     dev = torch.device(DEVICE)
-    totals = {name: 0 for name in read_counts()}
+    totals = collections.Counter()
     ref = None
     rows = []
     for mode, kw in MODES:
@@ -1649,23 +1603,23 @@ def phase_modes(batches, digests=None):
         elif not pipe.grouped:
             # captures the batch's graph: the runs below are replays
             pipe.warmup(batches[0], seed=SEED)
-        reset_counts()
+        if counted:
+            reset_counts()
         if pipe.grouped:
             pipe._runner.launches.clear()
-        captured = _captures(pipe)
+        captured = pipe.graph_report()['captures']
         outs = list(pipe.map_batches(batches, seed=SEED,
-                                     **_on_card(pipe.map_batches)))
+                                     device_out=True))
         torch.cuda.synchronize()
-        counts = read_counts()
-        captured = _captures(pipe) - captured
+        counts = read_counts() if counted else collections.Counter()
+        captured = pipe.graph_report()['captures'] - captured
         must, must_not = MODE_KERNELS[mode]
-        resizes = MAIN_BATCHES + captured
-        if counts[must] == 0 or any(counts[k] for k in must_not) or \
-                counts.get('proxy_resize', resizes) != resizes:
+        if counted and (counts[must] == 0 or
+                        any(counts[k] for k in must_not) or
+                        counts['proxy_resize'] != MAIN_BATCHES + captured):
             fail('mode %s launched %s over %d batches (%d graphs captured)'
                  % (mode, counts, MAIN_BATCHES, captured))
-        for name in totals:
-            totals[name] += counts[name]
+        totals.update(counts)
         if ref is None:
             ref = outs
         diff = [(o.int() - r.int()).abs() for o, r in zip(outs, ref)]
@@ -1698,8 +1652,7 @@ def phase_modes(batches, digests=None):
         rows.append((mode, img_s))
         if digests is not None:
             digests[mode] = _digest(outs)
-        if hasattr(pipe, 'release'):
-            pipe.release()
+        pipe.release()
         del outs, pipe
     return totals, rows
 
@@ -1912,12 +1865,13 @@ def phase_serving_graph(batches):
     at this size; ``load_policy`` under a live graph
     (``_swap_under_graph``).  Returns the numbers and the kernel executions
     of the counted graph runs."""
+    import collections
     import torch
     from exposure_tpu_torch.tools import profile_calls
     from exposure_tpu_torch.utils.ops import deterministic_algorithms
     dev = torch.device(DEVICE)
     t_phase = time.perf_counter()
-    numbers, launches = {}, {name: 0 for name in read_counts()}
+    numbers, launches = {}, collections.Counter()
     numbers['tf32_flags_differing'] = _flags_alike(batches, dev)
     for mode, kw in GRAPH_MODES:
         pipes = {'graph': _pipeline(dev, graphs=True, **kw),
@@ -1943,8 +1897,7 @@ def phase_serving_graph(batches):
                'executions_per_batch': {k: v / MAIN_BATCHES
                                         for k, v in counts.items() if v}}
         del want, control, got
-        for name in launches:
-            launches[name] += counts[name]
+        launches.update(counts)
         if row['differing'] or row['control_differing'] or \
                 rep['captures'] != 1:
             fail('serving graph: %s against the per-call path: %s'
@@ -2022,15 +1975,6 @@ BENCH_METRIC = '512px_images_per_sec_5step_inference'
 BENCH_DRIVER_LINES = tuple(BENCH_METRIC + tag for tag in (
     '_u8io', '_u8io_trained_grouped', '_u8io_bf16_trained_stream',
     '_u8io_bf16_trained_stream_superset', '_u8io_bf16_trained_dyn'))
-# the chain kernels' wrappers a script process counts: (name, module, fn)
-CHAIN_WRAPPERS = (
-    ('dyn_chain', 'exposure_tpu_torch.ops.dyn_chain',
-     'apply_filter_chain_dynamic'),
-    ('switch_chain', 'exposure_tpu_torch.ops.switch_chain',
-     'apply_filter_chain_switch'),
-    ('static_chain', 'exposure_tpu_torch.ops.static_chain',
-     'apply_filter_chain_static'))
-
 # runs ``python3 <script> <args>`` in this interpreter, then prints the
 # chain kernels' executions there on its last line of stderr
 _SCRIPT_SHIM = '''
@@ -2040,17 +1984,12 @@ sys.argv = sys.argv[1:]
 try:
     runpy.run_path(script, run_name='__main__')
 finally:
-    counts = {}
-    for name, module, fn in %r:
-        m = sys.modules.get(module)
-        counts[name] = getattr(m, fn).launches if m else 0
-    # a graph's capture records launches, its replays run them
-    graphs = sys.modules.get('exposure_tpu_torch.core.serving_graph')
-    if graphs:
-        counts = graphs.executions(counts)
-    print('# kernel_executions ' + json.dumps(counts), file=sys.stderr,
-          flush=True)
-''' % (CHAIN_WRAPPERS,)
+    from exposure_tpu_torch import kernels
+    from exposure_tpu_torch.core.serving_graph import executions
+    counts = executions(kernels.launch_counts())
+    print('# kernel_executions ' + json.dumps(
+        {name: counts[name] for name in %r}), file=sys.stderr, flush=True)
+''' % (CHAIN_LIBS,)
 
 
 BENCH_STREAM_PACK_GB = 1.0
@@ -2126,7 +2065,7 @@ def phase_bench_scripts(card, packs, packs_proc):
     import torch
     torch.cuda.empty_cache()    # room for the scripts' processes
     t_phase = time.perf_counter()
-    runs, executions = {}, {name: 0 for name, _, _ in CHAIN_WRAPPERS}
+    runs, executions = {}, {name: 0 for name in CHAIN_LIBS}
 
     def script(tag, args, names):
         lines, counts, seconds, notes = _script_process(args)
@@ -2202,12 +2141,9 @@ sys.argv = [tool] + sys.argv[2:]
 try:
     runpy.run_module(tool, run_name='__main__', alter_sys=True)
 finally:
-    k1 = sys.modules.get('exposure_tpu_torch.ops.dyn_chain')
-    n = k1.apply_filter_chain_dynamic.launches if k1 else 0
-    # a graph's capture records launches, its replays run them
-    graphs = sys.modules.get('exposure_tpu_torch.core.serving_graph')
-    if graphs:
-        n = graphs.executions({'dyn_chain': n})['dyn_chain']
+    from exposure_tpu_torch import kernels
+    from exposure_tpu_torch.core.serving_graph import executions
+    n = executions(kernels.launch_counts())['dyn_chain']
     print('# k1_launches %d' % n, file=sys.stderr, flush=True)
 '''
 
@@ -3005,11 +2941,8 @@ def _eval_k1_cases():
             active = torch.ones((k, b))
             active[2:, b - 1] = 0.0     # the last row stops after step 2
             kw['active_steps'] = active.to(dev)
-        before = apply_filter_chain_dynamic.launches
-        got = apply_filter_chain_dynamic(img, ids, params, filters, **kw)
-        torch.cuda.synchronize()
-        if apply_filter_chain_dynamic.launches != before + 1:
-            fail('K1 %s: the wrapper did not launch the kernel' % name)
+        got = _launch_checked('dyn_chain', apply_filter_chain_dynamic, img,
+                              ids, params, filters, **kw)
         want = apply_filter_chain_dynamic_reference(img, ids, params,
                                                     filters, **kw)
         err, outliers = _compare(got, want)
@@ -4947,8 +4880,9 @@ def main():
                 packs_proc.wait()
     say('total %.1f s' % (time.perf_counter() - t_start))
     shape = '[%d, %d, %d, 3] u8, K=5' % (BATCH, RES, RES)
-    for name in totals:     # the paths: main, modes, probe tools, tools
-        totals[name] += probe_counts[name] + tool_counts[name]
+    # the paths: main, modes, probe tools, tools
+    totals.update(probe_counts)
+    totals.update(tool_counts)
 
     def ptxas(lib, kernel):
         """The worst registers, stack frame and spills over the variants."""
@@ -5317,7 +5251,7 @@ def serve(tree, work, tag, first, kernels_only):
     rng = np.random.default_rng(SEED)
     batches = [torch.from_numpy(_images(rng, BATCH, RES, RES)).to(DEVICE)
                for _ in range(MAIN_BATCHES)]
-    _, img_s, outs, _ = phase_main_path(batches)
+    _, img_s, outs, _ = phase_main_path(batches, counted=False)
     main_digest = _digest(outs)
     if first:
         np.save(os.path.join(work, tag + '_main.npy'),
@@ -5337,7 +5271,7 @@ def serve(tree, work, tag, first, kernels_only):
         np.save(os.path.join(work, tag + '_replay.npy'), replay.cpu().numpy())
     del replay, pipe
     mode_digests = {}
-    _, rows = phase_modes(batches, mode_digests)
+    _, rows = phase_modes(batches, mode_digests, counted=False)
     print(json.dumps(dict(result, main_img_s=img_s, modes=dict(rows),
                           main_digest=main_digest,
                           replay_digest=replay_digest,

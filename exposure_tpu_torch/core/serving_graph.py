@@ -19,12 +19,13 @@ draw what the eager body draws from a generator seeded alike
 nothing falls back to the eager body.  On the CPU the same static-buffer
 body runs eagerly, and its outputs are copied into the first run's.
 
-Kernel launches under a graph: a wrapper counts a launch where it records
-one in a capture, which runs nothing, and a replay runs every recorded
-launch again without calling the wrapper.  Each graph keeps the launches its
-capture recorded (``launches``), and the module adds them up in ``RECORDED``
-and, once a replay, in ``REPLAYED``: a kernel's executions are its wrapper's
-count minus ``RECORDED`` plus ``REPLAYED`` (``executions``).
+Kernel launches under a graph: ``kernels.launch`` counts a launch where a
+wrapper records one in a capture, which runs nothing, and a replay runs
+every recorded launch again without calling the wrapper.  Each graph keeps
+the launches its capture recorded (``launches``), and the module adds them
+up in ``RECORDED`` and, once a replay, in ``REPLAYED``: a kernel's
+executions are its launch count (``kernels.launch_counts``) minus
+``RECORDED`` plus ``REPLAYED`` (``executions``).
 
 With tracing on (``utils/trace.py``) a run opens the host ranges
 ``serve.upload`` (the input's copy), ``serve.capture`` and ``serve.launch``
@@ -37,39 +38,23 @@ import time
 
 import torch
 
-from exposure_tpu_torch.models.networks import FeatureExtractor
-from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
-from exposure_tpu_torch.ops.proxy_resize import proxy_resize
-from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
-from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
+from exposure_tpu_torch import kernels
 from exposure_tpu_torch.utils import trace
 
 # kernel launches the captures recorded, and those the replays ran, by the
-# wrapper's name (``switch_chain_bf16``: the bf16 part of ``switch_chain``)
+# launch counter's key (``switch_chain_bf16``: the bf16 part of
+# ``switch_chain``)
 RECORDED = collections.Counter()
 REPLAYED = collections.Counter()
 
 
-def wrapper_counts():
-    """The serving kernels' wrapper counts, by name: the chain kernels, the
-    proxy resize, and the policy's feature extractors by the layout their
-    convolutions ran in (``extractor_nchw``, ``extractor_channels_last``)."""
-    return {'dyn_chain': apply_filter_chain_dynamic.launches,
-            'switch_chain': apply_filter_chain_switch.launches,
-            'switch_chain_bf16': apply_filter_chain_switch.launches_bf16,
-            'static_chain': apply_filter_chain_static.launches,
-            'proxy_resize': proxy_resize.launches,
-            'extractor_nchw': FeatureExtractor.forwards['nchw'],
-            'extractor_channels_last':
-                FeatureExtractor.forwards['channels_last']}
-
-
 def executions(counts):
-    """``counts`` (wrapper counts by name) as the kernel executions they
-    stand for: less the launches captures recorded, plus those replays
+    """``counts`` (``kernels.launch_counts()``) as the kernel executions
+    they stand for: less the launches captures recorded, plus those replays
     ran."""
-    return {name: n - RECORDED[name] + REPLAYED[name]
-            for name, n in counts.items()}
+    return collections.Counter({
+        name: counts.get(name, 0) - RECORDED[name] + REPLAYED[name]
+        for name in counts.keys() | RECORDED.keys() | REPLAYED.keys()})
 
 
 def reset_counts():
@@ -116,13 +101,11 @@ class BatchGraph:
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        before = wrapper_counts()
+        before = kernels.launch_counts()
         with torch.cuda.graph(graph, stream=side,
                               capture_error_mode='thread_local'):
             outputs = self.body(self.input, self.generator)
-        after = wrapper_counts()
-        self.launches = {k: after[k] - before[k] for k in after
-                         if after[k] != before[k]}
+        self.launches = dict(kernels.launch_counts() - before)
         RECORDED.update(self.launches)
         self.graph, self.outputs = graph, outputs
         self.captures += 1

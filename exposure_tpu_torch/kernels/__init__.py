@@ -5,17 +5,22 @@ Each kernel source is compiled with ``nvcc`` for Hopper (``sm_90a``) into
 a shared library with a plain C interface, at first use, under
 ``exposure_tpu_torch/build/`` (listed in ``.gitignore``), and loaded with
 ctypes.  Every pointer and the CUDA stream are passed as ``c_void_p``; a
-launcher returns ``cudaGetLastError()`` and the Python wrapper raises when
-it is not 0.  A library is named by a hash of its source, of every
-header it includes from the source's directory (``#include "..."``,
-followed through headers) and of the compiler flags, so an edited source,
-header or flag builds anew; flags that ask for the host's own instruction
-set (``-march=native``) hash the host's CPU too.  A build writes a file of
-its own and renames it into place, so processes that build one library at
-once all end with the same file.  Nothing here runs at import time: the
-CPU tests import every module of the package.
+launcher returns ``cudaGetLastError()``.  ``launch`` is the one place that
+calls a launcher: it passes the current stream, raises with the library's
+error string when the code is not 0 (``check``) and counts the launch
+under the keys its caller names (``launch_counts``; a CPU call runs a
+plain version and launches nothing, so it counts nothing).  A library is
+named by a hash of its source, of every header it includes from the
+source's directory (``#include "..."``, followed through headers) and of
+the compiler flags, so an edited source, header or flag builds anew; flags
+that ask for the host's own instruction set (``-march=native``) hash the
+host's CPU too.  A build writes a file of its own and renames it into
+place, so processes that build one library at once all end with the same
+file.  Nothing here runs at import time: the CPU tests import every module
+of the package.
 """
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -36,12 +41,15 @@ _LOCK = threading.Lock()
 _NAME_LOCKS = {}
 _LIBRARIES = {}
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+# kernel launches by the keys their callers name
+_LAUNCHES = collections.Counter()
 
 
 class KernelLibrary:
     """A loaded kernel library with what its build reported."""
 
-    def __init__(self, lib, path, build_seconds, build_log):
+    def __init__(self, name, lib, path, build_seconds, build_log):
+        self.name = name    # its symbols' prefix: <name>_error_string
         self.lib = lib
         self.path = path
         self.build_seconds = build_seconds  # 0.0 when the build was cached
@@ -136,7 +144,7 @@ def build(name, bind, src=None, compiler=_nvcc, flags=NVCC_FLAGS):
                 raise RuntimeError('%s failed on %s:\n%s'
                                    % (os.path.basename(exe), src, log))
             os.replace(tmp, path)
-        lib = KernelLibrary(ctypes.CDLL(path), path, seconds, log)
+        lib = KernelLibrary(name, ctypes.CDLL(path), path, seconds, log)
         bind(lib.lib)
         _LIBRARIES[name] = lib
         return lib
@@ -235,19 +243,9 @@ def dyn_chain_kernel():
     return build('dyn_chain', _bind_dyn_chain)
 
 
-def dyn_chain_library():
-    """The bound ``dyn_chain`` library (built on first use)."""
-    return dyn_chain_kernel().lib
-
-
 def switch_chain_kernel():
     """The ``switch_chain`` library with what its build reported."""
     return build('switch_chain', _bind_switch_chain)
-
-
-def switch_chain_library():
-    """The bound ``switch_chain`` library (built on first use)."""
-    return switch_chain_kernel().lib
 
 
 def static_chain_kernel():
@@ -255,19 +253,9 @@ def static_chain_kernel():
     return build('static_chain', _bind_static_chain)
 
 
-def static_chain_library():
-    """The bound ``static_chain`` library (built on first use)."""
-    return static_chain_kernel().lib
-
-
 def probes_kernel():
     """The ``probes`` library (K4a-c) with what its build reported."""
     return build('probes', _bind_probes)
-
-
-def probes_library():
-    """The bound ``probes`` library (built on first use)."""
-    return probes_kernel().lib
 
 
 def trace_stamp_kernel():
@@ -276,21 +264,49 @@ def trace_stamp_kernel():
     return build('trace_stamp', _bind_trace_stamp)
 
 
-def trace_stamp_library():
-    """The bound ``trace_stamp`` library (built on first use: the first
-    region on a card while tracing is on)."""
-    return trace_stamp_kernel().lib
-
-
 def proxy_resize_kernel():
     """The ``proxy_resize`` library (``ops/proxy_resize.py``) with what its
     build reported."""
     return build('proxy_resize', _bind_proxy_resize)
 
 
-def proxy_resize_library():
-    """The bound ``proxy_resize`` library (built on first use)."""
-    return proxy_resize_kernel().lib
+def kernel_stream(device):
+    """The handle of ``device``'s current CUDA stream, as a launcher takes
+    it."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(library, err, entry):
+    """Raise ``RuntimeError`` with ``library``'s error string unless the
+    code ``err`` that its entry point ``entry`` returned is 0."""
+    if err != 0:
+        text = getattr(library.lib, library.name + '_error_string')(err)
+        raise RuntimeError('%s failed: %s' % (entry, text.decode()))
+
+
+def launch(library, name, device, *args, count=()):
+    """Call ``library``'s launcher ``<name>_launch(*args, stream)`` on
+    ``device``'s current stream, raise if it returns an error, then add 1
+    to each of the launch counter's keys ``count``."""
+    import torch
+    with torch.cuda.device(device):
+        err = getattr(library.lib, name + '_launch')(*args,
+                                                     kernel_stream(device))
+    check(library, err, name + '_launch')
+    _LAUNCHES.update(count)
+
+
+def launch_counts():
+    """A copy of the launch counter: launches by the keys ``launch`` was
+    given (``dyn_chain``, ``switch_chain`` and its bf16 part
+    ``switch_chain_bf16``, ``static_chain``, ``proxy_resize``,
+    ``mono_probe``, ``fastmath_probe``, ``bf16_probe``)."""
+    return collections.Counter(_LAUNCHES)
+
+
+def reset_launch_counts():
+    _LAUNCHES.clear()
 
 
 def build_all():

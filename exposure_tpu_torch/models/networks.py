@@ -33,7 +33,6 @@ kernels (``nn.initializers.glorot_uniform``, the reference's
 ``xavier_initializer``) and zero biases; torch's own defaults differ.
 """
 
-import collections
 import math
 
 import torch
@@ -90,10 +89,6 @@ class _CentredNCHW(torch.autograd.Function):
 class FeatureExtractor(nn.Module):
     """Strided-conv feature pyramid -> flat feature vector with dropout."""
 
-    # forwards by the layout their convolutions ran in, ``nchw`` or
-    # ``channels_last`` (``core/serving_graph.py::wrapper_counts``)
-    forwards = collections.Counter()
-
     def __init__(self, in_channels, output_dim, base_channels=32,
                  dropout_keep_prob=0.5, input_size=64):
         super().__init__()
@@ -129,8 +124,6 @@ class FeatureExtractor(nn.Module):
             raise ValueError('expected %dx%d input, got %dx%d'
                              % (self.input_size, self.input_size,
                                 x.shape[2], x.shape[3]))
-        FeatureExtractor.forwards[
-            'channels_last' if _channels_last(x.dtype) else 'nchw'] += 1
         for conv in self.convs:
             if x.shape[-1] % 2 or x.shape[-2] % 2:
                 raise ValueError('SAME padding equals padding=1 only at '

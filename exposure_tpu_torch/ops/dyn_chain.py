@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from exposure_tpu_torch import kernels
 from exposure_tpu_torch.ops import fastmath as fm
 from exposure_tpu_torch.ops.filters import max_filter_parameters
 
@@ -85,7 +86,7 @@ def branch_ops(name, fast, steps):
         'ExposureFilter': 3,                      # 3 mul
         'GammaFilter': 12 if fast else 6,         # max, log2f, mul, exp2f
         'ImprovedWhiteBalanceFilter': 3,          # 3 mul
-        'SaturationPlusFilter': 49 if fast else 48,   # HSV round trip
+        'SaturationPlusFilter': 46 if fast else 45,   # HSV round trip
         'ToneFilter': curve,
         'ContrastFilter': 32 if fast else 25,     # lum, half-cos, divide
         'WNBFilter': 14,                          # lum, 3 x (sub, FMA)
@@ -511,10 +512,6 @@ def kernel_scalars(filters, h, w):
             shorter, (shorter - h) / 2.0, (shorter - w) / 2.0)
 
 
-def kernel_stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def apply_filter_chain_dynamic_reference(img, filter_ids, packed_params,
                                          filters, active_steps=None,
                                          mask_params=None, fast_math=False):
@@ -579,21 +576,11 @@ def apply_filter_chain_dynamic(img, filter_ids, packed_params, filters,
         raise ValueError('the kernel reads 6 mask parameters per step')
     check_plan_smem(num_steps, filters)
     out = torch.empty_like(img)
-    from exposure_tpu_torch.kernels import dyn_chain_library
-    lib = dyn_chain_library()
-    with torch.cuda.device(img.device):
-        err = lib.dyn_chain_launch(
-            img.data_ptr(), out.data_ptr(), ids.data_ptr(), params.data_ptr(),
-            codes, len(filters), batch, h, w, num_steps, width,
-            packed_params.shape[-1], int(img.dtype == torch.uint8),
-            int(bool(fast_math)), int(masking),
-            *kernel_scalars(filters, h, w), kernel_stream(img.device))
-    if err != 0:
-        raise RuntimeError('dyn_chain kernel launch failed: %s'
-                           % lib.dyn_chain_error_string(err).decode())
-    apply_filter_chain_dynamic.launches += 1
+    kernels.launch(
+        kernels.dyn_chain_kernel(), 'dyn_chain', img.device,
+        img.data_ptr(), out.data_ptr(), ids.data_ptr(), params.data_ptr(),
+        codes, len(filters), batch, h, w, num_steps, width,
+        packed_params.shape[-1], int(img.dtype == torch.uint8),
+        int(bool(fast_math)), int(masking), *kernel_scalars(filters, h, w),
+        count=('dyn_chain',))
     return out
-
-
-# Kernel launches by apply_filter_chain_dynamic (CPU calls do not count).
-apply_filter_chain_dynamic.launches = 0

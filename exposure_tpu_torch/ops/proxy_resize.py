@@ -26,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from exposure_tpu_torch.ops.dyn_chain import kernel_stream
+from exposure_tpu_torch import kernels
 
 MAX_THREADS = 512       # kMaxThreads in the kernel: a block's threads
 SLICE_CHUNKS = 512      # 16-byte chunks of a row a column slice aims at
@@ -177,7 +177,7 @@ def _upload(arrays, device):
     return out
 
 
-def _device_tables(lib, batch, h, w, size, dtype, device):
+def _device_tables(library, batch, h, w, size, dtype, device):
     """The tables of one call on ``device``: the shape's column plan and
     row taps, built once a shape, and the row schedule of the batch's band
     height, built once a band.  A device's first shape lets the kernel
@@ -186,11 +186,8 @@ def _device_tables(lib, batch, h, w, size, dtype, device):
     shape = _SHAPES.get(key)
     if shape is None:
         if device not in _PREPARED:
-            err = lib.proxy_resize_prepare()
-            if err != 0:
-                raise RuntimeError(
-                    'proxy_resize_prepare failed: %s'
-                    % lib.proxy_resize_error_string(err).decode())
+            kernels.check(library, library.lib.proxy_resize_prepare(),
+                          'proxy_resize_prepare')
             _PREPARED.add(device)
         plan = column_plan(w, size, dtype.itemsize)
         shape = dict(plan, **_upload(
@@ -236,26 +233,17 @@ def proxy_resize(images, size):
         return out
     vec = (3 * w * images.element_size()) % 16 == 0 and \
         images.data_ptr() % 16 == 0
-    from exposure_tpu_torch.kernels import proxy_resize_library
-    lib = proxy_resize_library()
+    library = kernels.proxy_resize_kernel()
     with torch.cuda.device(images.device):
-        t, band, rows = _device_tables(lib, batch, h, w, size,
+        t, band, rows = _device_tables(library, batch, h, w, size,
                                        images.dtype, images.device)
-        err = lib.proxy_resize_launch(
-            images.data_ptr(), out.data_ptr(), rows['steps'].data_ptr(),
-            rows['band_off'].data_ptr(), t['slices'].data_ptr(),
-            t['col_first'].data_ptr(), t['col_count'].data_ptr(),
-            t['col_w'].data_ptr(), t['col_w'].shape[1], batch, h, w, size,
-            band, len(rows['band_off']) - 1, len(t['slices']),
-            t['threads'], t['buf_floats'],
-            int(images.dtype == torch.uint8), int(vec),
-            kernel_stream(images.device))
-    if err != 0:
-        raise RuntimeError('proxy_resize kernel launch failed: %s'
-                           % lib.proxy_resize_error_string(err).decode())
-    proxy_resize.launches += 1
+    kernels.launch(
+        library, 'proxy_resize', images.device,
+        images.data_ptr(), out.data_ptr(), rows['steps'].data_ptr(),
+        rows['band_off'].data_ptr(), t['slices'].data_ptr(),
+        t['col_first'].data_ptr(), t['col_count'].data_ptr(),
+        t['col_w'].data_ptr(), t['col_w'].shape[1], batch, h, w, size,
+        band, len(rows['band_off']) - 1, len(t['slices']),
+        t['threads'], t['buf_floats'],
+        int(images.dtype == torch.uint8), int(vec), count=('proxy_resize',))
     return out
-
-
-# Kernel launches by proxy_resize (CPU calls do not count).
-proxy_resize.launches = 0

@@ -15,6 +15,7 @@ import ctypes
 
 import torch
 
+from exposure_tpu_torch import kernels
 from exposure_tpu_torch.ops.dyn_chain import (
     BRANCH_CODES,
     IDENTITY_CODE,
@@ -24,7 +25,6 @@ from exposure_tpu_torch.ops.dyn_chain import (
     check_rows,
     from_planes,
     kernel_scalars,
-    kernel_stream,
     mask_grid,
     planar_branches,
     replay_slots,
@@ -134,25 +134,16 @@ def apply_filter_chain_static(img, signature, packed_params, filters,
         else None
     if out is None:
         out = torch.empty_like(img)
-    from exposure_tpu_torch.kernels import static_chain_library
-    lib = static_chain_library()
+    library = kernels.static_chain_kernel()
     if n_active == 0:   # nothing to replay: no launch
         return out
-    with torch.cuda.device(img.device):
-        err = lib.static_chain_launch(
-            img.data_ptr(), out.data_ptr(), params.data_ptr(),
-            mask.data_ptr() if masking else None,
-            rows_i32.data_ptr() if rows_i32 is not None else None,
-            (ctypes.c_int * num_steps)(*codes), n, n_active, batch, h, w,
-            num_steps, pp, m, int(img.dtype == torch.uint8),
-            int(bool(fast_math)), int(masking),
-            *kernel_scalars(filters, h, w), kernel_stream(img.device))
-    if err != 0:
-        raise RuntimeError('static_chain kernel launch failed: %s'
-                           % lib.static_chain_error_string(err).decode())
-    apply_filter_chain_static.launches += 1
+    kernels.launch(
+        library, 'static_chain', img.device,
+        img.data_ptr(), out.data_ptr(), params.data_ptr(),
+        mask.data_ptr() if masking else None,
+        rows_i32.data_ptr() if rows_i32 is not None else None,
+        (ctypes.c_int * num_steps)(*codes), n, n_active, batch, h, w,
+        num_steps, pp, m, int(img.dtype == torch.uint8),
+        int(bool(fast_math)), int(masking), *kernel_scalars(filters, h, w),
+        count=('static_chain',))
     return out
-
-
-# Kernel launches by apply_filter_chain_static (CPU calls do not count).
-apply_filter_chain_static.launches = 0

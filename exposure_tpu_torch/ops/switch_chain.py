@@ -13,6 +13,7 @@ batch in place.
 
 import torch
 
+from exposure_tpu_torch import kernels
 from exposure_tpu_torch.ops.dyn_chain import (
     branch_codes,
     check_inputs,
@@ -21,7 +22,6 @@ from exposure_tpu_torch.ops.dyn_chain import (
     fold_active,
     from_planes,
     kernel_scalars,
-    kernel_stream,
     mask_grid,
     planar_branches,
     replay_slots,
@@ -139,29 +139,17 @@ def apply_filter_chain_switch(img, filter_ids, packed_params, filters,
     if out is None:
         out = torch.empty_like(img)
     h, w = img.shape[1], img.shape[2]
-    from exposure_tpu_torch.kernels import switch_chain_library
-    lib = switch_chain_library()
+    library = kernels.switch_chain_kernel()
     if n_active == 0:   # nothing to replay: no launch
         return out
-    with torch.cuda.device(img.device):
-        err = lib.switch_chain_launch(
-            img.data_ptr(), out.data_ptr(), ids.data_ptr(),
-            params.data_ptr(), mask.data_ptr() if masking else None,
-            rows_i32.data_ptr() if rows_i32 is not None else None,
-            codes, len(filters), n, n_active, batch, h, w, num_steps, pp, m,
-            int(img.dtype == torch.uint8),
-            int(bf16), int(bool(fast_math)),
-            int(masking), *kernel_scalars(filters, h, w),
-            kernel_stream(img.device))
-    if err != 0:
-        raise RuntimeError('switch_chain kernel launch failed: %s'
-                           % lib.switch_chain_error_string(err).decode())
-    apply_filter_chain_switch.launches += 1
-    apply_filter_chain_switch.launches_bf16 += int(bf16)
+    kernels.launch(
+        library, 'switch_chain', img.device,
+        img.data_ptr(), out.data_ptr(), ids.data_ptr(), params.data_ptr(),
+        mask.data_ptr() if masking else None,
+        rows_i32.data_ptr() if rows_i32 is not None else None,
+        codes, len(filters), n, n_active, batch, h, w, num_steps, pp, m,
+        int(img.dtype == torch.uint8), int(bf16), int(bool(fast_math)),
+        int(masking), *kernel_scalars(filters, h, w),
+        count=('switch_chain', 'switch_chain_bf16') if bf16
+        else ('switch_chain',))
     return out
-
-
-# Kernel launches by apply_filter_chain_switch (CPU calls do not count), and
-# those among them in bfloat16.
-apply_filter_chain_switch.launches = 0
-apply_filter_chain_switch.launches_bf16 = 0

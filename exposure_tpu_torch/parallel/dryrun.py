@@ -34,9 +34,10 @@ with the JAX dry run's tiny ``test`` shapes (batch 2n, pool 4n):
    them to a one-process ``RetouchPipeline`` run on each rank's shard
    with that rank's generator (1 LSB).
 
-The kernel launches of the serving part are counted on each rank (on the
-CPU the wrappers run their plain versions and count none).  It prints the
-JAX dry run's summary line and returns a dict of what it found.
+The chain kernels' launches in the serving part are counted on each rank
+(``kernels.launch_counts``; on the CPU the wrappers run their plain
+versions and count none).  It prints the JAX dry run's summary line and
+returns a dict of what it found.
 
     python -m exposure_tpu_torch.parallel.dryrun 2 --device cpu
 """
@@ -50,6 +51,7 @@ import tempfile
 import numpy as np
 import torch
 
+from exposure_tpu_torch import kernels
 from exposure_tpu_torch.parallel.launch import spawn_ranks
 from exposure_tpu_torch.parallel.mesh import digest, pad_to_devices
 
@@ -57,6 +59,7 @@ LSB_BOUND = 2           # the JAX dry run's bound against the plain chain
 ARTIFACT_CONFIG = 'synthetic_explore'   # the config of the in-repo artifact
 PIPELINE_LSB_BOUND = 1  # the gathered output against one process's
 SERVE_SEED = 2
+CHAIN_KERNELS = ('dyn_chain', 'static_chain', 'switch_chain')
 
 
 def _finite(metrics, what):
@@ -305,14 +308,9 @@ def _serve_part(mesh, out, settings, trained):
         batch_generator,
         proxy_resize,
     )
-    from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
     from exposure_tpu_torch.ops.filters import build_filters
     from exposure_tpu_torch.ops.grouped_chain import GroupedChainRunner
-    from exposure_tpu_torch.ops.static_chain import apply_filter_chain_static
     from exposure_tpu_torch.ops.switch_chain import apply_filter_chain_switch
-    wrappers = {'dyn_chain': apply_filter_chain_dynamic,
-                'switch_chain': apply_filter_chain_switch,
-                'static_chain': apply_filter_chain_static}
     n, dev, rank = mesh.world, mesh.device, mesh.rank
     if settings.get('artifact'):
         base = RetouchPipeline.from_artifact(
@@ -342,8 +340,7 @@ def _serve_part(mesh, out, settings, trained):
 
     def mask_of(m):
         return m if masking else None
-    for fn in wrappers.values():
-        fn.launches = 0
+    kernels.reset_launch_counts()
     lsb = {}
     with torch.no_grad():
         # the bank rollout and K2
@@ -408,7 +405,8 @@ def _serve_part(mesh, out, settings, trained):
             rep['frozen_slots'] is not None and rep['auto']
         if dev.type == 'cuda':
             torch.cuda.synchronize(dev)
-        launches = {name: fn.launches for name, fn in wrappers.items()}
+        counted = kernels.launch_counts()
+        launches = {name: counted[name] for name in CHAIN_KERNELS}
 
         # rank 0: the gathered dynamic output against one process's
         # pipeline on each rank's shard with that rank's generator

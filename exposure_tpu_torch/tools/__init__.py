@@ -256,12 +256,12 @@ def device_name(device):
     return 'cpu'
 
 
-def launch_probe(launcher, img, *args):
-    """Run the probes library's ``launcher`` (``mono_probe_launch``,
-    ``fastmath_probe_launch`` or ``bf16_probe_launch``) over every byte of
-    ``img``, a contiguous, 16-byte aligned u8 CUDA tensor, into a new tensor
-    of its shape; ``args`` follow the byte count.  Raises when the kernel
-    cannot be launched."""
+def launch_probe(name, img, *args):
+    """Run the probes library's kernel ``name`` (``mono_probe``,
+    ``fastmath_probe`` or ``bf16_probe``, the key it is counted under) over
+    every byte of ``img``, a contiguous, 16-byte aligned u8 CUDA tensor,
+    into a new tensor of its shape; ``args`` follow the byte count.  Raises
+    when the kernel cannot be launched."""
     if img.device.type != 'cuda':
         raise ValueError('no probe kernel for device %s' % img.device)
     if img.dtype != torch.uint8:
@@ -272,15 +272,9 @@ def launch_probe(launcher, img, *args):
     if img.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError('the probes load 16 bytes at a time: img must be '
                          '16-byte aligned')
-    from exposure_tpu_torch.kernels import probes_library
-    lib = probes_library()
-    with torch.cuda.device(img.device):
-        err = getattr(lib, launcher)(
-            img.data_ptr(), out.data_ptr(), img.numel(), *args,
-            torch.cuda.current_stream(img.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError('%s failed: %s' % (
-            launcher, lib.probes_error_string(err).decode()))
+    from exposure_tpu_torch import kernels
+    kernels.launch(kernels.probes_kernel(), name, img.device, img.data_ptr(),
+                   out.data_ptr(), img.numel(), *args, count=(name,))
     return out
 
 

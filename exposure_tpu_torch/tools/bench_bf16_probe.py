@@ -93,14 +93,8 @@ def run_probe(img, params, op, style, steps):
     if img.device.type == 'cpu':
         return run_probe_reference(img, params, op, style, steps)
     p0, p1 = (float(v) for v in torch.as_tensor(params, dtype=torch.float32))
-    out = launch_probe('bf16_probe_launch', img, OPS.index(op),
-                       STYLES.index(style), int(steps), p0, p1)
-    run_probe.launches += 1
-    return out
-
-
-# Kernel launches by run_probe (CPU calls do not count).
-run_probe.launches = 0
+    return launch_probe('bf16_probe', img, OPS.index(op),
+                        STYLES.index(style), int(steps), p0, p1)
 
 
 # The packed bf16 operations of csrc/fastmath.cuh, in the order of
@@ -127,14 +121,9 @@ def check_packed_ops(device='cuda'):
                          'got device %s' % device)
     counts = torch.zeros(len(PACKED_OPS) * len(PACKED_COUNTS),
                          dtype=torch.int64, device=device)
-    from exposure_tpu_torch.kernels import probes_library
-    lib = probes_library()
-    with torch.cuda.device(device):
-        err = lib.packed_bf16_check_launch(
-            counts.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError('packed_bf16_check_launch failed: %s'
-                           % lib.probes_error_string(err).decode())
+    from exposure_tpu_torch import kernels
+    kernels.launch(kernels.probes_kernel(), 'packed_bf16_check', device,
+                   counts.data_ptr())
     table = counts.view(len(PACKED_OPS), len(PACKED_COUNTS)).tolist()
     return {op: dict(zip(PACKED_COUNTS, row),
                      checked=2 ** 16 if op in ('abs', 'neg') else 2 ** 32)

@@ -92,14 +92,7 @@ def mono_chain(img, steps, op):
     _check(img, op)
     if img.device.type == 'cpu':
         return mono_chain_reference(img, steps, op)
-    out = launch_probe('mono_probe_launch', img, MONO_OPS.index(op),
-                       int(steps))
-    mono_chain.launches += 1
-    return out
-
-
-# Kernel launches by mono_chain (CPU calls do not count).
-mono_chain.launches = 0
+    return launch_probe('mono_probe', img, MONO_OPS.index(op), int(steps))
 
 
 def make_input(batch, res):

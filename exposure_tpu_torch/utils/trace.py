@@ -98,15 +98,9 @@ def _stamp(code, device):
             _host_dropped += 1
         return
     ring, count = _ring(device)
-    from exposure_tpu_torch.kernels import trace_stamp_library
-    lib = trace_stamp_library()
-    with torch.cuda.device(ring.device):
-        err = lib.trace_stamp_launch(
-            ring.data_ptr(), count.data_ptr(), ring.shape[0], code,
-            torch.cuda.current_stream(ring.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError('trace_stamp_launch failed: %s'
-                           % lib.trace_stamp_error_string(err).decode())
+    from exposure_tpu_torch import kernels
+    kernels.launch(kernels.trace_stamp_kernel(), 'trace_stamp', ring.device,
+                   ring.data_ptr(), count.data_ptr(), ring.shape[0], code)
 
 
 def _ring(device):

@@ -143,10 +143,6 @@ def test_bench_truth_cli_with_cpu():
 # (fast, branch): (traced, branch_ops, why they differ).  Every other branch
 # of the example bank agrees.
 KNOWN_DIFFERENCES = {
-    # the CUDA code (chain_branches.cuh::saturation_plus) counts 45 / 46 in
-    # branch_ops' convention, as traced: branch_ops counts 3 too many
-    (False, 'S+'): (45, 48, 'branch_ops over by 3'),
-    (True, 'S+'): (46, 49, 'branch_ops over by 3'),
     # the plain version starts each curve's sum at x * 0 (3 multiplies a
     # pixel); the kernel's Curve starts at 0
     (False, 'T'): (126, 123, 'x * 0 in the plain clip-form curve'),

@@ -68,6 +68,7 @@ import numpy as np
 import pytest
 import torch
 
+from exposure_tpu_torch import kernels
 from exposure_tpu_torch.ops.dyn_chain import (
     apply_filter_chain_dynamic,
     apply_filter_chain_dynamic_reference,
@@ -92,6 +93,11 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device: the kernel has no CPU mode')
     return torch.device('cuda')
+
+
+def _launched(key):
+    """The kernel launches counted under ``key`` so far."""
+    return kernels.launch_counts()[key]
 
 
 def _outlier_fraction(got, want):
@@ -120,10 +126,10 @@ def test_kernel_matches_plain(cuda_device, config, fast, dtype):
         (0.5 + rng.rand(k, b, 24)).astype(np.float32)).to(cuda_device)
     mask = torch.from_numpy(rng.randn(k, b, 6).astype(np.float32)).to(
         cuda_device) if filters[0].use_masking() else None
-    before = apply_filter_chain_dynamic.launches
+    before = _launched('dyn_chain')
     got = apply_filter_chain_dynamic(img, ids, params, filters,
                                      mask_params=mask, fast_math=fast)
-    assert apply_filter_chain_dynamic.launches == before + 1
+    assert _launched('dyn_chain') == before + 1
     want = apply_filter_chain_dynamic_reference(
         img, ids, params, filters, mask_params=mask, fast_math=fast)
     torch.cuda.synchronize()
@@ -137,9 +143,9 @@ def test_cuda_tensor_never_runs_the_plain_version(cuda_device):
     img = torch.zeros((2, 8, 8, 3), device=cuda_device)
     ids = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
     params = torch.zeros((1, 2, 24), device=cuda_device)
-    before = apply_filter_chain_dynamic.launches
+    before = _launched('dyn_chain')
     apply_filter_chain_dynamic(img, ids, params, filters)
-    assert apply_filter_chain_dynamic.launches == before + 1
+    assert _launched('dyn_chain') == before + 1
     with pytest.raises(ValueError):   # not contiguous: raise, no fallback
         apply_filter_chain_dynamic(img.transpose(1, 2), ids, params, filters)
 
@@ -165,10 +171,10 @@ def test_dyn_chain_takes_more_images_than_a_grid(cuda_device):
     rng = np.random.RandomState(3)
     filters, img, ids, params, _ = _case(rng, 'synthetic_explore', 'uint8',
                                          cuda_device, b=65536, h=8, w=8)
-    before = apply_filter_chain_dynamic.launches
+    before = _launched('dyn_chain')
     got = apply_filter_chain_dynamic(img, ids, params, filters,
                                      fast_math=True)
-    assert apply_filter_chain_dynamic.launches == before + 1
+    assert _launched('dyn_chain') == before + 1
     want = apply_filter_chain_dynamic_reference(img, ids, params, filters,
                                                 fast_math=True)
     torch.cuda.synchronize()
@@ -187,11 +193,11 @@ def test_switch_chain_f32_matches_plain(cuda_device, config, fast, dtype):
     filters, img, ids, params, mask = _case(rng, config, dtype, cuda_device)
     active = torch.from_numpy((rng.rand(5, 4) > 0.3).astype(np.float32)).to(
         cuda_device)
-    before = apply_filter_chain_switch.launches
+    before = _launched('switch_chain')
     got = apply_filter_chain_switch(img, ids, params, filters,
                                     active_steps=active, mask_params=mask,
                                     fast_math=fast)
-    assert apply_filter_chain_switch.launches == before + 1
+    assert _launched('switch_chain') == before + 1
     want = apply_filter_chain_switch_reference(
         img, ids, params, filters, active_steps=active, mask_params=mask,
         fast_math=fast)
@@ -272,16 +278,16 @@ def test_rows_and_n_active(cuda_device, config, dtype):
                                             b=6)
     rows = torch.tensor([4, 1, 3, 0], dtype=torch.int32, device=cuda_device)
     sig = tuple(int(x) for x in ids[:, 0].tolist())
-    for run, plain, lead in (
+    for run, plain, lead, key in (
             (apply_filter_chain_switch, apply_filter_chain_switch_reference,
-             (ids,)),
+             (ids,), 'switch_chain'),
             (apply_filter_chain_static, apply_filter_chain_static_reference,
-             (sig,))):
+             (sig,), 'static_chain')):
         out = torch.zeros_like(img)
-        before = run.launches
+        before = _launched(key)
         run(img, *lead, params, filters, mask_params=mask, fast_math=True,
             rows=rows, out=out, n_active=3)
-        assert run.launches == before + 1
+        assert _launched(key) == before + 1
         want = plain(img, *lead, params, filters, mask_params=mask,
                      fast_math=True, rows=rows, out=torch.zeros_like(img),
                      n_active=3)
@@ -298,11 +304,11 @@ def test_static_chain_matches_plain(cuda_device, config, fast, dtype):
     rng = np.random.RandomState(5)
     filters, img, _, params, mask = _case(rng, config, dtype, cuda_device)
     sig = tuple(int(x) for x in rng.randint(0, len(filters) + 1, 5))
-    before = apply_filter_chain_static.launches
+    before = _launched('static_chain')
     got = apply_filter_chain_static(img, sig, params, filters,
                                     mask_params=mask, fast_math=fast,
                                     n_active=3)
-    assert apply_filter_chain_static.launches == before + 1
+    assert _launched('static_chain') == before + 1
     want = apply_filter_chain_static_reference(
         img, sig, params, filters, mask_params=mask, fast_math=fast,
         n_active=3)
@@ -320,16 +326,16 @@ def _chains(img, ids, params, filters, **kw):
     sig = tuple(int(x) for x in ids[:, 0].tolist())
     runs = (
         (apply_filter_chain_dynamic, apply_filter_chain_dynamic_reference,
-         (ids,)),
+         (ids,), 'dyn_chain'),
         (apply_filter_chain_switch, apply_filter_chain_switch_reference,
-         (ids,)),
+         (ids,), 'switch_chain'),
         (apply_filter_chain_static, apply_filter_chain_static_reference,
-         (sig,)))
+         (sig,), 'static_chain'))
     outs = []
-    for run, plain, lead in runs:
-        before = run.launches
+    for run, plain, lead, key in runs:
+        before = _launched(key)
         got = run(img, *lead, params, filters, **kw)
-        assert run.launches == before + 1
+        assert _launched(key) == before + 1
         want = plain(img, *lead, params, filters, **kw)
         torch.cuda.synchronize()
         assert got.dtype == img.dtype and got.shape == img.shape
@@ -459,13 +465,11 @@ def _bf16_holds(img, ids, params, filters, **kw):
     """K2 in bf16 against its bf16 plain version: at most 1e-3 of the values
     more than 1 LSB (u8) or 2 bf16 ulps (f32) apart.  Returns the kernel's
     output."""
-    before = (apply_filter_chain_switch.launches,
-              apply_filter_chain_switch.launches_bf16)
+    before = kernels.launch_counts()
     got = apply_filter_chain_switch(img, ids, params, filters,
                                     compute_dtype=torch.bfloat16, **kw)
-    assert (apply_filter_chain_switch.launches,
-            apply_filter_chain_switch.launches_bf16) == (before[0] + 1,
-                                                         before[1] + 1)
+    assert kernels.launch_counts() - before == {'switch_chain': 1,
+                                                'switch_chain_bf16': 1}
     if 'out' in kw:
         kw = dict(kw, out=torch.zeros_like(img))
     want = apply_filter_chain_switch_reference(
@@ -604,9 +608,9 @@ def test_mono_probe_matches_plain(cuda_device, size):
     img = _probe_input(cuda_device, (b, h, w, 3))
     for op in mono_probe.MONO_OPS:
         for steps in (0, 1, 5):
-            before = mono_probe.mono_chain.launches
+            before = _launched('mono_probe')
             got = mono_probe.mono_chain(img, steps, op)
-            assert mono_probe.mono_chain.launches == before + 1
+            assert _launched('mono_probe') == before + 1
             want = mono_probe.mono_chain_reference(img, steps, op)
             torch.cuda.synchronize()
             assert _max_lsb(got, want) <= 1, (op, steps)
@@ -618,9 +622,9 @@ def test_fastmath_probe_matches_plain(cuda_device, size):
     b, h, w = PROBE_SIZES[size]
     img = _probe_input(cuda_device, (b, 3, h, w))
     for op in fastmath_probe.OPS:
-        before = fastmath_probe.run_op.launches
+        before = _launched('fastmath_probe')
         got = fastmath_probe.run_op(img, op)
-        assert fastmath_probe.run_op.launches == before + 1
+        assert _launched('fastmath_probe') == before + 1
         want = fastmath_probe.run_op_reference(img, op)
         torch.cuda.synchronize()
         assert _max_lsb(got, want) <= 1, op
@@ -634,9 +638,9 @@ def test_bf16_probe_matches_plain(cuda_device, size):
     for op in bf16_probe.OPS:
         outs = {}
         for style in bf16_probe.STYLES:
-            before = bf16_probe.run_probe.launches
+            before = _launched('bf16_probe')
             got = bf16_probe.run_probe(img, bf16_probe.PARAMS, op, style, 8)
-            assert bf16_probe.run_probe.launches == before + 1
+            assert _launched('bf16_probe') == before + 1
             want = bf16_probe.run_probe_reference(img, bf16_probe.PARAMS, op,
                                                   style, 8)
             torch.cuda.synchronize()
@@ -733,16 +737,16 @@ def test_evaluator_replays_through_k1_and_matches_the_cpu(cuda_device,
         dyn.apply_filter_chain_dynamic_reference = refuse
         tev.apply_filter_chain = tev.apply_filter_step = refuse
         try:
-            before = apply_filter_chain_dynamic.launches
+            before = _launched('dyn_chain')
             got = card.eval_batched(files, output_dir=str(tmp_path / 'gpu'),
                                     u8=u8)
-            assert apply_filter_chain_dynamic.launches == before + 2
+            assert _launched('dyn_chain') == before + 2
             if not u8:
-                before = apply_filter_chain_dynamic.launches
+                before = _launched('dyn_chain')
                 steps = card.eval(files[:1], output_dir=str(tmp_path / 's'),
                                   step_by_step=True)[0]
                 n = sum(s['applied'] for s in steps['debug'])
-                assert apply_filter_chain_dynamic.launches == before + n
+                assert _launched('dyn_chain') == before + n
         finally:
             (dyn.apply_filter_chain_dynamic_reference,
              tev.apply_filter_chain, tev.apply_filter_step) = saved
@@ -779,9 +783,9 @@ def test_edit_sequence_replays_through_k1(cuda_device):
                 f.get_num_mask_parameters()).astype(np.float32),
             'applied': i != 2})
     image = (rng.rand(97, 131, 3) * 0.8).astype(np.float32)
-    before = apply_filter_chain_dynamic.launches
+    before = _launched('dyn_chain')
     got = edit_sequence.replay(image, debug, filters, device=cuda_device)
-    assert apply_filter_chain_dynamic.launches == before + 1
+    assert _launched('dyn_chain') == before + 1
     want = edit_sequence.replay(image, debug, filters, device='cpu')
     assert _outlier_fraction(torch.from_numpy(got),
                              torch.from_numpy(want)) <= 1e-4
@@ -1150,7 +1154,7 @@ def test_serving_tools_run_on_the_card(cuda_device, tmp_path, monkeypatch):
                                       '--verify']) == 0
     rep = probe_selected_plan.main(run + ['--batch', '8', '--batches', '2'])
     assert rep['ids_total'] == 80
-    before = apply_filter_chain_dynamic.launches
+    before = _launched('dyn_chain')
     warm = warmup_serving.main(run + ['--batch', '4', '--res', '64',
                                       '--probes', '2', '--seeds', '2',
                                       '--decompose'])
@@ -1158,7 +1162,7 @@ def test_serving_tools_run_on_the_card(cuda_device, tmp_path, monkeypatch):
     dyn = warmup_serving.main(run + ['--batch', '4', '--res', '64',
                                      '--seeds', '2', '--dynamic'])
     assert dyn['mode'] == 'dynamic'
-    assert apply_filter_chain_dynamic.launches > before
+    assert _launched('dyn_chain') > before
     split = bench_serving_split.main(run + ['--batch', '8', '--res', '64',
                                             '--runs', '2'])
     assert split['replay_grouped_ms'] > 0
@@ -1310,12 +1314,11 @@ def test_batch_graph_equals_the_per_call_path(cuda_device, mode):
         outs = {}
         for tag, pipe in (('eager', eager), ('control', eager),
                           ('graph', graph)):
-            before = sg.executions(sg.wrapper_counts())
+            before = sg.executions(kernels.launch_counts())
             outs[tag] = list(pipe.map_batches(batches, seed=5,
                                               device_out=True))
             torch.cuda.synchronize()
-            after = sg.executions(sg.wrapper_counts())
-            counts[tag] = {k: after[k] - before[k] for k in after}
+            counts[tag] = sg.executions(kernels.launch_counts()) - before
     for a, b, c in zip(outs['graph'], outs['eager'], outs['control']):
         assert torch.equal(b, c)
         assert torch.equal(a, b)
@@ -1608,6 +1611,24 @@ def test_outer_step_bit_equal_under_both_flags(cuda_device):
 _LAYOUT_CONVERSIONS = ('nhwcToNchw', 'nchwToNhwc')
 
 
+def _conv_layouts(policy):
+    """The memory layouts in which the convolutions of ``policy``'s
+    extractors get their inputs from now on, counted by a forward pre-hook
+    on each: ``nchw``, ``channels_last`` or ``other``."""
+    import collections
+    seen = collections.Counter()
+
+    def layout(module, args):
+        x = args[0]
+        seen['nchw' if x.is_contiguous() else 'channels_last'
+             if x.is_contiguous(memory_format=torch.channels_last)
+             else 'other'] += 1
+    for fx in (policy.shared_extractor, policy.selector_extractor):
+        for conv in fx.convs:
+            conv.register_forward_pre_hook(layout)
+    return seen
+
+
 def _device_kernels(fn):
     """The names of the kernels ``fn`` ran on the card, by the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -1637,10 +1658,9 @@ def _artifact_policy(cuda_device):
 def test_float32_policy_runs_without_layout_conversions(cuda_device):
     """One float32 ``PolicyNet`` forward on the artifact's weights at
     ``[512, 64, 64, 14]``: no cuDNN layout conversion kernel runs, both
-    extractors count an NCHW forward, and heads and logits equal the
+    extractors' convolutions take NCHW input, and heads and logits equal the
     permute-only formulation (channels-last memory, whose conversions are
     exact copies around the same float32 kernels) bit for bit."""
-    from exposure_tpu_torch.models.networks import FeatureExtractor
     from exposure_tpu_torch.utils.ops import lrelu
     from exposure_tpu_torch.utils.precision import tf32_off
     cfg, policy = _artifact_policy(cuda_device)
@@ -1656,9 +1676,9 @@ def test_float32_policy_runs_without_layout_conversions(cuda_device):
     out = {}
     with torch.no_grad(), tf32_off():
         policy(x)                                  # cuDNN's first calls
-        before = dict(FeatureExtractor.forwards)
+        seen = _conv_layouts(policy)
         names = _device_kernels(lambda: out.setdefault('got', policy(x)))
-        after = dict(FeatureExtractor.forwards)
+        layouts = dict(seen)      # before the permute-only convolutions
         shared = permute_only(policy.shared_extractor)
         sel = permute_only(policy.selector_extractor)
         want = [fc2(lrelu(fc1(shared)))
@@ -1667,8 +1687,8 @@ def test_float32_policy_runs_without_layout_conversions(cuda_device):
     assert names, 'the profiler saw no kernel on the card'
     assert [n for n in names if any(c in n for c in _LAYOUT_CONVERSIONS)] \
         == []
-    assert after.get('nchw', 0) - before.get('nchw', 0) == 2
-    assert after.get('channels_last', 0) == before.get('channels_last', 0)
+    assert layouts == {'nchw': len(policy.shared_extractor.convs) +
+                       len(policy.selector_extractor.convs)}
     raw, logits = out['got']
     for got, ref in zip(raw + [logits], want):
         assert torch.equal(got, ref)
@@ -1678,9 +1698,10 @@ def test_float32_policy_runs_without_layout_conversions(cuda_device):
 @pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
 def test_captured_selected_plan_extractor_layout(cuda_device, bf16):
     """One captured selected-plan batch of 512 photos on the artifact:
-    every extractor forward of the graph counts in the layout its dtype
-    chooses (NCHW in float32, channels-last in the bf16 plan), and the
-    float32 batch runs no cuDNN layout conversion kernel."""
+    every convolution of the graph's extractors takes its input in the
+    layout its dtype chooses (NCHW in float32, channels-last in the bf16
+    plan; a pre-hook sees the warm-up and the capture), and a replay of
+    the float32 batch runs no cuDNN layout conversion kernel."""
     from exposure_tpu_torch.core import serving_graph as sg
     from exposure_tpu_torch.core.serving import RetouchPipeline
     pipe = RetouchPipeline.from_artifact('synthetic_explore', ARTIFACT,
@@ -1688,17 +1709,17 @@ def test_captured_selected_plan_extractor_layout(cuda_device, bf16):
     g = torch.Generator(device=cuda_device).manual_seed(29)
     batch = torch.randint(0, 256, (512, 96, 128, 3), generator=g,
                           dtype=torch.uint8, device=cuda_device)
+    seen = _conv_layouts(pipe._plan_policy)
     pipe.warmup(batch)
     torch.cuda.synchronize()
-    before = sg.executions(sg.wrapper_counts())
+    before = sg.executions(kernels.launch_counts())
     names = _device_kernels(lambda: pipe(batch, 7, 0, device_out=True))
-    after = sg.executions(sg.wrapper_counts())
+    after = sg.executions(kernels.launch_counts())
     assert pipe.graph_report()['captures'] == 1
     assert names, 'the profiler saw no kernel on the card'
-    layout, other = ('extractor_channels_last', 'extractor_nchw') if bf16 \
-        else ('extractor_nchw', 'extractor_channels_last')
-    assert after[layout] - before[layout] == 2 * pipe.cfg.test_steps
-    assert after[other] == before[other]
+    assert set(seen) == {'channels_last' if bf16 else 'nchw'}, seen
+    assert after - before == {'dyn_chain': pipe.cfg.test_steps + 1,
+                              'proxy_resize': 1}
     if not bf16:
         assert [n for n in names
                 if any(c in n for c in _LAYOUT_CONVERSIONS)] == []

@@ -177,20 +177,20 @@ def test_replay_on_a_cuda_device_never_takes_the_cpu_path(monkeypatch):
     """Asked for the card, ``replay`` hands CUDA tensors to K1's wrapper
     (which launches or raises) and never the branchless chain."""
     import exposure_tpu_torch.ops.chain as chain
-    import exposure_tpu_torch.ops.dyn_chain as dyn
+    from exposure_tpu_torch import kernels
     tf, _ = _banks('test')
     debug = _debug(tf, np.random.RandomState(1))
     monkeypatch.setattr(chain, 'apply_filter_chain', lambda *a, **kw: 1 / 0)
     image = np.full((8, 8, 3), 0.5, np.float32)
-    before = dyn.apply_filter_chain_dynamic.launches
+    before = kernels.launch_counts()['dyn_chain']
     if torch.cuda.is_available():
         t_edit.replay(image, debug, tf, device='cuda')
-        assert dyn.apply_filter_chain_dynamic.launches == before + 1
+        assert kernels.launch_counts()['dyn_chain'] == before + 1
     else:
         # no card: it raises rather than replaying on the host
         with pytest.raises((RuntimeError, AssertionError)):
             t_edit.replay(image, debug, tf, device='cuda')
-        assert dyn.apply_filter_chain_dynamic.launches == before
+        assert kernels.launch_counts()['dyn_chain'] == before
 
 
 def test_pickle_to_tex_matches(tmp_path):

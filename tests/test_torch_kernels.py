@@ -1,7 +1,8 @@
 """The kernel build's source digest, on the CPU (no nvcc needed): a
 library is named by a hash of its source and of every header it includes
 from ``csrc/``, so editing a shared header rebuilds every kernel that
-includes it, directly or through another header.
+includes it, directly or through another header.  ``kernels.launch`` on a
+fake library: its arguments and stream, its error check and its counter.
 
 On the card (marked ``cuda``, skipped without a device; no JAX import):
 the proxy resize kernel (``csrc/proxy_resize.cu``) against its plain
@@ -86,6 +87,54 @@ def test_digest_of_a_header_chain_and_of_the_source(tmp_path):
 RESIZE_ATOL = 2e-6
 
 
+class _FakeLibrary:
+    """A library as ``kernels.launch`` sees one: ``lib`` holds the
+    launcher, which records its arguments and returns ``code``, and the
+    library's error string."""
+
+    def __init__(self, code):
+        self.name, self.calls = 'fake', []
+        self.lib = self
+        self.code = code
+
+    def fake_launch(self, *args):
+        self.calls.append(args)
+        return self.code
+
+    def fake_error_string(self, err):
+        return b'error %d' % err
+
+
+@pytest.mark.parametrize('code', [0, 7], ids=['ok', 'error'])
+def test_launch_checks_and_counts(monkeypatch, code):
+    """``kernels.launch`` passes its arguments and the device's current
+    stream to ``<name>_launch``; a code other than 0 raises with the
+    library's error string and counts nothing, a 0 adds 1 to each key the
+    caller names."""
+    import collections
+    import contextlib
+    monkeypatch.setattr(kernels, '_LAUNCHES', collections.Counter())
+    monkeypatch.setattr(torch.cuda, 'device',
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(kernels, 'kernel_stream', lambda device: 'stream')
+    lib = _FakeLibrary(code)
+    launch = lambda: kernels.launch(lib, 'fake', 'cuda:0', 1, 2,
+                                    count=('k', 'k_bf16'))
+    if code:
+        with pytest.raises(RuntimeError, match='fake_launch failed: error 7'):
+            launch()
+        assert kernels.launch_counts() == {}
+    else:
+        launch()
+        launch()
+        assert kernels.launch_counts() == {'k': 2, 'k_bf16': 2}
+        kernels.launch(lib, 'fake', 'cuda:0', 3)     # counted under no key
+        assert kernels.launch_counts() == {'k': 2, 'k_bf16': 2}
+        kernels.reset_launch_counts()
+        assert kernels.launch_counts() == {}
+    assert lib.calls[0] == (1, 2, 'stream')
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -119,9 +168,9 @@ def test_proxy_resize_kernel_matches_plain(cuda_device, shape, dtype):
         assert img.data_ptr() % 16 != 0
     else:
         img = _photos(cuda_device, shape, dtype)
-    before = proxy_resize.launches
+    before = kernels.launch_counts()['proxy_resize']
     got = proxy_resize(img, 64)
-    assert proxy_resize.launches == before + 1
+    assert kernels.launch_counts()['proxy_resize'] == before + 1
     want = proxy_resize_reference(img, 64)
     torch.cuda.synchronize()
     assert got.shape == (img.shape[0], 64, 64, 3)
@@ -146,10 +195,10 @@ def test_proxy_resize_graph_replays_bit_for_bit(cuda_device):
     fresh = _photos(cuda_device, (4, 300, 400, 3), 'uint8', seed=2)
     want = proxy_resize(fresh, 64)
     static.copy_(fresh)
-    before = proxy_resize.launches
+    before = kernels.launch_counts()
     graph.replay()
     torch.cuda.synchronize()
-    assert proxy_resize.launches == before
+    assert kernels.launch_counts() == before
     assert torch.equal(out, want)
 
 
@@ -171,11 +220,11 @@ def test_served_batch_resizes_in_one_launch(cuda_device, monkeypatch):
     batches = [_photos(cuda_device, (8, 480, 640, 3), 'uint8', seed=s)
                for s in range(3)]
     pipe.warmup(batches[0])
-    before = sg.executions(sg.wrapper_counts())
+    before = sg.executions(kernels.launch_counts())
     for i, batch in enumerate(batches):
         pipe(batch, 7, i, device_out=True)
     torch.cuda.synchronize()
-    after = sg.executions(sg.wrapper_counts())
+    after = sg.executions(kernels.launch_counts())
     assert after['proxy_resize'] - before['proxy_resize'] == len(batches)
     launches = list(pipe.graph_report()['launches_per_replay'].values())
     assert [n['proxy_resize'] for n in launches] == [1]

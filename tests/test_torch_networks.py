@@ -13,8 +13,8 @@
 - the extractors' memory layout, chosen by dtype: float32 reaches every
   conv NCHW-contiguous, bfloat16 keeps the channels-last view; the policy
   equals the permute-only formulation (the channels-last view in every
-  dtype) within 1e-6, forward and backward; the layout counter counts one
-  forward an extractor call.  On the CPU the two layouts run different
+  dtype) within 1e-6, forward and backward; an extractor call reaches each
+  conv once, in its dtype's layout.  On the CPU the two layouts run different
   convolution kernels (a few ulps apart); bit equality of the two
   formulations is a card test (tests/test_torch_cuda.py).
 """
@@ -37,7 +37,6 @@ from exposure_tpu_torch.core.artifacts import (
     load_artifact,
     msgpack_restore,
 )
-from exposure_tpu_torch.core import serving_graph
 from exposure_tpu_torch.models.networks import (
     FeatureExtractor,
     build_policy,
@@ -221,14 +220,6 @@ def _explore_policy(weights):
     return policy
 
 
-@pytest.fixture
-def forwards(monkeypatch):
-    """A fresh count of the extractors' forwards by layout."""
-    counter = collections.Counter()
-    monkeypatch.setattr(FeatureExtractor, 'forwards', counter)
-    return counter
-
-
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['float32', 'bfloat16'])
 def test_conv_layout_follows_the_dtype(dtype):
@@ -286,24 +277,30 @@ def test_nchw_input_is_differentiable(rng):
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['float32', 'bfloat16'])
-def test_layout_counter_counts_each_extractor_call(forwards, dtype):
-    """One forward an extractor call, under the layout it ran in, read
-    through the serving graphs' wrapper counts too; ``PolicyNet``'s two
-    extractors read one input."""
+def test_layout_counter_counts_each_extractor_call(dtype):
+    """Each extractor call reaches every convolution once, in the layout
+    its dtype chooses (a forward pre-hook on each conv counts the calls by
+    layout); ``PolicyNet``'s two extractors read one input."""
     cfg = t_load_config('test')
     policy = build_policy(cfg, build_filters(cfg)).to(dtype)
     x = torch.rand(3, 64, 64, 3 + cfg.num_state_dim).to(dtype)
-    firsts = []
-    for fx in (policy.shared_extractor, policy.selector_extractor):
+    firsts, layouts = [], collections.Counter()
+
+    def layout(module, args):
+        inp = args[0]
+        layouts['nchw' if inp.is_contiguous() else 'channels_last'
+                if inp.is_contiguous(memory_format=torch.channels_last)
+                else 'other'] += 1
+    extractors = (policy.shared_extractor, policy.selector_extractor)
+    for fx in extractors:
         fx.convs[0].register_forward_hook(
             lambda m, args, out: firsts.append(args[0]))
+        for conv in fx.convs:
+            conv.register_forward_pre_hook(layout)
     with torch.no_grad():
         for _ in range(2):
             policy(x, torch.Generator().manual_seed(0))
     assert len(firsts) == 4
     assert firsts[0] is firsts[1] and firsts[2] is firsts[3]
-    layout = 'nchw' if dtype == torch.float32 else 'channels_last'
-    assert forwards == {layout: 2 * 2}
-    counts = serving_graph.wrapper_counts()
-    assert counts['extractor_' + layout] == 4
-    assert counts['extractor_nchw'] + counts['extractor_channels_last'] == 4
+    want = 'nchw' if dtype == torch.float32 else 'channels_last'
+    assert layouts == {want: 2 * sum(len(fx.convs) for fx in extractors)}

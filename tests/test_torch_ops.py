@@ -11,6 +11,7 @@ import torch
 from exposure_tpu.ops import color_space as jcs
 from exposure_tpu.ops import fastmath as jfm
 from exposure_tpu.utils import ops as jops
+from exposure_tpu_torch import kernels
 from exposure_tpu_torch.core.serving import proxy_resize
 from exposure_tpu_torch.ops import color_space as tcs
 from exposure_tpu_torch.ops import fastmath as tfm
@@ -254,8 +255,8 @@ def test_proxy_resize_tables_cached_by_shape_and_band(monkeypatch):
                         lambda device: SimpleNamespace(
                             multi_processor_count=132))
     prepared = []
-    lib = SimpleNamespace(proxy_resize_prepare=lambda: prepared.append(1)
-                          or 0)
+    lib = SimpleNamespace(name='proxy_resize', lib=SimpleNamespace(
+        proxy_resize_prepare=lambda: prepared.append(1) or 0))
     dev = torch.device('cuda', 0)
     a = pr._device_tables(lib, 32, 3024, 4032, 64, torch.uint8, dev)
     b = pr._device_tables(lib, 33, 3024, 4032, 64, torch.uint8, dev)
@@ -272,7 +273,7 @@ def test_proxy_resize_tables_cached_by_shape_and_band(monkeypatch):
 def test_proxy_resize_cpu_runs_the_plain_version(rng):
     from exposure_tpu_torch.ops import proxy_resize as pr
     x = torch.from_numpy((rng.rand(2, 40, 56, 3) * 255).astype(np.uint8))
-    before = pr.proxy_resize.launches
+    before = kernels.launch_counts()
     assert torch.equal(proxy_resize(x, 64),
                        pr.proxy_resize_reference(x, 64))
-    assert pr.proxy_resize.launches == before
+    assert kernels.launch_counts() == before

@@ -27,6 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 from exposure_tpu.tools import bench_bf16_probe as j_bf16
 from exposure_tpu.tools import bench_fastmath as j_fastmath
 from exposure_tpu.tools import bench_kernel_probe as j_probe
+from exposure_tpu_torch import kernels
 from exposure_tpu_torch.tools import bench_bf16_probe as t_bf16
 from exposure_tpu_torch.tools import bench_fastmath as t_fastmath
 from exposure_tpu_torch.tools import bench_kernel_probe as t_probe
@@ -109,13 +110,11 @@ def test_bf16_styles_agree(op):
 
 def test_cpu_calls_run_the_plain_versions_and_count_nothing():
     img = torch.from_numpy(_image(3))
-    before = (t_probe.mono_chain.launches, t_fastmath.run_op.launches,
-              t_bf16.run_probe.launches)
+    before = kernels.launch_counts()
     t_probe.mono_chain(img.permute(0, 2, 3, 1).contiguous(), 1, 'E')
     t_fastmath.run_op(img, 'cos_fast')
     t_bf16.run_probe(img[:, :1].contiguous(), t_bf16.PARAMS, 'mul', 'f32', 2)
-    assert (t_probe.mono_chain.launches, t_fastmath.run_op.launches,
-            t_bf16.run_probe.launches) == before
+    assert kernels.launch_counts() == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

@@ -15,8 +15,10 @@ captures and replays the same body):
 - ``map_batches(device_out=True)`` hands out outputs that the next batch
   does not overwrite; ``warmup`` captures once; ``release`` frees; the
   cache keeps at most ``MAX_GRAPHS``;
-- the kernel accounting: executions are the wrappers' launches less those
-  captures recorded plus those replays ran;
+- the kernel accounting: executions are the kernels' launches
+  (``kernels.launch_counts``) less those captures recorded plus those
+  replays ran;
+- the served plan's convolutions run in the layout of its dtype;
 - the evaluator's graph-form plan equals its per-call plan;
 - ``load_policy`` copies the weights into the served tensors in place, the
   bf16 copy rounded as a fresh ``.to(torch.bfloat16)``."""
@@ -264,8 +266,10 @@ def test_release_and_the_cache_limit(served):
 
 
 def test_executions_count_recorded_and_replayed_launches(monkeypatch):
-    """A capture that records 6 K1 launches (the wrapper counts them, the
-    capture runs nothing), then 3 replays: 18 executions."""
+    """A capture that records 6 K1 launches (``kernels.launch`` counts
+    them, the capture runs nothing), then 3 replays: 18 executions; after
+    the counts are set to 0, the replays alone count, under keys that no
+    launch has counted since."""
     monkeypatch.setattr(sg, 'RECORDED', sg.collections.Counter())
     monkeypatch.setattr(sg, 'REPLAYED', sg.collections.Counter())
     sg.RECORDED.update({'dyn_chain': 6})
@@ -275,28 +279,37 @@ def test_executions_count_recorded_and_replayed_launches(monkeypatch):
         {'dyn_chain': 6 + 18, 'switch_chain': 2}
     sg.reset_counts()
     assert not sg.RECORDED and not sg.REPLAYED
-    assert set(sg.wrapper_counts()) == {'dyn_chain', 'switch_chain',
-                                        'switch_chain_bf16', 'static_chain',
-                                        'proxy_resize', 'extractor_nchw',
-                                        'extractor_channels_last'}
+    sg.REPLAYED.update({'dyn_chain': 6, 'proxy_resize': 1})
+    counts = sg.executions(sg.collections.Counter())
+    assert counts == {'dyn_chain': 6, 'proxy_resize': 1}
+    assert counts['switch_chain'] == 0
 
 
 @pytest.mark.parametrize('bf16', [False, True], ids=['f32', 'bf16'])
 def test_extractor_layout_counts_a_served_batch(served, bf16):
-    """The selected plan's extractor forwards, two a step, in the layout
-    their dtype chooses: NCHW in float32, channels-last in the bf16
-    plan."""
+    """The selected plan's extractor forwards, two a step, reach every
+    convolution in the layout their dtype chooses (a forward pre-hook on
+    each): NCHW in float32, channels-last in the bf16 plan."""
     cfg, policy = served
     pipe = _pipe(cfg, copy.deepcopy(policy), True, bf16=bf16)
     batches = [_images(50 + i, 'uint8') for i in range(2)]
-    before = sg.executions(sg.wrapper_counts())
+    extractors = (pipe._plan_policy.shared_extractor,
+                  pipe._plan_policy.selector_extractor)
+    layouts = sg.collections.Counter()
+
+    def seen(module, args):
+        x = args[0]
+        layouts[x.dtype, 'nchw' if x.is_contiguous() else 'channels_last'
+                if x.is_contiguous(memory_format=torch.channels_last)
+                else 'other'] += 1
+    for fx in extractors:
+        for conv in fx.convs:
+            conv.register_forward_pre_hook(seen)
     list(pipe.map_batches(batches, seed=3))
-    after = sg.executions(sg.wrapper_counts())
-    layout = 'extractor_channels_last' if bf16 else 'extractor_nchw'
-    other = 'extractor_nchw' if bf16 else 'extractor_channels_last'
-    assert after[layout] - before[layout] == \
-        2 * cfg.test_steps * len(batches)
-    assert after[other] == before[other]
+    convs = sum(len(fx.convs) for fx in extractors)
+    want = (torch.bfloat16, 'channels_last') if bf16 else \
+        (torch.float32, 'nchw')
+    assert layouts == {want: convs * cfg.test_steps * len(batches)}
 
 
 def test_evaluator_plan_graph_is_the_per_call_plan(served):

@@ -11,6 +11,7 @@ import os
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -267,10 +268,6 @@ def test_smoke_times_with_median_seconds(monkeypatch):
     assert smoke.cuda_ms(fn, runs=5, warmup=1, calls=4) == 2.0
     assert smoke.cuda_ms(fn) == 2.0
     assert seen == [(fn, smoke.DEVICE, 5, 1, 4), (fn, smoke.DEVICE, 7, 2, 1)]
-    # a pipeline call keeps its output on the card where the knob exists
-    assert smoke._on_card(lambda images, device_out=False: 0) == {
-        'device_out': True}
-    assert smoke._on_card(lambda images, seed=0: 0) == {}
 
 
 def test_turns_judge_any_differing_kernel_value():
@@ -288,73 +285,90 @@ def test_turns_judge_any_differing_kernel_value():
     differing = smoke._values_differing(parent, change)
     assert differing == {'k1_E_exact_u8': 0, 'k2f32_case_masked': 1,
                          'k4c_small_cos_bf16_cast': 2}
-    # the served outputs that the proxy resize's rounding moves, and no
-    # kernel output and not the fixed plan's replay
-    assert smoke.TURNS_MAY_DIFFER == ('main', 'mode_')
+    # no output may differ: not the served ones, not a mode's, not the
+    # fixed plan's replay and no kernel output
+    assert smoke.TURNS_MAY_DIFFER == ()
     assert smoke._moved_outputs(differing) == {
         'k2f32_case_masked': 1, 'k4c_small_cos_bf16_cast': 2}
     assert smoke._moved_outputs({'main': 3, 'mode_switch': 1, 'replay': 1,
-                                 'k1_E_exact_u8': 1}) == {
-        'replay': 1, 'k1_E_exact_u8': 1}
+                                 'k1_E_exact_u8': 1, 'k1_G_fast_f32': 0}) == {
+        'main': 3, 'mode_switch': 1, 'replay': 1, 'k1_E_exact_u8': 1}
+    assert smoke._moved_outputs({'main': 3, 'replay': 1},
+                                ('main',)) == {'replay': 1}
     assert smoke._moved_outputs(differing, ('k4c_',)) == {
         'k2f32_case_masked': 1}
     assert smoke._moved_outputs(smoke._values_differing(parent, parent)) == {}
 
 
-def test_smoke_counts_proxy_resize_executions(monkeypatch):
-    """The proxy resize kernel is one of ``chip_smoke.py``'s counted
-    wrappers: reset with the others, its executions read through the
-    graphs' records like the chain kernels'."""
+@pytest.fixture
+def counts(monkeypatch):
+    """Fresh launch counts and graph records, and ``launch(key, n)``,
+    which counts ``n`` launches under ``key`` as ``kernels.launch`` does
+    on the card (through a fake library)."""
+    import collections
+    import contextlib
     import exposure_tpu_torch.core.serving_graph as sg
-    from exposure_tpu_torch.ops.proxy_resize import proxy_resize
+    from exposure_tpu_torch import kernels
+    monkeypatch.setattr(kernels, '_LAUNCHES', collections.Counter())
+    monkeypatch.setattr(sg, 'RECORDED', collections.Counter())
+    monkeypatch.setattr(sg, 'REPLAYED', collections.Counter())
+    monkeypatch.setattr(torch.cuda, 'device',
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(kernels, 'kernel_stream', lambda device: None)
+    fake = types.SimpleNamespace(name='fake')
+    fake.lib = types.SimpleNamespace(fake_launch=lambda *args: 0)
+
+    def launch(key, n=1):
+        for _ in range(n):
+            kernels.launch(fake, 'fake', 'cuda', count=(key,))
+    return launch
+
+
+def test_smoke_counts_proxy_resize_executions(counts):
+    """The proxy resize kernel's launches are counted with the others'
+    (``kernels.launch``, key ``proxy_resize``): ``chip_smoke.py`` sets them
+    to 0 with the others and reads its executions through the graphs'
+    records like the chain kernels'."""
+    import exposure_tpu_torch.core.serving_graph as sg
+    from exposure_tpu_torch import kernels
     smoke = _load_smoke()
-    assert smoke.wrappers()['proxy_resize'] is proxy_resize
-    monkeypatch.setattr(proxy_resize, 'launches', 3)
-    monkeypatch.setattr(sg, 'RECORDED', sg.collections.Counter())
-    monkeypatch.setattr(sg, 'REPLAYED', sg.collections.Counter())
+    counts('proxy_resize', 3)
+    sg.RECORDED.update({'proxy_resize': 1})
     smoke.reset_counts()
-    assert proxy_resize.launches == 0
-    proxy_resize.launches = 1 + 1           # a warm-up, a capture
+    assert not kernels.launch_counts() and not sg.RECORDED
+    counts('proxy_resize', 1 + 1)           # a warm-up, a capture
     sg.RECORDED.update({'proxy_resize': 1})
     sg.REPLAYED.update({'proxy_resize': 4})
     assert smoke.read_counts()['proxy_resize'] == 1 + 4
 
 
-def test_smoke_counts_extractor_forwards_by_layout(monkeypatch):
-    """``chip_smoke.py`` resets and reads the policy extractors' forwards
-    by layout with the kernels' counts, as executions under graphs."""
-    import collections
-    import exposure_tpu_torch.core.serving_graph as sg
-    from exposure_tpu_torch.models.networks import FeatureExtractor
+def test_smoke_counts_extractor_forwards_by_layout():
+    """The smoke's scan of a profiled replay's kernel names finds cuDNN's
+    layout conversions (``nhwcToNchw``, ``nchwToNhwc``, as any kernel that
+    carries them in its name) and nothing else."""
     smoke = _load_smoke()
-    monkeypatch.setattr(FeatureExtractor, 'forwards',
-                        collections.Counter(nchw=3, channels_last=1))
-    monkeypatch.setattr(sg, 'RECORDED', sg.collections.Counter())
-    monkeypatch.setattr(sg, 'REPLAYED', sg.collections.Counter())
-    smoke.reset_counts()
-    assert not FeatureExtractor.forwards
-    FeatureExtractor.forwards['nchw'] += 10 + 10   # a warm-up, a capture
-    sg.RECORDED.update({'extractor_nchw': 10})
-    sg.REPLAYED.update({'extractor_nchw': 10 * 4})
-    counts = smoke.read_counts()
-    assert counts['extractor_nchw'] == 10 + 40
-    assert counts['extractor_channels_last'] == 0
+    names = [
+        'void dyn_chain_kernel<unsigned char, true, false, 5>(Params)',
+        'sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nchwkcrs_nchw',
+        'void cudnn::engines_precompiled::nchwToNhwcKernel<float, float, '
+        'float, false, true, (cudnnKernelDataType_t)2>(...)',
+        'void cudnn::engines_precompiled::nhwcToNchwKernel<__nv_bfloat16, '
+        '__nv_bfloat16, float, true, false, (cudnnKernelDataType_t)0>(...)',
+        'void at::native::elementwise_kernel<128, 2>(int, ...)']
+    assert smoke.layout_conversions(names) == sorted(names[2:4])
+    assert smoke.layout_conversions(names[:2] + names[4:]) == []
+    assert smoke.layout_conversions(names[2:3] * 3) == names[2:3]
 
 
-def test_smoke_counts_kernel_executions_under_graphs(monkeypatch):
-    """``chip_smoke.py::read_counts`` turns the wrappers' launches into
+def test_smoke_counts_kernel_executions_under_graphs(counts, monkeypatch):
+    """``chip_smoke.py::read_counts`` turns the kernels' launches into
     executions (a capture's recorded launches ran nothing, each replay ran
     them all), and ``_k1_by_stage`` splits K1's executions into the plan's
     and the replay's: eager calls as they ran, recorded ones times the
     pipeline's replays since the last read."""
     import exposure_tpu_torch.core.serving_graph as sg
-    from exposure_tpu_torch.ops.dyn_chain import apply_filter_chain_dynamic
     smoke = _load_smoke()
-    monkeypatch.setattr(apply_filter_chain_dynamic, 'launches', 0)
-    monkeypatch.setattr(sg, 'RECORDED', sg.collections.Counter())
-    monkeypatch.setattr(sg, 'REPLAYED', sg.collections.Counter())
-    smoke.reset_counts()
-    apply_filter_chain_dynamic.launches = 6 + 6   # a warm-up, a capture
+    counts('dyn_chain', 6 + 6)              # a warm-up, a capture
     sg.RECORDED.update({'dyn_chain': 6})
     sg.REPLAYED.update({'dyn_chain': 6 * 3})
     assert smoke.read_counts()['dyn_chain'] == 6 + 18
@@ -365,10 +379,10 @@ def test_smoke_counts_kernel_executions_under_graphs(monkeypatch):
         replays = 0
 
         def plan(self):
-            apply_filter_chain_dynamic.launches += 5
+            counts('dyn_chain', 5)
 
         def replay(self):
-            apply_filter_chain_dynamic.launches += 1
+            counts('dyn_chain')
 
         def graph_report(self):
             return {'replays': self.replays}
